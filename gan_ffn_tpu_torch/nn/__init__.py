@@ -1,0 +1,1 @@
+"""Building blocks: Linear, LayerNorm, positional encoding, Transformer encoder."""

@@ -1,0 +1,123 @@
+"""Build the hand-written CUDA kernels with ``nvcc`` and load them with ctypes.
+
+Each ``csrc/<name>.cu`` is one shared library with a plain C interface,
+compiled for Hopper only (``sm_90a``) into ``build/kernels/`` at the root of
+the checkout, at first use -- never when a module is imported, so the CPU
+tests import everything without a CUDA toolchain.  A library's file name
+carries a digest of its source and the compiler flags, so an edited ``.cu``
+rebuilds and a stale library is never loaded.  :func:`build` starts one
+``nvcc`` per missing library, all at once.
+
+Every C entry returns ``cudaGetLastError()`` after its launch; :func:`check`
+turns a non-zero code into a ``RuntimeError``.  A launch that CUDA refuses
+(too much shared memory, a bad grid) never runs, and nothing else would
+report it.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Dict, Iterable, Optional, Sequence
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+)
+
+_lock = threading.Lock()
+_functions: Dict[tuple, ctypes._CFuncPtr] = {}
+
+
+def sources() -> Dict[str, Path]:
+    """Kernel name -> its ``.cu`` source."""
+    return {p.stem: p for p in sorted(CSRC.glob("*.cu"))}
+
+
+def _library_path(src: Path) -> Path:
+    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"{src.stem}-{digest[:16]}.so"
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    candidates = [shutil.which("nvcc")]
+    if CUDA_HOME:
+        candidates.append(os.path.join(CUDA_HOME, "bin", "nvcc"))
+    for c in candidates:
+        if c and os.path.exists(c):
+            return c
+    raise RuntimeError(
+        "nvcc not found (neither on PATH nor under CUDA_HOME); the port's "
+        "CUDA kernels are built from gan_ffn_tpu_torch/csrc at first use"
+    )
+
+
+def build(names: Optional[Iterable[str]] = None) -> Dict[str, Path]:
+    """Compile the named kernels (default: all) whose library is missing.
+
+    One ``nvcc`` process per source, all started together; returns
+    name -> library path.  Raises ``RuntimeError`` with the compiler's output
+    if any build fails.
+    """
+    srcs = sources()
+    wanted = list(srcs) if names is None else list(names)
+    missing = [n for n in wanted if n not in srcs]
+    if missing:
+        raise KeyError(f"no CUDA source for {missing} in {CSRC}")
+    jobs = []
+    for name in wanted:
+        target = _library_path(srcs[name])
+        if target.exists():
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = target.with_name(f"{target.name}.{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(srcs[name])]
+        proc = subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+        )
+        jobs.append((name, target, tmp, proc))
+    errors = []
+    for name, target, tmp, proc in jobs:
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            errors.append(f"--- {name}.cu (nvcc exit {proc.returncode}):\n{log}")
+        else:
+            os.replace(tmp, target)  # atomic: a concurrent build never sees half a file
+    if errors:
+        raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(errors))
+    return {name: _library_path(srcs[name]) for name in wanted}
+
+
+def function(
+    name: str, symbol: str, argtypes: Sequence, restype=ctypes.c_int
+) -> ctypes._CFuncPtr:
+    """The C entry ``symbol`` of kernel library ``name``, built and loaded on
+    first use, with its ``argtypes`` and ``restype`` set."""
+    key = (name, symbol)
+    with _lock:
+        fn = _functions.get(key)
+        if fn is None:
+            lib = ctypes.CDLL(str(build([name])[name]))
+            fn = getattr(lib, symbol)
+            fn.argtypes = list(argtypes)
+            fn.restype = restype
+            _functions[key] = fn
+        return fn
+
+
+def check(code: int, name: str) -> None:
+    """Raise if a C entry of kernel library ``name`` returned a CUDA error."""
+    if code != 0:
+        describe = function(
+            name, f"gan_{name}_error_string", [ctypes.c_int], ctypes.c_char_p
+        )
+        raise RuntimeError(f"{name} launch failed: CUDA error {code} ({describe(code).decode()})")
