@@ -3,9 +3,17 @@
 // with each of pre / mid / post one of none, relu or exact-erf gelu.
 //
 // Replaces: gan_ffn_tpu/ops/mlp.py::_fwd_kernel (pallas_call at :259),
-// reached through fused_mlp -> _fused_mlp_padded -> _mlp_fwd.  Eval only: the
-// TPU kernel's in-kernel dropout comes with the training slice.  The TPU
+// reached through fused_mlp -> _fused_mlp_padded -> _mlp_fwd.  The TPU
 // kernel approximates erf (A&S 7.1.26); this one calls erff.
+//
+// Dropout, in the JAX chain's order (gan_ffn_tpu/ops/mlp.py::_forward_chain):
+//   pre:  t1 = act(x) * M_pre                          (M, K) mask
+//   mid:  drop_first a1 = act(z1 * M_mid), act_first a1 = act(z1) * M_mid
+//   post: out = act(z2 * M_post)                       (M, N) mask
+// Each mask is drawn from its philox.cuh stream (kPre, kMid, kPost) at the
+// flat (row, column) index of its (M, K), (M, H) or (M, N) tensor, so
+// mlp_bwd.cu and the plain version (ops/mlp.py) draw the same masks.  A
+// rate of 0 draws nothing: dropout is a template flag of the kernel.
 //
 // What bounds it on the H100: f32 FMAs.  At the serving shapes (M = L*B up to
 // 3584 rows; K->H->N in {100->2048->100, 512->2048->512, 100->512->100,
@@ -34,6 +42,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "philox.cuh"
 
 namespace {
 
@@ -100,13 +110,21 @@ __device__ __forceinline__ void stage(float* dst, const float* src, int ld, int 
   }
 }
 
-// NJ = ceil(N / 128): 128-column groups of the accumulator.
-template <int NJ, bool kVec>
+// The three dropout sites of one call; `on` says which rates are > 0.
+struct Drops {
+  philox::Dropout site[3];  // pre, mid, post
+  int on[3];
+  int mid_act_first;        // mid order: 0 drop_first, 1 act_first
+};
+
+// NJ = ceil(N / 128): 128-column groups of the accumulator.  kDrop: some
+// rate is > 0.
+template <int NJ, bool kVec, bool kDrop>
 __global__ void __launch_bounds__(kThreads)
 mlp_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w1,
                const float* __restrict__ b1, const float* __restrict__ w2,
                const float* __restrict__ b2, float* __restrict__ out,
-               int M, int K, int H, int N, int pre, int mid, int post) {
+               int M, int K, int H, int N, int pre, int mid, int post, Drops drops) {
   constexpr int Np = NJ * kColGroup;
   constexpr int nH = kChunk / kSliceH;
   extern __shared__ __align__(16) float smem[];
@@ -137,7 +155,13 @@ mlp_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w1,
   for (int i = tid; i < kRows * Kp; i += kThreads) {
     const int r = i / Kp, k = i - r * Kp;
     const int gr = row0 + r;
-    xs[i] = (gr < M && k < K) ? act(pre, x[(size_t)gr * K + k]) : 0.f;
+    float t = 0.f;
+    if (gr < M && k < K) {
+      t = act(pre, x[(size_t)gr * K + k]);
+      if (kDrop && drops.on[0])
+        t *= philox::keep_scale(drops.site[0], philox::kPre, (unsigned long long)gr * K + k);
+    }
+    xs[i] = t;
   }
 
   float acc[4][NJ][4] = {};
@@ -178,11 +202,25 @@ mlp_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w1,
     }
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
+      float a[4];
+      if (kDrop && drops.on[1]) {
+        float ks[4];
+        philox::keep_scale4(drops.site[1], philox::kMid,
+                            (unsigned long long)(row0 + rb + 4 * i) * H + c * kChunk + c0, ks);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const float zz = z[i][j] + bias[j];
+          a[j] = drops.mid_act_first ? act(mid, zz) * ks[j] : act(mid, zz * ks[j]);
+        }
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) a[j] = act(mid, z[i][j] + bias[j]);
+      }
       float4 v;
-      v.x = in[0] ? act(mid, z[i][0] + bias[0]) : 0.f;
-      v.y = in[1] ? act(mid, z[i][1] + bias[1]) : 0.f;
-      v.z = in[2] ? act(mid, z[i][2] + bias[2]) : 0.f;
-      v.w = in[3] ? act(mid, z[i][3] + bias[3]) : 0.f;
+      v.x = in[0] ? a[0] : 0.f;
+      v.y = in[1] ? a[1] : 0.f;
+      v.z = in[2] ? a[2] : 0.f;
+      v.w = in[3] ? a[3] : 0.f;
       *reinterpret_cast<float4*>(as + (rb + 4 * i) * kAs + c0) = v;
     }
     // acc[i][j][e] += a[rb + 4i, :] . W2[chunk, j * 128 + c0 + e]
@@ -218,24 +256,35 @@ mlp_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w1,
     const int gr = row0 + rb + 4 * i;
     if (gr >= M) continue;
 #pragma unroll
-    for (int j = 0; j < NJ; ++j)
+    for (int j = 0; j < NJ; ++j) {
+      float ks[4] = {1.f, 1.f, 1.f, 1.f};
+      if (kDrop && drops.on[2])
+        philox::keep_scale4(drops.site[2], philox::kPost,
+                            (unsigned long long)gr * N + j * kColGroup + c0, ks);
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int col = j * kColGroup + c0 + e;
-        if (col < N) out[(size_t)gr * N + col] = act(post, acc[i][j][e] + b2[col]);
+        if (col >= N) continue;
+        const float zz = acc[i][j][e] + b2[col];
+        out[(size_t)gr * N + col] = act(post, kDrop && drops.on[2] ? zz * ks[e] : zz);
       }
+    }
   }
 }
 
 using KernelFn = void (*)(const float*, const float*, const float*, const float*,
-                          const float*, float*, int, int, int, int, int, int, int);
+                          const float*, float*, int, int, int, int, int, int, int, Drops);
 
-// [vectorised copies][NJ - 1]
-const KernelFn kKernels[2][kMaxColGroups] = {
-    {mlp_fwd_kernel<1, false>, mlp_fwd_kernel<2, false>, mlp_fwd_kernel<3, false>,
-     mlp_fwd_kernel<4, false>},
-    {mlp_fwd_kernel<1, true>, mlp_fwd_kernel<2, true>, mlp_fwd_kernel<3, true>,
-     mlp_fwd_kernel<4, true>},
+#define GAN_MLP_FWD_ROW(VEC, DROP)                                                        \
+  {                                                                                       \
+    mlp_fwd_kernel<1, VEC, DROP>, mlp_fwd_kernel<2, VEC, DROP>,                           \
+        mlp_fwd_kernel<3, VEC, DROP>, mlp_fwd_kernel<4, VEC, DROP>                        \
+  }
+
+// [dropout][vectorised copies][NJ - 1]
+const KernelFn kKernels[2][2][kMaxColGroups] = {
+    {GAN_MLP_FWD_ROW(false, false), GAN_MLP_FWD_ROW(true, false)},
+    {GAN_MLP_FWD_ROW(false, true), GAN_MLP_FWD_ROW(true, true)},
 };
 
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
@@ -254,15 +303,28 @@ int gan_mlp_fwd_smem_bytes(int K, int N) {
 }
 
 // x (M, K), w1 (K, H), b1 (H), w2 (H, N), b2 (N), out (M, N): f32, contiguous,
-// on the current device.  pre / mid / post: 0 none, 1 relu, 2 gelu.
-// Launches on `stream`; returns cudaGetLastError() after the launch.
+// on the current device.  pre / mid / post: 0 none, 1 relu, 2 gelu;
+// mid_act_first: the mid order (0 drop_first, 1 act_first).  thresholds[s]
+// and scales[s] describe the dropout of site s (pre, mid, post), drawn from
+// `seed`; drop_on[s] != 0 where its rate is > 0.  Launches on `stream`;
+// returns cudaGetLastError() after the launch.
 int gan_mlp_fwd(const float* x, const float* w1, const float* b1, const float* w2,
                 const float* b2, float* out, int M, int K, int H, int N,
-                int pre, int mid, int post, cudaStream_t stream) {
+                int pre, int mid, int post, int mid_act_first, unsigned long long seed,
+                const unsigned int* thresholds, const float* scales, const int* drop_on,
+                cudaStream_t stream) {
   const int smem = gan_mlp_fwd_smem_bytes(K, N);
   if (smem == 0 || M < 1 || H < 1) return (int)cudaErrorInvalidValue;
+  Drops drops;
+  bool any = false;
+  for (int s = 0; s < 3; ++s) {
+    drops.site[s] = philox::Dropout{seed, thresholds[s], scales[s]};
+    drops.on[s] = drop_on[s] != 0;
+    any = any || drops.on[s];
+  }
+  drops.mid_act_first = mid_act_first;
   const bool vec = H % 4 == 0 && N % 4 == 0 && aligned16(w1) && aligned16(w2);
-  const KernelFn kernel = kKernels[vec][(N + kColGroup - 1) / kColGroup - 1];
+  const KernelFn kernel = kKernels[any][vec][(N + kColGroup - 1) / kColGroup - 1];
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -270,7 +332,7 @@ int gan_mlp_fwd(const float* x, const float* w1, const float* b1, const float* w
   }
   const int blocks = (M + kRows - 1) / kRows;
   kernel<<<blocks, kThreads, smem, stream>>>(x, w1, b1, w2, b2, out, M, K, H, N,
-                                             pre, mid, post);
+                                             pre, mid, post, drops);
   return (int)cudaGetLastError();
 }
 

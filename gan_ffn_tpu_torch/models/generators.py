@@ -10,7 +10,11 @@ one fused MLP (``ops.mlp.fused_mlp``):
 - ``TextGenerator``:     (L, B, 100) -> (L, B, D_h), 10 heads, head 512
 
 Each wraps a ``_TransformerGenerator`` under ``net``, as the JAX modules do,
-so the ``state_dict`` keys follow the JAX parameter tree.
+so the ``state_dict`` keys follow the JAX parameter tree.  The positional
+encoding keeps its module default rate of 0.2 whatever the generator's
+``dropout``, as the JAX generator builds it without a rate
+(``gan_ffn_tpu/models/generators.py``); ``dropout`` sets the head's three
+in-kernel dropouts.
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ from torch import nn
 from ..nn.core import Linear, kernel_layout
 from ..nn.positional import PositionalEncoding
 from ..nn.transformer import TransformerEncoder
+from ..ops.dropout import draw_seed
 from ..ops.mlp import fused_mlp
 
 # Bucket lengths may exceed the reference's 110-utterance PE table; padded
@@ -33,15 +38,15 @@ PE_MAX_LEN = 128
 class _TransformerGenerator(nn.Module):
     """Shared generator skeleton: PE -> encoder -> fused gelu MLP head."""
 
+    dropout_generator: Optional[torch.Generator] = None  # kernel seeds (nn.core)
+
     def __init__(self, d_model: int, nhead: int, d_hidden: int, d_out: int,
                  num_layers: int = 8, dropout: float = 0.2, *,
                  generator: Optional[torch.Generator] = None, device="cuda"):
         super().__init__()
         self.dropout = dropout
         kw = dict(generator=generator, device=device)
-        self.position_encoding = PositionalEncoding(
-            d_model, dropout, max_len=PE_MAX_LEN, device=device
-        )
+        self.position_encoding = PositionalEncoding(d_model, max_len=PE_MAX_LEN, device=device)
         self.transformer_encoder = TransformerEncoder(d_model, nhead, num_layers=num_layers, **kw)
         self.fc1 = Linear(d_model, d_hidden, **kw)
         self.fc2 = Linear(d_hidden, d_out, **kw)
@@ -55,6 +60,7 @@ class _TransformerGenerator(nn.Module):
             pre=("gelu", rate),
             mid=("gelu", "drop_first", rate),
             post=("gelu", "drop_first", rate),
+            dropout_seed=draw_seed(self.dropout_generator) if rate > 0.0 else None,
         )
 
 

@@ -1,1 +1,1 @@
-"""Building blocks: Linear, LayerNorm, positional encoding, Transformer encoder."""
+"""Building blocks: Linear, LayerNorm, positional encoding, Transformer encoder, losses."""

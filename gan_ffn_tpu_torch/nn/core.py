@@ -6,6 +6,11 @@ attention ``in_proj`` xavier-uniform with a zero bias.  Parameters are drawn
 on the CPU from an explicit ``torch.Generator`` and then moved to ``device``,
 so one seed gives the same weights on every device.  No bit match with the
 JAX init is sought: ``utils/weights.py`` carries JAX weights across.
+
+Modules that launch a kernel with dropout draw one seed per call from their
+``dropout_generator``, a CPU ``torch.Generator`` that the trainer owns
+(:func:`set_dropout_generator`), or from torch's default CPU generator when
+it is None.  The draw stays on the host, so it never waits on the card.
 """
 
 from __future__ import annotations
@@ -16,6 +21,15 @@ from typing import Optional, Sequence
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+
+def set_dropout_generator(module: nn.Module, generator: Optional[torch.Generator]) -> None:
+    """Point every kernel-launching submodule of ``module`` at ``generator``
+    for its kernel dropout seeds (the counterpart of the JAX modules'
+    ``make_rng("dropout")``)."""
+    for m in module.modules():
+        if hasattr(m, "dropout_generator"):
+            m.dropout_generator = generator
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:

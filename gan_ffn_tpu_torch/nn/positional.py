@@ -23,7 +23,7 @@ def sinusoidal_table(max_len: int, d_model: int) -> np.ndarray:
 
 
 class PositionalEncoding(nn.Module):
-    """x (L, B, D) -> dropout(x + PE[:L])."""
+    """x (L, B, D) -> dropout(x + PE[:L]), with torch's dropout RNG."""
 
     def __init__(self, d_model: int, dropout: float = 0.2, max_len: int = 110, *,
                  device="cuda"):

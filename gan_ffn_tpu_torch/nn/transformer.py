@@ -11,8 +11,11 @@ Module boundaries are time-major ``(L, B, E)``; heads are ``(B, H, L, Dh)``.
 bucket-padding mask.  The ``in_proj``/``out_proj`` products are plain
 ``F.linear``, as the JAX package leaves them to XLA; attention runs through
 ``ops.attention.fused_attention`` and the FFN through ``ops.mlp.fused_mlp``,
-which launch the hand-written kernels on CUDA tensors.  In training mode the
-kernels raise until their dropout lands with the training slice.
+which launch the hand-written kernels (forward and backward) on CUDA
+tensors.  In training mode the attention-weight and FFN dropouts run inside
+those kernels, each call with a fresh seed from the module's
+``dropout_generator`` (``nn.core``); the two residual dropouts are
+``F.dropout`` with torch's RNG.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.attention import fused_attention
+from ..ops.dropout import draw_seed
 from ..ops.mlp import fused_mlp
 from .core import LayerNorm, Linear, kernel_layout, uniform_parameter
 
@@ -33,6 +37,8 @@ class MultiheadSelfAttention(nn.Module):
     """torch ``nn.MultiheadAttention`` self-attention, batch_first=False:
     packed xavier-uniform ``in_proj`` with a zero bias, masked softmax
     attention, output projection."""
+
+    dropout_generator: Optional[torch.Generator] = None  # kernel seeds (nn.core)
 
     def __init__(self, embed_dim: int, num_heads: int, dropout: float = 0.0, *,
                  generator: Optional[torch.Generator] = None, device="cuda"):
@@ -56,7 +62,9 @@ class MultiheadSelfAttention(nn.Module):
 
         q, k, v = (heads(t) for t in qkv.chunk(3, dim=-1))
         rate = self.dropout if self.training else 0.0
-        out = fused_attention(q, k, v, valid_len=valid_len, dropout_rate=rate)
+        seed = draw_seed(self.dropout_generator) if rate > 0.0 else None
+        out = fused_attention(q, k, v, valid_len=valid_len, dropout_rate=rate,
+                              dropout_seed=seed)
         out = out.permute(2, 0, 1, 3).reshape(L, B, E)
         return self.out_proj(out)
 
@@ -67,6 +75,8 @@ class TransformerEncoderLayer(nn.Module):
     x = norm1(x + dropout(attn(x)));  x = norm2(x + dropout(ff(x)))
     with ff = linear2(dropout(relu(linear1(x)))) as one fused MLP.
     """
+
+    dropout_generator: Optional[torch.Generator] = None  # kernel seeds (nn.core)
 
     def __init__(self, d_model: int, nhead: int, dim_feedforward: int = 2048,
                  dropout: float = 0.1, *, generator: Optional[torch.Generator] = None,
@@ -88,6 +98,7 @@ class TransformerEncoderLayer(nn.Module):
             x,
             *kernel_layout(self.linear1), *kernel_layout(self.linear2),
             mid=("relu", "act_first", rate),
+            dropout_seed=draw_seed(self.dropout_generator) if rate > 0.0 else None,
         )
         return self.norm2(x + F.dropout(h, self.dropout, self.training))
 

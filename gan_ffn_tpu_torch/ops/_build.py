@@ -4,8 +4,10 @@ Each ``csrc/<name>.cu`` is one shared library with a plain C interface,
 compiled for Hopper only (``sm_90a``) into ``build/kernels/`` at the root of
 the checkout, at first use -- never when a module is imported, so the CPU
 tests import everything without a CUDA toolchain.  A library's file name
-carries a digest of its source and the compiler flags, so an edited ``.cu``
-rebuilds and a stale library is never loaded.  :func:`build` starts one
+carries a digest of its source, of every header under ``csrc/`` that it
+includes (``#include "..."``, followed through headers), and of the compiler
+flags, so an edited ``.cu`` or ``.cuh`` rebuilds and a stale library is
+never loaded.  :func:`build` starts one
 ``nvcc`` per missing library, all at once.
 
 Every C entry returns ``cudaGetLastError()`` after its launch; :func:`check`
@@ -19,11 +21,12 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Iterable, Optional, Sequence
+from typing import Dict, Iterable, List, Optional, Sequence
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -41,9 +44,30 @@ def sources() -> Dict[str, Path]:
     return {p.stem: p for p in sorted(CSRC.glob("*.cu"))}
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
+
+
+def local_headers(src: Path) -> List[Path]:
+    """The headers beside ``src`` that it includes, directly or through
+    another header, in the order first met."""
+    seen: List[Path] = []
+    todo = [src]
+    while todo:
+        current = todo.pop(0)
+        for name in _INCLUDE.findall(current.read_bytes()):
+            header = (current.parent / name.decode()).resolve()
+            if header.is_file() and header not in seen:
+                seen.append(header)
+                todo.append(header)
+    return seen
+
+
 def _library_path(src: Path) -> Path:
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"{src.stem}-{digest[:16]}.so"
+    h = hashlib.sha256(src.read_bytes())
+    for header in local_headers(src):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{src.stem}-{h.hexdigest()[:16]}.so"
 
 
 def _nvcc() -> str:

@@ -22,7 +22,7 @@ from gan_ffn_tpu.nn.transformer import TransformerEncoderLayer as JaxEncoderLaye
 from gan_ffn_tpu.nn.core import gelu as jax_gelu
 from gan_ffn_tpu.nn.transformer import stack_layer_params
 from gan_ffn_tpu_torch.models import GAN_FFN, AcousticGenerator, TextGenerator, VisualGenerator
-from gan_ffn_tpu_torch.nn.core import gelu
+from gan_ffn_tpu_torch.nn.core import gelu, set_dropout_generator
 from gan_ffn_tpu_torch.nn.positional import PositionalEncoding, sinusoidal_table
 from gan_ffn_tpu_torch.nn.transformer import TransformerEncoder, TransformerEncoderLayer
 from gan_ffn_tpu_torch.utils.weights import gan_ffn_state_dict_from_jax
@@ -159,8 +159,31 @@ def test_init_is_seeded_and_device_explicit():
             GAN_FFN(gen_num_layers=1)
 
 
-def test_training_mode_raises_until_the_training_slice():
-    model = GAN_FFN(gen_num_layers=1, device="cpu").train()
+def test_positional_dropout_keeps_the_jax_rate():
+    """The JAX generator builds its PositionalEncoding without a rate, so its
+    PE dropout is the module default 0.2 whatever the generator's dropout."""
+    for cls in (AcousticGenerator, VisualGenerator, TextGenerator):
+        gen = cls(100, dropout=0.5, num_layers=1, device="cpu")
+        assert gen.net.position_encoding.dropout == 0.2
+        assert gen.net.dropout == 0.5
+
+
+def test_training_mode_is_seeded_by_the_dropout_generator():
+    """In training mode the kernel dropouts draw their seeds from the model's
+    dropout generator and the others from torch's RNG: the same seeds give
+    the same log-probs, another kernel seed gives others."""
+    model = GAN_FFN(gen_num_layers=1, generator=torch.Generator().manual_seed(0), device="cpu")
     xs = [torch.from_numpy(_x(d, 0)) for d in (100, 512, 100)]
-    with pytest.raises(NotImplementedError, match="training slice"):
-        model(*xs)
+
+    def run(kernel_seed):
+        set_dropout_generator(model, torch.Generator().manual_seed(kernel_seed))
+        torch.manual_seed(1)
+        with torch.no_grad():
+            return model.train()(*xs, valid_len=VL)
+
+    a, b, c = run(0), run(0), run(1)
+    assert torch.isfinite(a).all()
+    torch.testing.assert_close(a, b, rtol=0, atol=0)
+    assert not torch.equal(a, c)
+    with torch.no_grad():
+        assert not torch.equal(a, model.eval()(*xs, valid_len=VL))
