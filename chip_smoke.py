@@ -7,10 +7,13 @@ Phases, each printing JSON lines; any failure exits non-zero:
 
 1. device   -- the card's name and power limit (nvidia-smi) and torch's view.
 2. build    -- nvcc builds every kernel under gan_ffn_tpu_torch/csrc (four
-               libraries: attention_fwd, attention_bwd, mlp_fwd, mlp_bwd).
+               libraries: attention_fwd, attention_bwd, mlp_fwd, mlp_bwd),
+               one process each, all at once; prints each library's nvcc
+               seconds and each kernel's registers and spill bytes.
 3. kernels  -- each kernel against its plain PyTorch version on the card, at
                the training path's shapes (B=32, L=112 bucket): attention
-               (32,10,112,10) and (32,8,112,64) at valid_len 112/90/1/0; MLP
+               (32,10,112,10) and (32,8,112,64) at valid_len 112/90/1/0, and
+               the ragged (4,2,17,33) at rate 0.1 for correctness only; MLP
                at M=3584 rows for the four K->H->N geometries.  Each at
                dropout rate 0 and at the path's rate (attention 0.1, encoder
                FFN mid 0.1, generator head pre/mid/post 0.2): the kernels
@@ -25,9 +28,11 @@ Phases, each printing JSON lines; any failure exits non-zero:
                L2-warm; plain_ms for the plain version (autograd of it for
                a backward); library_ms for F.scaled_dot_product_attention's
                forward and backward (attention only; the port never calls
-               it).  bound_ms = max(bytes / 3.35 TB/s, flops / 67 TFLOP/s f32
-               non-tensor), the H100 SXM data-sheet peaks, each input read
-               once and each output written once.
+               it).  bound_ms = max(bytes / 3.35 TB/s, flops / 165 TFLOP/s),
+               each input read once and each output written once: 165 is
+               the H100 SXM data sheet's 495 TFLOP/s TF32 over the three
+               TF32 products that give one f32-accurate product (3xTF32),
+               the card's fastest f32-accurate rate.
 4. serving  -- a full-width 8-layer GAN_FFN (random weights from a fixed
                seed) exported and loaded by ServingClassifier on the card,
                answering HTTP POST /predict requests through the cli/serve.py
@@ -76,7 +81,7 @@ import urllib.request
 import numpy as np
 
 REPO = os.path.dirname(os.path.abspath(__file__))
-PEAK_F32_FLOPS = 67e12  # H100 SXM, float32 outside the tensor cores
+PEAK_F32_ACCURATE_FLOPS = 495e12 / 3  # H100 SXM TF32 tensor cores, 3 products per f32 (3xTF32)
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 ATTN_TOL = 1e-5
 GRAD_TOL = 1e-4  # relative to max(1, max |ref|)
@@ -86,6 +91,7 @@ GRID = (1, 4, 8, 32)
 ATTN_RATE = 0.1
 # (B, H, L, Dh) -> attention launches per forward (and per backward) at B=32, L=112
 ATTN_SHAPES = {(32, 10, 112, 10): 16, (32, 8, 112, 64): 8}
+RAGGED_ATTN_SHAPE = (4, 2, 17, 33)  # L, Dh off the 16-row tiles and the head widths
 # (K, H, N, site) -> MLP launches per forward (and per backward) at M = 112 * 32 rows
 MLP_SHAPES = {
     (100, 2048, 100, "ffn"): 16,
@@ -141,7 +147,7 @@ def device_time_ms(torch, fn, reps: int = 21, group: int = 10, sleep_ms: float =
 
 
 def bound_ms(n_bytes: float, flops: float):
-    t_bytes, t_ops = n_bytes / PEAK_BYTES * 1e3, flops / PEAK_F32_FLOPS * 1e3
+    t_bytes, t_ops = n_bytes / PEAK_BYTES * 1e3, flops / PEAK_F32_ACCURATE_FLOPS * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -175,7 +181,12 @@ def phase_build():
     secs = time.perf_counter() - t0
     if set(libs) != set(SOURCES):
         fail(f"expected the kernels {sorted(SOURCES)}, built {sorted(libs)}")
-    emit({"phase": "build", "seconds": secs, "libraries": {k: str(v.relative_to(REPO)) for k, v in libs.items()}})
+    emit({"phase": "build", "seconds": secs, "libraries": {k: str(v.relative_to(REPO)) for k, v in libs.items()},
+          "nvcc_seconds": dict(_build.build_seconds),
+          "kernels": {name: [{"kernel": r["kernel"], "registers": r.get("registers"),
+                              "spill_stores": r.get("spill_stores"), "spill_loads": r.get("spill_loads")}
+                             for r in _build.ptxas_resources(log)]
+                      for name, log in _build.build_logs.items()}})
 
 
 class Rows:
@@ -256,6 +267,26 @@ def phase_kernels_attention(torch, rows: Rows):
                     rows.step["attention_bwd"].append((count, bwd))
                 emit({"name": "attention", **line, "launches_per_step": count,
                       "fwd": fwd, "bwd": bwd})
+
+    # a ragged geometry (L and Dh off the kernels' tiles), correctness only
+    B, H, L, Dh = RAGGED_ATTN_SHAPE
+    q, k, v, dout = (torch.randn(B, H, L, Dh, device="cuda", generator=gen) for _ in range(4))
+    for vl in (L, L - 3, 1, 0):
+        seed = 3000 + vl
+        got = A.fused_attention(q, k, v, valid_len=vl, dropout_rate=ATTN_RATE, dropout_seed=seed)
+        grads = A.fused_attention_backward(q, k, v, dout, vl, ATTN_RATE, seed)
+        again = A.fused_attention_backward(q, k, v, dout, vl, ATTN_RATE, seed)
+        torch.cuda.synchronize()
+        err = (got - A.attention_plain(q, k, v, vl, ATTN_RATE, seed)).abs().max().item()
+        plain = A.attention_backward_plain(q, k, v, dout, vl, ATTN_RATE, seed)
+        gerr = max(max_rel_err(g, w) for g, w in zip(grads, plain))
+        if not (err <= ATTN_TOL and gerr <= GRAD_TOL):
+            fail(f"attention {(B, H, L, Dh)} rate={ATTN_RATE} valid_len={vl}: forward max |diff| "
+                 f"{err} (limit {ATTN_TOL}), backward {gerr} (limit {GRAD_TOL} relative)")
+        if not all(torch.equal(g, h) for g, h in zip(grads, again)):
+            fail(f"attention_bwd {(B, H, L, Dh)} valid_len={vl}: two calls differ")
+        emit({"phase": "kernel", "name": "attention", "shape": [B, H, L, Dh], "rate": ATTN_RATE,
+              "valid_len": vl, "fwd_max_abs_err": err, "bwd_max_rel_err": gerr})
 
     # keep fraction of the kernel's mask: uniform weights, v = e_0
     B, H, L, Dh = 32, 8, 112, 64

@@ -7,8 +7,8 @@
 // keys >= valid_len masked to -1e30, P = softmax(S), the dropout mask M of
 // philox.cuh's stream kAttention at flat index ((b * H + h) * L + i) * L + j)
 // and returns
-//   dV = (P * M)^T dO,   dA = dO V^T,   D_i = sum_j P_ij M_ij dA_ij,
-//   dS = P * (dA * M - D) * scale,   dQ = dS K,   dK = dS^T Q.
+//   dV = (P * M)^T dO,   dP = dO V^T,   D_i = sum_j P_ij M_ij dP_ij,
+//   dS = P * (dP * M - D) * scale,   dQ = dS K,   dK = dS^T Q.
 // Nothing from the forward is stored: P and M are recomputed (flash style).
 //
 // valid_len = 0: the forward is a uniform softmax over all L keys (every
@@ -20,240 +20,393 @@
 // For valid_len > 0 a masked key has P = 0 exactly, so it adds nothing.
 //
 // What bounds it on the H100: at the path's shapes one launch reads 4 and
-// writes 3 (B, H, L, Dh) tensors (~2.5-12.8 MB) and does the work of five
-// (L x L x Dh) products (~0.5-2.3 GFLOP): a few microseconds at 3.35 TB/s or
-// 67 TFLOP/s f32.  Latency and the serial walks of one block bound it.
+// writes 3 (B, H, L, Dh) tensors (3.2-12.8 MB) and does the work of five
+// (L x L x Dh) products (0.4-2.1 GFLOP): 1-4 us at 3.35 TB/s or at the
+// 165 TFLOP/s of f32-accurate 3xTF32.  Latency bounds it: one block per
+// (b, h) runs a chain of dependent products over at most 128 keys, and at
+// Dh = 64 a block needs 159 KB of shared memory, so one block per SM and the
+// path's 256 blocks in two waves.  One block alone takes about half the
+// launch's time, and pass 2 is the largest share of a block's cycles
+// (cli/attention_probes.py).
 //
-// Design: one block per (batch, head), one thread per row (query or key),
-// up to 128 threads.  Q, K, V and dO of the (b, h) and one (L, L) buffer sit
-// in shared memory (at L = 128, Dh = 64: 197 KB, above the 48 KB default, so
-// the launch raises the block's limit).  Passes, each thread keeping at most
-// two Dh-rows in registers (256 floats would exceed the 255-register limit
-// at Dh = 64):
-//   1. query row i: walk the keys with an online softmax for m_i, l_i, and
-//      D_i (q_i and dO_i in registers);
-//   2. query row i: A_ij = P_ij M_ij into the buffer;
-//   3. key row j:   dV_j = sum_i A_ij dO_i;
-//   4. query row i: dS_ij into the buffer (q_i and dO_i in registers);
-//   5. query row i: dQ_i = sum_j dS_ij K_j; key row j: dK_j = sum_i dS_ij Q_i.
-// Every sum runs in ascending order, so two calls give the same bits.  The
-// buffer's row stride is L + 1 floats, so a warp reading a column (pass 5,
-// dQ) or writing a row (passes 2, 4) hits 32 different banks.
+// Design: one block per (batch, head), two warps per 16 rows.  Q and K,
+// then V and dO, are staged with cp.async into shared memory in two groups
+// (row stride Dp + 4, Dh zero-padded to 16, 32 or 64, copies of 16 or 8
+// bytes where Dh and the pointers allow); nothing L x L is kept.  Every
+// product is TF32 mma.sync in the 3xTF32 split (mma_tf32.cuh).  Two passes:
+//   1. query-major, rows r0 .. r0 + 15, each warp of the pair half of the
+//      key tiles: S, with the dropout keep bits drawn between its k steps
+//      (the integer work overlaps the mma; each row's byte per tile also
+//      goes to shared memory, so the mask is drawn once per launch), then
+//      dP = dO V^T; the row max, sum and D_i = sum_j P_ij M_ij dP_ij are
+//      combined across the pair through shared memory in a fixed order; dS
+//      and the pair's two halves of dQ = dS K, added in order and written
+//      once.  Each row keeps (log2 of its sum of exp, D_i) in shared memory.
+//   -- one barrier --
+//   2. key-major, keys r0 .. r0 + 15, each warp half of the query tiles in
+//      chunks of 4 tiles (2 at Dp = 64, for registers): S^T = K Q^T and
+//      dP^T = V dO^T recomputed, P^T = exp2 of the scaled score less the
+//      row's log2 sum, the keep bits read back at the transposed position,
+//      A^T = P^T * M and dS^T; then
+//      dV += A^T dO and dK += dS^T Q, the two halves added in order through
+//      the freed staging buffers and written once.
+// Two warps per group double the warps in flight (14 at L = 112) and halve
+// each warp's chain.  The tile loops carry no per-tile branch (a tile past
+// the staged rows reads the last one and is masked or weighted 0), so loads,
+// splits and mma of different tiles overlap.  A group whose keys are all
+// masked writes zeros in pass 2.  Accumulators are reused as A operands
+// with the k order permuted, so no shuffle moves them.  Every sum runs in a
+// fixed order (no atomics), so two calls give the same bits.  At most 128
+// registers a thread (512 threads at L = 128).
 
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
+#include "mma_tf32.cuh"
 #include "philox.cuh"
 
 namespace {
 
-constexpr int kMaxLen = 128;  // rows (threads) and keys per block
-constexpr int kMaxDim4 = 16;  // Dh <= 64, in groups of 4
+constexpr int kMaxLen = 128;  // rows and keys per block
+constexpr int kParts = 2;  // warps per 16-row group
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kWidths[3] = {16, 32, 64};
 
 __host__ __device__ constexpr int round_up(int x, int m) { return (x + m - 1) / m * m; }
 
-template <int D4>
-__device__ __forceinline__ float dot(const float (&a)[4 * D4], const float* b) {
-  float part[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-  for (int g = 0; g < D4; ++g) {
-    const float4 bv = *reinterpret_cast<const float4*>(b + 4 * g);
-    part[0] = fmaf(a[4 * g + 0], bv.x, part[0]);
-    part[1] = fmaf(a[4 * g + 1], bv.y, part[1]);
-    part[2] = fmaf(a[4 * g + 2], bv.z, part[2]);
-    part[3] = fmaf(a[4 * g + 3], bv.w, part[3]);
-  }
-  return (part[0] + part[1]) + (part[2] + part[3]);
-}
+__host__ __device__ constexpr int width_index(int Dh) { return Dh <= 16 ? 0 : Dh <= 32 ? 1 : 2; }
 
-template <int D4>
-__device__ __forceinline__ void axpy(float (&acc)[4 * D4], float w, const float* x) {
+// Rows ra and ra + 8 of kDt accumulator tiles to the (L, Dh) slab dst.
+template <int kDt>
+__device__ __forceinline__ void store_tile(float* __restrict__ dst, const float (&acc)[kDt][4],
+                                           int ra, int L, int Dh, int t, bool pairs) {
+  const int rb = ra + 8;
 #pragma unroll
-  for (int g = 0; g < D4; ++g) {
-    const float4 xv = *reinterpret_cast<const float4*>(x + 4 * g);
-    acc[4 * g + 0] = fmaf(w, xv.x, acc[4 * g + 0]);
-    acc[4 * g + 1] = fmaf(w, xv.y, acc[4 * g + 1]);
-    acc[4 * g + 2] = fmaf(w, xv.z, acc[4 * g + 2]);
-    acc[4 * g + 3] = fmaf(w, xv.w, acc[4 * g + 3]);
+  for (int d = 0; d < kDt; ++d) {
+    const int c = 8 * d + 2 * t;
+    tf32::store_pair(dst + (size_t)ra * Dh, c, Dh, ra < L, pairs, acc[d][0], acc[d][1]);
+    tf32::store_pair(dst + (size_t)rb * Dh, c, Dh, rb < L, pairs, acc[d][2], acc[d][3]);
   }
 }
 
-template <int D4>
-__device__ __forceinline__ void store_row(float* dst, const float (&r)[4 * D4], int Dh) {
-#pragma unroll
-  for (int d = 0; d < 4 * D4; ++d)
-    if (d < Dh) dst[d] = r[d];
-}
-
-template <int D4>
-__device__ __forceinline__ void load_row(float (&r)[4 * D4], const float* src) {
-#pragma unroll
-  for (int g = 0; g < D4; ++g) {
-    const float4 t = *reinterpret_cast<const float4*>(src + 4 * g);
-    r[4 * g + 0] = t.x;
-    r[4 * g + 1] = t.y;
-    r[4 * g + 2] = t.z;
-    r[4 * g + 3] = t.w;
-  }
-}
-
-// D4 = ceil(Dh / 4); kDrop: the forward applied attention-weight dropout.
-template <int D4, bool kDrop>
-__global__ void __launch_bounds__(kMaxLen)
+// Dp: Dh padded to 16, 32 or 64; kDrop: the forward applied attention-weight dropout.
+template <int Dp, bool kDrop>
+__global__ void __launch_bounds__(kMaxLen / 16 * 32 * kParts, 1)
 attention_bwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, const float* __restrict__ dout,
                      float* __restrict__ dq, float* __restrict__ dk, float* __restrict__ dv,
-                     int L, int Dh, int valid_len, float scale, philox::Dropout drop) {
-  constexpr int Dp = 4 * D4;
+                     int L, int Dh, int valid_len, float scale, int vec, philox::Dropout drop) {
+  constexpr int ld = Dp + 4;
+  constexpr int kDt = Dp / 8;
+  constexpr int kPartTiles = (kMaxLen / 8 + kParts - 1) / kParts;  // key or query tiles of a warp
+  constexpr int kChunk = Dp == 64 ? 2 : 4;  // query tiles per step of pass 2 (registers)
   extern __shared__ __align__(16) float smem[];
-  const int Ls = L + 1;          // row stride of the (L, L) buffer
-  float* sq = smem;              // L x Dp, zero-padded
-  float* sk = sq + L * Dp;
-  float* sv = sk + L * Dp;
-  float* sdo = sv + L * Dp;
-  float* sbuf = sdo + L * Dp;    // L x Ls: A, then dS
-  float* sm = sbuf + L * Ls;     // m_i
-  float* sl = sm + L;            // l_i
-  float* sD = sl + L;            // D_i
+  GAN_PROBE(0);
+  const int Lp = round_up(L, 16);
+  float* sq = smem;
+  float* sk = sq + Lp * ld;
+  float* sv = sk + Lp * ld;
+  float* sdo = sv + Lp * ld;
+  float* sxq = sdo + Lp * ld;               // partial dQ of parts 1.. (then dV, dK go to sq..sdo)
+  float2* sst = reinterpret_cast<float2*>(sxq + (kParts - 1) * Lp * ld);  // per row: log2 sum exp, D
+  float* sred = reinterpret_cast<float*>(sst + Lp);                       // per part and row: m, l, D
+  unsigned char* smask = reinterpret_cast<unsigned char*>(sred + 4 * kParts * Lp);  // keep bits
   const size_t base = (size_t)blockIdx.x * L * Dh;
+  tf32::stage<Dp>(sq, q + base, L, Lp, Dh, vec);
+  tf32::stage<Dp>(sk, k + base, L, Lp, Dh, vec);
+  tf32::stage_commit();
+  tf32::stage<Dp>(sv, v + base, L, Lp, Dh, vec);  // land while the keep bits and S are computed
+  tf32::stage<Dp>(sdo, dout + base, L, Lp, Dh, vec);
+  tf32::stage_commit();
 
-  for (int idx = threadIdx.x; idx < L * Dp; idx += blockDim.x) {
-    const int r = idx / Dp, d = idx - r * Dp;
-    const bool in = d < Dh;
-    const size_t g = base + (size_t)r * Dh + d;
-    sq[idx] = in ? q[g] : 0.f;
-    sk[idx] = in ? k[g] : 0.f;
-    sv[idx] = in ? v[g] : 0.f;
-    sdo[idx] = in ? dout[g] : 0.f;
-  }
-  __syncthreads();
-
-  const int t = threadIdx.x;  // query row i in passes 1, 2, 4, 5; key row j in 3, 5
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int warp = threadIdx.x >> 5, part = warp % kParts;
+  const int r0 = (warp / kParts) * 16;  // the group's first row: query (pass 1), key (pass 2)
+  const int ra = r0 + g, rb = ra + 8;
   const bool uniform = valid_len <= 0;
   const int keys = uniform ? L : min(valid_len, L);
-  const unsigned long long mask_row = ((unsigned long long)blockIdx.x * L + t) * L;
+  const unsigned long long bh = blockIdx.x;
+  const float scale2 = scale * kLog2e;
+  // Tile n's rows start at 8n; past the staged rows the loads read the last
+  // staged tile instead, whose products are then masked or weighted 0.  The
+  // tile loops carry no per-tile branch, so the compiler can overlap one
+  // tile's loads and splits with another's mma.
+  const auto tile_row = [Lp](int n) { return min(8 * n, Lp - 8); };
 
-  // Pass 1: m_i, l_i, D_i (online over the keys; D rescaled with l).
-  if (t < L && !uniform) {
-    float qr[Dp], dor[Dp];
-    load_row<D4>(qr, sq + t * Dp);
-    load_row<D4>(dor, sdo + t * Dp);
-    float m = -INFINITY, l = 0.f, d = 0.f;
-    philox::Cursor cursor;
-    for (int j = 0; j < keys; ++j) {
-      const float s = dot<D4>(qr, sk + j * Dp) * scale;
-      float da = dot<D4>(dor, sv + j * Dp);
-      if (kDrop) da *= cursor.at(drop, philox::kAttention, mask_row + j);
-      if (s > m) {
-        const float c = expf(m - s);
-        l *= c;
-        d *= c;
-        m = s;
+  // ---- pass 1: query rows ra, rb; this part's key tiles ----
+  {
+    const int nkt = (keys + 7) / 8, per = (nkt + kParts - 1) / kParts;
+    const int tb = part * per, tn = max(0, min(per, nkt - tb));
+    // keep bit 4n + e for element e of tile n, drawn among the k steps of S
+    // so that the integer work overlaps the mma (kPartTiles / kDt tiles a
+    // step); each row's byte per tile also goes to smask for pass 2
+    uint32_t keep = 0;
+    const unsigned long long row_a = (bh * L + ra) * L, row_b = row_a + 8ull * L;
+    const bool aligned = (L & 3) == 0;
+    const auto draw = [&](int n) {
+      const uint32_t bits = tf32::tile_keep(drop, row_a, row_b, 8 * (tb + n), t, aligned);
+      keep |= bits << (4 * n);
+      const uint32_t rows = tf32::tile_keep_rows(bits, t);
+      if (t == 0 && n < tn) {
+        smask[ra * 16 + tb + n] = (unsigned char)rows;
+        smask[rb * 16 + tb + n] = (unsigned char)(rows >> 8);
       }
-      const float e = expf(s - m);
-      l += e;
-      d = fmaf(e, da, d);
+    };
+    float s[kPartTiles][4], dp[kPartTiles][4];
+#pragma unroll
+    for (int n = 0; n < kPartTiles; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
     }
-    sm[t] = m;
-    sl[t] = l;
-    sD[t] = d / l;
-  }
-
-  // Pass 2: A_ij = P_ij M_ij (0 at masked keys).
-  if (t < L) {
-    float* arow = sbuf + t * Ls;
-    philox::Cursor cursor;
-    if (uniform) {
-      const float p = 1.f / (float)L;
-      for (int j = 0; j < L; ++j)
-        arow[j] = kDrop ? p * cursor.at(drop, philox::kAttention, mask_row + j) : p;
-    } else {
-      float qr[Dp];
-      load_row<D4>(qr, sq + t * Dp);
-      const float m = sm[t], inv_l = 1.f / sl[t];
-      for (int j = 0; j < L; ++j) {
-        float a = 0.f;
-        if (j < keys) {
-          a = expf(dot<D4>(qr, sk + j * Dp) * scale - m) * inv_l;
-          if (kDrop) a *= cursor.at(drop, philox::kAttention, mask_row + j);
+    tf32::stage_wait<1>();  // Q and K are in
+    GAN_PROBE(1);
+    if (!uniform) {
+#pragma unroll
+      for (int kk = 0; kk < kDt; ++kk) {
+        const tf32::FragA a = tf32::load_a(sq, ld, r0, 8 * kk, g, t);
+#pragma unroll
+        for (int n = 0; n < kPartTiles; ++n)
+          tf32::mma3(s[n], a, tf32::load_b_rows(sk, ld, tile_row(tb + n), 8 * kk, g, t));
+        if (kDrop) {
+#pragma unroll
+          for (int n = kk * kPartTiles / kDt; n < (kk + 1) * kPartTiles / kDt; ++n) draw(n);
         }
-        arow[j] = a;
+      }
+    } else if (kDrop) {
+#pragma unroll
+      for (int n = 0; n < kPartTiles; ++n) draw(n);
+    }
+    GAN_PROBE(2);  // S and the keep bits
+    tf32::stage_wait<0>();  // V and dO are in
+    GAN_PROBE(3);
+    float dqa[kDt][4];
+#pragma unroll
+    for (int d = 0; d < kDt; ++d) dqa[d][0] = dqa[d][1] = dqa[d][2] = dqa[d][3] = 0.f;
+    // log2 of each row's sum of exp(score) (uniform: L scores of 0), and D
+    float lse0 = log2f((float)L), lse1 = lse0, D0 = 0.f, D1 = 0.f;
+    if (!uniform) {  // block-uniform: the barriers inside are reached by every thread
+#pragma unroll
+      for (int kk = 0; kk < kDt; ++kk) {
+        const tf32::FragA a = tf32::load_a(sdo, ld, r0, 8 * kk, g, t);
+#pragma unroll
+        for (int n = 0; n < kPartTiles; ++n)
+          tf32::mma3(dp[n], a, tf32::load_b_rows(sv, ld, tile_row(tb + n), 8 * kk, g, t));
+      }
+      GAN_PROBE(4);  // dP
+      // this part's row max and sum, then the whole row's from all parts
+      float h0 = -INFINITY, h1 = -INFINITY;
+#pragma unroll
+      for (int n = 0; n < kPartTiles; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int j = 8 * (tb + n) + 2 * t + (e & 1);
+          s[n][e] = n < tn && j < keys ? s[n][e] * scale : -INFINITY;
+        }
+        h0 = fmaxf(h0, fmaxf(s[n][0], s[n][1]));
+        h1 = fmaxf(h1, fmaxf(s[n][2], s[n][3]));
+      }
+      h0 = tf32::quad_max(h0);
+      h1 = tf32::quad_max(h1);
+      float l0 = 0.f, l1 = 0.f;
+      // masked scores give exp(-inf) = 0, also where this part has no key (h = -inf)
+      const float e0 = h0 == -INFINITY ? 0.f : h0, e1 = h1 == -INFINITY ? 0.f : h1;
+#pragma unroll
+      for (int n = 0; n < kPartTiles; ++n) {
+        s[n][0] = expf(s[n][0] - e0);
+        s[n][1] = expf(s[n][1] - e0);
+        s[n][2] = expf(s[n][2] - e1);
+        s[n][3] = expf(s[n][3] - e1);
+        l0 += s[n][0] + s[n][1];
+        l1 += s[n][2] + s[n][3];
+      }
+      l0 = tf32::quad_sum(l0);
+      l1 = tf32::quad_sum(l1);
+      float* red = sred + 4 * (part * Lp + r0);
+      if (t == 0) {
+        red[4 * g] = h0;
+        red[4 * g + 1] = l0;
+        red[4 * (g + 8)] = h1;
+        red[4 * (g + 8) + 1] = l1;
+      }
+      __syncthreads();
+      GAN_PROBE(5);  // row max and sum of the pair
+      float m0 = -INFINITY, m1 = -INFINITY;
+#pragma unroll
+      for (int x = 0; x < kParts; ++x) {
+        const float* r = sred + 4 * (x * Lp + r0);
+        m0 = fmaxf(m0, r[4 * g]);
+        m1 = fmaxf(m1, r[4 * (g + 8)]);
+      }
+      float L0 = 0.f, L1 = 0.f;  // the row sums, parts in order
+#pragma unroll
+      for (int x = 0; x < kParts; ++x) {
+        const float* r = sred + 4 * (x * Lp + r0);
+        L0 += r[4 * g + 1] * expf(r[4 * g] - m0);
+        L1 += r[4 * (g + 8) + 1] * expf(r[4 * (g + 8)] - m1);
+      }
+      lse0 = (m0 + logf(L0)) * kLog2e;
+      lse1 = (m1 + logf(L1)) * kLog2e;
+      const float c0 = expf(h0 - m0) / L0, c1 = expf(h1 - m1) / L1;
+      // P, dP * M and this part's share of D (P = 0 on the tiles past tn)
+#pragma unroll
+      for (int n = 0; n < kPartTiles; ++n) {
+        s[n][0] *= c0;
+        s[n][1] *= c0;
+        s[n][2] *= c1;
+        s[n][3] *= c1;
+        if (kDrop) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            dp[n][e] = (keep >> (4 * n + e)) & 1 ? dp[n][e] * drop.scale : 0.f;
+        }
+        D0 = fmaf(s[n][0], dp[n][0], D0);
+        D0 = fmaf(s[n][1], dp[n][1], D0);
+        D1 = fmaf(s[n][2], dp[n][2], D1);
+        D1 = fmaf(s[n][3], dp[n][3], D1);
+      }
+      D0 = tf32::quad_sum(D0);
+      D1 = tf32::quad_sum(D1);
+      if (t == 0) {
+        red[4 * g + 2] = D0;
+        red[4 * (g + 8) + 2] = D1;
+      }
+      __syncthreads();
+      GAN_PROBE(6);  // P and D
+      D0 = D1 = 0.f;
+#pragma unroll
+      for (int x = 0; x < kParts; ++x) {
+        const float* r = sred + 4 * (x * Lp + r0);
+        D0 += r[4 * g + 2];
+        D1 += r[4 * (g + 8) + 2];
+      }
+      // dS, then this part's share of dQ = dS K
+#pragma unroll
+      for (int n = 0; n < kPartTiles; ++n) {
+        s[n][0] *= (dp[n][0] - D0) * scale;
+        s[n][1] *= (dp[n][1] - D0) * scale;
+        s[n][2] *= (dp[n][2] - D1) * scale;
+        s[n][3] *= (dp[n][3] - D1) * scale;
+        const tf32::FragA a = tf32::acc_as_a(s[n]);
+#pragma unroll
+        for (int d = 0; d < kDt; ++d)
+          tf32::mma3(dqa[d], a, tf32::load_b_pairs(sk, ld, tile_row(tb + n), 8 * d, g, t));
+      }
+      GAN_PROBE(7);  // dS and dQ
+      if (part) tf32::acc_store<kDt>(sxq + (part - 1) * Lp * ld, ld, r0, dqa, g, t);
+      __syncthreads();
+      if (!part) {
+#pragma unroll
+        for (int x = 1; x < kParts; ++x) tf32::acc_add<kDt>(sxq + (x - 1) * Lp * ld, ld, r0, dqa, g, t);
       }
     }
+    if (!part) {
+      store_tile<kDt>(dq + base, dqa, ra, L, Dh, t, vec >= 2);
+      if (t == 0) {
+        sst[ra] = make_float2(lse0, D0);
+        sst[rb] = make_float2(lse1, D1);
+      }
+    }
+  }
+  __syncthreads();  // the stats and the keep bits are in
+  GAN_PROBE(8);  // dQ written
+
+  // ---- pass 2: key rows ra, rb; this part's query tiles ----
+  float dva[kDt][4], dka[kDt][4];
+#pragma unroll
+  for (int d = 0; d < kDt; ++d) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dva[d][e] = dka[d][e] = 0.f;
+  }
+  if (r0 < keys) {  // else every key of the group is masked: dV = dK = 0
+    const int nqt = (L + 7) / 8, per = (nqt + kParts - 1) / kParts;
+    const int qb = part * per, qn = max(0, min(per, nqt - qb));
+    for (int c0 = 0; c0 < qn; c0 += kChunk) {
+      float st[kChunk][4], dpt[kChunk][4];
+#pragma unroll
+      for (int c = 0; c < kChunk; ++c) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) st[c][e] = dpt[c][e] = 0.f;
+      }
+      if (!uniform) {
+#pragma unroll
+        for (int kk = 0; kk < kDt; ++kk) {
+          const tf32::FragA a = tf32::load_a(sk, ld, r0, 8 * kk, g, t);
+#pragma unroll
+          for (int c = 0; c < kChunk; ++c)
+            tf32::mma3(st[c], a, tf32::load_b_rows(sq, ld, tile_row(qb + c0 + c), 8 * kk, g, t));
+        }
+#pragma unroll
+        for (int kk = 0; kk < kDt; ++kk) {
+          const tf32::FragA a = tf32::load_a(sv, ld, r0, 8 * kk, g, t);
+#pragma unroll
+          for (int c = 0; c < kChunk; ++c)
+            tf32::mma3(dpt[c], a, tf32::load_b_rows(sdo, ld, tile_row(qb + c0 + c), 8 * kk, g, t));
+        }
+      }
+#pragma unroll
+      for (int c = 0; c < kChunk; ++c) {
+        const bool tile_ok = c0 + c < qn;
+        const int i0 = tile_row(qb + c0 + c);
+        // keep bits of keys r0 .. r0 + 15 for queries i0 + 2t and i0 + 2t + 1
+        uint32_t w0 = 0xffffu, w1 = 0xffffu;
+        if (kDrop) {
+          w0 = *reinterpret_cast<const unsigned short*>(smask + (i0 + 2 * t) * 16 + r0 / 8);
+          w1 = *reinterpret_cast<const unsigned short*>(smask + (i0 + 2 * t + 1) * 16 + r0 / 8);
+        }
+        const float2 stat[2] = {sst[i0 + 2 * t], sst[i0 + 2 * t + 1]};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = i0 + 2 * t + (e & 1), j = (e >> 1) ? rb : ra;
+          const float ks = ((e & 1 ? w1 : w0) >> (g + 8 * (e >> 1))) & 1 ? (kDrop ? drop.scale : 1.f) : 0.f;
+          float p = 0.f;  // P_ij = 2^(S_ij scale log2(e) - lse2_i)
+          if (tile_ok && i < L && j < keys)
+            p = exp2f((uniform ? 0.f : st[c][e] * scale2) - stat[e & 1].x);
+          st[c][e] = p * ks;                                             // A^T
+          dpt[c][e] = p * (dpt[c][e] * ks - stat[e & 1].y) * scale;      // dS^T
+        }
+        const tf32::FragA a = tf32::acc_as_a(st[c]);
+#pragma unroll
+        for (int d = 0; d < kDt; ++d)
+          tf32::mma3(dva[d], a, tf32::load_b_pairs(sdo, ld, i0, 8 * d, g, t));
+        if (!uniform) {
+          const tf32::FragA b = tf32::acc_as_a(dpt[c]);
+#pragma unroll
+          for (int d = 0; d < kDt; ++d)
+            tf32::mma3(dka[d], b, tf32::load_b_pairs(sq, ld, i0, 8 * d, g, t));
+        }
+      }
+    }
+  }
+  GAN_PROBE(9);  // pass 2
+  __syncthreads();  // sq .. sdo are free: they take the partial dV and dK of parts 1..
+  if (part) {
+    tf32::acc_store<kDt>(smem + (2 * part - 2) * Lp * ld, ld, r0, dva, g, t);
+    tf32::acc_store<kDt>(smem + (2 * part - 1) * Lp * ld, ld, r0, dka, g, t);
   }
   __syncthreads();
-
-  // Pass 3: dV_j = sum_i A_ij dO_i.
-  if (t < L) {
-    float acc[Dp];
+  if (!part) {
 #pragma unroll
-    for (int d = 0; d < Dp; ++d) acc[d] = 0.f;
-    for (int i = 0; i < L; ++i) axpy<D4>(acc, sbuf[i * Ls + t], sdo + i * Dp);
-    store_row<D4>(dv + base + (size_t)t * Dh, acc, Dh);
-  }
-  if (uniform) {  // block-uniform: no barrier follows on this branch
-    if (t < L) {
-      for (int d = 0; d < Dh; ++d) {
-        dq[base + (size_t)t * Dh + d] = 0.f;
-        dk[base + (size_t)t * Dh + d] = 0.f;
-      }
+    for (int x = 1; x < kParts; ++x) {
+      tf32::acc_add<kDt>(smem + (2 * x - 2) * Lp * ld, ld, r0, dva, g, t);
+      tf32::acc_add<kDt>(smem + (2 * x - 1) * Lp * ld, ld, r0, dka, g, t);
     }
-    return;
+    store_tile<kDt>(dv + base, dva, ra, L, Dh, t, vec >= 2);
+    store_tile<kDt>(dk + base, dka, ra, L, Dh, t, vec >= 2);
   }
-  __syncthreads();  // pass 3 is done with A
-
-  // Pass 4: dS_ij = P_ij (dA_ij M_ij - D_i) scale (0 at masked keys).
-  if (t < L) {
-    float qr[Dp], dor[Dp];
-    load_row<D4>(qr, sq + t * Dp);
-    load_row<D4>(dor, sdo + t * Dp);
-    const float m = sm[t], inv_l = 1.f / sl[t], D = sD[t];
-    float* srow = sbuf + t * Ls;
-    philox::Cursor cursor;
-    for (int j = 0; j < L; ++j) {
-      float ds = 0.f;
-      if (j < keys) {
-        const float p = expf(dot<D4>(qr, sk + j * Dp) * scale - m) * inv_l;
-        float da = dot<D4>(dor, sv + j * Dp);
-        if (kDrop) da *= cursor.at(drop, philox::kAttention, mask_row + j);
-        ds = p * (da - D) * scale;
-      }
-      srow[j] = ds;
-    }
-  }
-  __syncthreads();
-
-  // Pass 5: dQ_i = sum_j dS_ij K_j, then dK_j = sum_i dS_ij Q_i.
-  if (t < L) {
-    float acc[Dp];
-#pragma unroll
-    for (int d = 0; d < Dp; ++d) acc[d] = 0.f;
-    for (int j = 0; j < keys; ++j) axpy<D4>(acc, sbuf[t * Ls + j], sk + j * Dp);
-    store_row<D4>(dq + base + (size_t)t * Dh, acc, Dh);
-#pragma unroll
-    for (int d = 0; d < Dp; ++d) acc[d] = 0.f;
-    for (int i = 0; i < L; ++i) axpy<D4>(acc, sbuf[i * Ls + t], sq + i * Dp);
-    store_row<D4>(dk + base + (size_t)t * Dh, acc, Dh);
-  }
+  GAN_PROBE(10);  // dV, dK written
 }
 
 using KernelFn = void (*)(const float*, const float*, const float*, const float*, float*,
-                          float*, float*, int, int, int, float, philox::Dropout);
+                          float*, float*, int, int, int, float, int, philox::Dropout);
 
-#define GAN_ATTN_BWD_ROW(DROP)                                                              \
-  {                                                                                         \
-    attention_bwd_kernel<1, DROP>, attention_bwd_kernel<2, DROP>,                           \
-        attention_bwd_kernel<3, DROP>, attention_bwd_kernel<4, DROP>,                       \
-        attention_bwd_kernel<5, DROP>, attention_bwd_kernel<6, DROP>,                       \
-        attention_bwd_kernel<7, DROP>, attention_bwd_kernel<8, DROP>,                       \
-        attention_bwd_kernel<9, DROP>, attention_bwd_kernel<10, DROP>,                      \
-        attention_bwd_kernel<11, DROP>, attention_bwd_kernel<12, DROP>,                     \
-        attention_bwd_kernel<13, DROP>, attention_bwd_kernel<14, DROP>,                     \
-        attention_bwd_kernel<15, DROP>, attention_bwd_kernel<16, DROP>,                     \
-  }
-
-// [dropout][D4 - 1]
-const KernelFn kKernels[2][kMaxDim4] = {GAN_ATTN_BWD_ROW(false), GAN_ATTN_BWD_ROW(true)};
+// [dropout][width_index]
+const KernelFn kKernels[2][3] = {
+    {attention_bwd_kernel<16, false>, attention_bwd_kernel<32, false>,
+     attention_bwd_kernel<64, false>},
+    {attention_bwd_kernel<16, true>, attention_bwd_kernel<32, true>,
+     attention_bwd_kernel<64, true>},
+};
 
 }  // namespace
 
@@ -261,8 +414,12 @@ extern "C" {
 
 // Shared memory one block needs, in bytes (0 if the geometry is refused).
 int gan_attention_bwd_smem_bytes(int L, int Dh) {
-  if (L < 1 || L > kMaxLen || Dh < 1 || Dh > 4 * kMaxDim4) return 0;
-  return (4 * L * round_up(Dh, 4) + L * (L + 1) + 3 * L) * (int)sizeof(float);
+  if (L < 1 || L > kMaxLen || Dh < 1 || Dh > kWidths[2]) return 0;
+  const int Lp = round_up(L, 16);
+  const int Dp = kWidths[width_index(Dh)], P = kParts;
+  // Q, K, V, dO and P - 1 partial dQ tiles; log2 sum exp and D; 4 floats
+  // per part and row; 16 bytes of keep bits per row
+  return ((3 + P) * Lp * (Dp + 4) + 2 * Lp + 4 * P * Lp + 4 * Lp) * (int)sizeof(float);
 }
 
 // q, k, v, dout, dq, dk, dv: (B, H, L, Dh) f32, contiguous, on the current
@@ -274,15 +431,14 @@ int gan_attention_bwd(const float* q, const float* k, const float* v, const floa
                       unsigned int threshold, float drop_scale, cudaStream_t stream) {
   const int smem = gan_attention_bwd_smem_bytes(L, Dh);
   if (smem == 0 || B < 1 || H < 1) return (int)cudaErrorInvalidValue;
-  const KernelFn kernel = kKernels[dropout != 0][(Dh + 3) / 4 - 1];
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return (int)e;
-  }
+  const KernelFn kernel = kKernels[dropout != 0][width_index(Dh)];
+  const cudaError_t e = tf32::configure(kernel, smem);
+  if (e != cudaSuccess) return (int)e;
+  const void* const ptrs[] = {q, k, v, dout, dq, dk, dv};
+  const int vec = tf32::stage_width(Dh, ptrs, 7);
   const philox::Dropout drop{seed, threshold, drop_scale};
-  kernel<<<B * H, round_up(L, 32), smem, stream>>>(q, k, v, dout, dq, dk, dv, L, Dh,
-                                                   valid_len, scale, drop);
+  kernel<<<B * H, round_up(L, 16) / 16 * 32 * kParts, smem, stream>>>(q, k, v, dout, dq, dk, dv, L, Dh,
+                                                        valid_len, scale, vec, drop);
   return (int)cudaGetLastError();
 }
 

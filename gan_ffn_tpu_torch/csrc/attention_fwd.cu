@@ -15,132 +15,216 @@
 // The TPU kernel seeds its core PRNG with seed + program_id instead; that
 // stream exists only on the TPU.
 //
-// What bounds it on the H100: at the path's shapes (B <= 32, L <= 112,
-// (H, Dh) in {(10, 10), (8, 64)}) one launch moves ~1.4-7.3 MB and does
-// ~0.2-0.9 GFLOP, i.e. a few microseconds at 3.35 TB/s or 67 TFLOP/s f32:
-// the launch and the latency of one short block dominate.  The TPU kernel's
-// point -- the (B, H, L, L) scores never reach device memory -- holds here
-// too: no score leaves its thread.
+// What bounds it on the H100: at the path's shapes (B = 32, L = 112,
+// (H, Dh) in {(10, 10), (8, 64)}) one launch moves 1.8-7.3 MB and does
+// 0.16-0.8 GFLOP: 0.5-2.2 us at 3.35 TB/s, or 1-5 us at the 165 TFLOP/s
+// that 3xTF32 gives f32-accurate products.  Latency bounds it: 256-320
+// blocks of 7 warps, each a chain of short dependent steps; one block alone
+// takes most of the launch's time (cli/attention_probes.py times B = 1
+// beside B = 32 and splits a block's cycles by phase).  As on the TPU, the
+// (B, H, L, L) scores never reach device memory.
 //
-// Design: one block per (batch, head), one thread per query row.  The block
-// stages K and V of its (b, h) in shared memory, rows padded to a multiple of
-// 4 floats.  Each thread keeps its q row and its output row in registers and
-// walks the keys with an online softmax (running max m, running sum l, the
-// output rescaled when m grows).  l sums the unmasked p; the output sums
-// p * mask * v, so dividing by l at the end gives P_drop V.  All threads of
-// a warp read the same key row, so each 16-byte shared load is one
-// broadcast feeding 4 FMAs.  With valid_len > 0 a masked key's
-// p = exp(-1e30 - m) is exactly 0 in f32, so the walk stops at valid_len;
-// with valid_len = 0 every score is the same -1e30 and every p is 1, so the
-// walk covers all L keys with p = 1.  Dropout is a template flag: the
-// rate-0 kernels draw nothing.  The TPU layout (sequence on the 128-lane
-// axis, Dh padded to the sublane tile) is not carried over.
+// Design: one block per (batch, head), one warp per 16 query rows
+// (ceil(L / 16) warps).  Q and K, then V, of the (b, h) are staged in shared
+// memory with cp.async in two groups (V lands while S is computed), Dh
+// zero-padded to the kernel's width Dp (16, 32 or 64), rows padded to 16,
+// copies of 16 or 8 bytes where Dh and the pointers allow.  A warp computes
+// its 16 x L score block with TF32 mma.sync in the 3xTF32 split
+// (mma_tf32.cuh), f32-exact to ~2^-21, in two halves of 64 keys: each half's
+// scores stay in registers, the second half rescales the first's sums once
+// (32 score registers a thread, not 64).  Row max and row sum come from quad
+// shuffles.  A half whose keys are all past valid_len is skipped; inside a
+// half the tile loops carry no per-tile branch, so loads, splits and mma of
+// different tiles overlap.  The dropout keep bits (one Philox call per lane
+// and tile when L % 4 == 0) are drawn between the k steps of S, where the
+// integer work overlaps the tensor cores.  P_drop V reuses the accumulator
+// as the A operand, the k order permuted so that no shuffle is needed; at
+// Dp < 64 it runs on 64 / Dp interleaved accumulator sets, so there are 8
+// independent mma chains at every width.  O is scaled by 1 / l and stored.
+// At most 128 registers a thread, so two blocks share an SM: the path's
+// 256 blocks at Dh = 64 run in one wave.
 
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
+#include "mma_tf32.cuh"
 #include "philox.cuh"
 
 namespace {
 
-constexpr int kMaxLen = 128;  // query rows (threads) and keys per block
-constexpr int kMaxDim4 = 16;  // Dh <= 64, in groups of 4
+constexpr int kMaxLen = 128;  // keys (and query rows) per block
+constexpr int kMaxTiles = kMaxLen / 8;
+constexpr int kWidths[3] = {16, 32, 64};
 
 __host__ __device__ constexpr int round_up(int x, int m) { return (x + m - 1) / m * m; }
 
-// D4 = ceil(Dh / 4); kDrop: apply the attention-weight dropout mask.
-template <int D4, bool kDrop>
-__global__ void __launch_bounds__(kMaxLen)
+__host__ __device__ constexpr int width_index(int Dh) { return Dh <= 16 ? 0 : Dh <= 32 ? 1 : 2; }
+
+// Dp: Dh padded to 16, 32 or 64; kDrop: apply the attention-weight dropout mask.
+template <int Dp, bool kDrop>
+__global__ void __launch_bounds__(kMaxLen * 2, 2)
 attention_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v, float* __restrict__ out,
-                     int L, int Dh, int valid_len, float scale, philox::Dropout drop) {
-  constexpr int Dp = 4 * D4;
+                     const float* __restrict__ v, float* __restrict__ out, int L, int Dh,
+                     int valid_len, float scale, int vec, philox::Dropout drop) {
+  constexpr int ld = Dp + 4;
+  constexpr int kDt = Dp / 8;  // n tiles of O, k steps of S
+  constexpr int kHalf = kMaxTiles / 2;
   extern __shared__ __align__(16) float smem[];
-  float* sk = smem;         // L x Dp, zero-padded
-  float* sv = sk + L * Dp;  // L x Dp, zero-padded
+  GAN_PROBE(0);
+  const int Lp = round_up(L, 16);
+  float* sq = smem;
+  float* sk = sq + Lp * ld;
+  float* sv = sk + Lp * ld;
   const size_t base = (size_t)blockIdx.x * L * Dh;
+  tf32::stage<Dp>(sq, q + base, L, Lp, Dh, vec);
+  tf32::stage<Dp>(sk, k + base, L, Lp, Dh, vec);
+  tf32::stage_commit();
+  tf32::stage<Dp>(sv, v + base, L, Lp, Dh, vec);  // lands while S is computed
+  tf32::stage_commit();
+  tf32::stage_wait<1>();
+  GAN_PROBE(1);
 
-  for (int i = threadIdx.x; i < L * Dp; i += blockDim.x) {
-    const int r = i / Dp, d = i - r * Dp;
-    const bool in = d < Dh;
-    sk[i] = in ? k[base + (size_t)r * Dh + d] : 0.f;
-    sv[i] = in ? v[base + (size_t)r * Dh + d] : 0.f;
-  }
-  const int row = threadIdx.x;
-  float qr[Dp], o[Dp];
-#pragma unroll
-  for (int d = 0; d < Dp; ++d) {
-    qr[d] = (row < L && d < Dh) ? q[base + (size_t)row * Dh + d] : 0.f;
-    o[d] = 0.f;
-  }
-  __syncthreads();
-  if (row >= L) return;  // no barrier follows
-
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int r0 = (threadIdx.x >> 5) * 16;  // the warp's first query row
   const bool uniform = valid_len <= 0;
   const int keys = uniform ? L : min(valid_len, L);
-  float m = -INFINITY, l = 0.f;
-  const unsigned long long mask_row = ((unsigned long long)blockIdx.x * L + row) * L;
-  philox::Cursor cursor;
-  for (int j = 0; j < keys; ++j) {
-    float s = 0.f;
+  const int nkt = (keys + 7) / 8;  // key tiles that carry weight
+  const bool upper = nkt > kHalf;  // whether tiles 8..15 carry any
+  // Tile n's keys start at row 8n; past the staged rows the loads read the
+  // last staged tile instead, whose products are then masked or weighted 0.
+  // The tile loops carry no per-tile branch, so the compiler can overlap
+  // one tile's loads and splits with another's mma.
+  const auto key_row = [Lp](int n) { return min(8 * n, Lp - 8); };
+  const unsigned long long row_g = ((unsigned long long)blockIdx.x * L + r0 + g) * L;
+  const unsigned long long row_g8 = row_g + 8ull * L;
+  const bool aligned = (L & 3) == 0;
+
+  // The row in two halves of 8 key tiles (64 keys), the second rescaling
+  // what the first summed: 32 score registers a thread instead of 64.
+  constexpr int kSets = 64 / Dp;  // interleaved accumulator sets of O: 8 mma chains at every width
+  float o[kSets][kDt][4];
+#pragma unroll
+  for (int x = 0; x < kSets; ++x) {
+#pragma unroll
+    for (int d = 0; d < kDt; ++d) o[x][d][0] = o[x][d][1] = o[x][d][2] = o[x][d][3] = 0.f;
+  }
+  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (h == 1 && !upper) break;  // block-uniform
+    float s[kHalf][4];
+#pragma unroll
+    for (int n = 0; n < kHalf; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+    // keep bit 4n + e for element e of tile n, drawn among the k steps of
+    // S so that the integer work overlaps the mma (kHalf / kDt tiles a step)
+    uint32_t keep = 0;
+    const auto draw = [&](int n) {
+      keep |= tf32::tile_keep(drop, row_g, row_g8, 8 * (h * kHalf + n), t, aligned) << (4 * n);
+    };
     if (!uniform) {
-      const float* kr = sk + j * Dp;
-      float part[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
-      for (int g = 0; g < D4; ++g) {
-        const float4 kv = *reinterpret_cast<const float4*>(kr + 4 * g);
-        part[0] = fmaf(qr[4 * g + 0], kv.x, part[0]);
-        part[1] = fmaf(qr[4 * g + 1], kv.y, part[1]);
-        part[2] = fmaf(qr[4 * g + 2], kv.z, part[2]);
-        part[3] = fmaf(qr[4 * g + 3], kv.w, part[3]);
+      for (int kk = 0; kk < kDt; ++kk) {
+        const tf32::FragA a = tf32::load_a(sq, ld, r0, 8 * kk, g, t);
+#pragma unroll
+        for (int n = 0; n < kHalf; ++n)
+          tf32::mma3(s[n], a, tf32::load_b_rows(sk, ld, key_row(h * kHalf + n), 8 * kk, g, t));
+        if (kDrop) {
+#pragma unroll
+          for (int n = kk * kHalf / kDt; n < (kk + 1) * kHalf / kDt; ++n) draw(n);
+        }
       }
-      s = ((part[0] + part[1]) + (part[2] + part[3])) * scale;
-    }
-    if (s > m) {  // the first key always, later ones rarely
-      const float c = expf(m - s);
-      l *= c;
+    } else if (kDrop) {
 #pragma unroll
-      for (int d = 0; d < Dp; ++d) o[d] *= c;
-      m = s;
+      for (int n = 0; n < kHalf; ++n) draw(n);
     }
-    const float p = expf(s - m);
-    l += p;
-    float w = p;
-    if (kDrop) w *= cursor.at(drop, philox::kAttention, mask_row + j);
-    const float* vr = sv + j * Dp;
+    GAN_PROBE(2 + 3 * h);  // S and the keep bits
+    // scale and mask (uniform: every kept score equal, so use 0); max per row
+    float x0 = m0, x1 = m1;
 #pragma unroll
-    for (int g = 0; g < D4; ++g) {
-      const float4 vv = *reinterpret_cast<const float4*>(vr + 4 * g);
-      o[4 * g + 0] = fmaf(w, vv.x, o[4 * g + 0]);
-      o[4 * g + 1] = fmaf(w, vv.y, o[4 * g + 1]);
-      o[4 * g + 2] = fmaf(w, vv.z, o[4 * g + 2]);
-      o[4 * g + 3] = fmaf(w, vv.w, o[4 * g + 3]);
+    for (int n = 0; n < kHalf; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int j = 8 * (h * kHalf + n) + 2 * t + (e & 1);
+        s[n][e] = j < keys ? s[n][e] * scale : -INFINITY;
+      }
+      x0 = fmaxf(x0, fmaxf(s[n][0], s[n][1]));
+      x1 = fmaxf(x1, fmaxf(s[n][2], s[n][3]));
+    }
+    x0 = tf32::quad_max(x0);  // finite: key 0 is never masked
+    x1 = tf32::quad_max(x1);
+    if (h == 1) {  // rescale the first half's sums to the new max
+      const float c0 = expf(m0 - x0), c1 = expf(m1 - x1);
+      l0 *= c0;
+      l1 *= c1;
+#pragma unroll
+      for (int x = 0; x < kSets; ++x) {
+#pragma unroll
+        for (int d = 0; d < kDt; ++d) {
+          o[x][d][0] *= c0;
+          o[x][d][1] *= c0;
+          o[x][d][2] *= c1;
+          o[x][d][3] *= c1;
+        }
+      }
+    }
+    m0 = x0;
+    m1 = x1;
+#pragma unroll
+    for (int n = 0; n < kHalf; ++n) {  // masked scores give exp(-inf) = 0
+      s[n][0] = expf(s[n][0] - m0);
+      s[n][1] = expf(s[n][1] - m0);
+      s[n][2] = expf(s[n][2] - m1);
+      s[n][3] = expf(s[n][3] - m1);
+      l0 += s[n][0] + s[n][1];
+      l1 += s[n][2] + s[n][3];
+      if (kDrop) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[n][e] = keep >> (4 * n + e) & 1 ? s[n][e] * drop.scale : 0.f;
+      }
+    }
+    GAN_PROBE(3 + 3 * h);  // softmax
+    if (h == 0) tf32::stage_wait<0>();  // V is in
+#pragma unroll
+    for (int n = 0; n < kHalf; ++n) {
+      const tf32::FragA a = tf32::acc_as_a(s[n]);
+#pragma unroll
+      for (int d = 0; d < kDt; ++d)
+        tf32::mma3(o[n % kSets][d], a, tf32::load_b_pairs(sv, ld, key_row(h * kHalf + n), 8 * d, g, t));
+    }
+    GAN_PROBE(4 + 3 * h);  // P V
+  }
+  const float inv0 = 1.f / tf32::quad_sum(l0), inv1 = 1.f / tf32::quad_sum(l1);
+#pragma unroll
+  for (int x = 1; x < kSets; ++x) {
+#pragma unroll
+    for (int d = 0; d < kDt; ++d) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[0][d][e] += o[x][d][e];
     }
   }
-  const float inv = 1.f / l;
-  float* orow = out + base + (size_t)row * Dh;
+  const int ra = r0 + g, rb = ra + 8;
+  float* oa = out + base + (size_t)ra * Dh;
+  float* ob = out + base + (size_t)rb * Dh;
 #pragma unroll
-  for (int d = 0; d < Dp; ++d)
-    if (d < Dh) orow[d] = o[d] * inv;
+  for (int d = 0; d < kDt; ++d) {
+    const int c = 8 * d + 2 * t;
+    tf32::store_pair(oa, c, Dh, ra < L, vec >= 2, o[0][d][0] * inv0, o[0][d][1] * inv0);
+    tf32::store_pair(ob, c, Dh, rb < L, vec >= 2, o[0][d][2] * inv1, o[0][d][3] * inv1);
+  }
+  GAN_PROBE(8);
 }
 
-using KernelFn = void (*)(const float*, const float*, const float*, float*, int, int, int,
-                          float, philox::Dropout);
+using KernelFn = void (*)(const float*, const float*, const float*, float*, int, int, int, float,
+                          int, philox::Dropout);
 
-#define GAN_ATTN_FWD_ROW(DROP)                                                              \
-  {                                                                                         \
-    attention_fwd_kernel<1, DROP>, attention_fwd_kernel<2, DROP>,                           \
-        attention_fwd_kernel<3, DROP>, attention_fwd_kernel<4, DROP>,                       \
-        attention_fwd_kernel<5, DROP>, attention_fwd_kernel<6, DROP>,                       \
-        attention_fwd_kernel<7, DROP>, attention_fwd_kernel<8, DROP>,                       \
-        attention_fwd_kernel<9, DROP>, attention_fwd_kernel<10, DROP>,                      \
-        attention_fwd_kernel<11, DROP>, attention_fwd_kernel<12, DROP>,                     \
-        attention_fwd_kernel<13, DROP>, attention_fwd_kernel<14, DROP>,                     \
-        attention_fwd_kernel<15, DROP>, attention_fwd_kernel<16, DROP>,                     \
-  }
-
-// [dropout][D4 - 1]
-const KernelFn kKernels[2][kMaxDim4] = {GAN_ATTN_FWD_ROW(false), GAN_ATTN_FWD_ROW(true)};
+// [dropout][width_index]
+const KernelFn kKernels[2][3] = {
+    {attention_fwd_kernel<16, false>, attention_fwd_kernel<32, false>,
+     attention_fwd_kernel<64, false>},
+    {attention_fwd_kernel<16, true>, attention_fwd_kernel<32, true>,
+     attention_fwd_kernel<64, true>},
+};
 
 }  // namespace
 
@@ -148,8 +232,8 @@ extern "C" {
 
 // Shared memory one block needs, in bytes (0 if the geometry is refused).
 int gan_attention_fwd_smem_bytes(int L, int Dh) {
-  if (L < 1 || L > kMaxLen || Dh < 1 || Dh > 4 * kMaxDim4) return 0;
-  return 2 * L * round_up(Dh, 4) * (int)sizeof(float);
+  if (L < 1 || L > kMaxLen || Dh < 1 || Dh > kWidths[2]) return 0;
+  return 3 * round_up(L, 16) * (kWidths[width_index(Dh)] + 4) * (int)sizeof(float);
 }
 
 // q, k, v, out: (B, H, L, Dh) f32, contiguous, on the current device.
@@ -162,15 +246,14 @@ int gan_attention_fwd(const float* q, const float* k, const float* v, float* out
                       float drop_scale, cudaStream_t stream) {
   const int smem = gan_attention_fwd_smem_bytes(L, Dh);
   if (smem == 0 || B < 1 || H < 1) return (int)cudaErrorInvalidValue;
-  const KernelFn kernel = kKernels[dropout != 0][(Dh + 3) / 4 - 1];
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return (int)e;
-  }
+  const KernelFn kernel = kKernels[dropout != 0][width_index(Dh)];
+  const cudaError_t e = tf32::configure(kernel, smem);
+  if (e != cudaSuccess) return (int)e;
+  const void* const ptrs[] = {q, k, v, out};
+  const int vec = tf32::stage_width(Dh, ptrs, 4);
   const philox::Dropout drop{seed, threshold, drop_scale};
-  kernel<<<B * H, round_up(L, 32), smem, stream>>>(q, k, v, out, L, Dh, valid_len, scale,
-                                                   drop);
+  kernel<<<B * H, 2 * round_up(L, 16), smem, stream>>>(q, k, v, out, L, Dh, valid_len, scale,
+                                                        vec, drop);
   return (int)cudaGetLastError();
 }
 

@@ -83,18 +83,4 @@ __device__ __forceinline__ void keep_scale4(const Dropout& d, uint32_t stream,
   }
 }
 
-// Walks consecutive indices and calls Philox once per counter group.
-struct Cursor {
-  unsigned long long group = ~0ull;
-  uint4 w;
-  __device__ __forceinline__ float at(const Dropout& d, uint32_t stream,
-                                      unsigned long long idx) {
-    if ((idx >> 2) != group) {
-      group = idx >> 2;
-      w = bits4(d.seed, stream, group);
-    }
-    return keep(d, word(w, (int)(idx & 3)));
-  }
-};
-
 }  // namespace philox

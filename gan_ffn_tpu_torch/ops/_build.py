@@ -25,14 +25,16 @@ import re
 import shutil
 import subprocess
 import threading
+import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Dict, Iterable, List, Optional, Sequence
+from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _lock = threading.Lock()
@@ -85,11 +87,29 @@ def _nvcc() -> str:
     )
 
 
+build_seconds: Dict[str, float] = {}  # library -> wall seconds of its last nvcc in this process
+build_logs: Dict[str, str] = {}  # library -> that nvcc's output (ptxas -v resource lines)
+
+
+def _compile(name: str, src: Path, target: Path) -> Tuple[str, int, str, float]:
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = target.with_name(f"{target.name}.{os.getpid()}.{threading.get_ident()}.tmp")
+    t0 = time.perf_counter()
+    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    seconds = time.perf_counter() - t0
+    if proc.returncode == 0:
+        os.replace(tmp, target)  # atomic: a concurrent build never sees half a file
+    return name, proc.returncode, proc.stdout, seconds
+
+
 def build(names: Optional[Iterable[str]] = None) -> Dict[str, Path]:
     """Compile the named kernels (default: all) whose library is missing.
 
     One ``nvcc`` process per source, all started together; returns
-    name -> library path.  Raises ``RuntimeError`` with the compiler's output
+    name -> library path.  Each compiled library's wall seconds and
+    ``ptxas`` resource lines land in :data:`build_seconds` and
+    :data:`build_logs`.  Raises ``RuntimeError`` with the compiler's output
     if any build fails.
     """
     srcs = sources()
@@ -97,28 +117,39 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, Path]:
     missing = [n for n in wanted if n not in srcs]
     if missing:
         raise KeyError(f"no CUDA source for {missing} in {CSRC}")
-    jobs = []
-    for name in wanted:
-        target = _library_path(srcs[name])
-        if target.exists():
-            continue
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = target.with_name(f"{target.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(srcs[name])]
-        proc = subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
-        )
-        jobs.append((name, target, tmp, proc))
+    jobs = [(name, srcs[name], _library_path(srcs[name])) for name in wanted]
+    jobs = [job for job in jobs if not job[2].exists()]
     errors = []
-    for name, target, tmp, proc in jobs:
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            errors.append(f"--- {name}.cu (nvcc exit {proc.returncode}):\n{log}")
-        else:
-            os.replace(tmp, target)  # atomic: a concurrent build never sees half a file
+    if jobs:
+        with ThreadPoolExecutor(max_workers=len(jobs)) as pool:
+            for name, code, log, seconds in pool.map(lambda job: _compile(*job), jobs):
+                if code != 0:
+                    errors.append(f"--- {name}.cu (nvcc exit {code}):\n{log}")
+                else:
+                    build_seconds[name] = seconds
+                    build_logs[name] = log
     if errors:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(errors))
     return {name: _library_path(srcs[name]) for name in wanted}
+
+
+_PTXAS_ENTRY = re.compile(r"Compiling entry function '(\w+)'")
+_PTXAS_SPILL = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
+_PTXAS_REGS = re.compile(r"Used (\d+) registers")
+
+
+def ptxas_resources(log: str) -> List[dict]:
+    """Per kernel entry of an ``nvcc -Xptxas -v`` log: its mangled name,
+    registers a thread and spill bytes."""
+    out: List[dict] = []
+    for line in log.splitlines():
+        if m := _PTXAS_ENTRY.search(line):
+            out.append({"kernel": m.group(1)})
+        elif out and (m := _PTXAS_SPILL.search(line)):
+            out[-1].update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+        elif out and (m := _PTXAS_REGS.search(line)):
+            out[-1]["registers"] = int(m.group(1))
+    return out
 
 
 def function(

@@ -23,7 +23,10 @@ function saves q, k and v only, never the ``(B, H, L, L)`` weights.  The
 plain backward, :func:`attention_backward_plain`, is autograd of
 :func:`attention_plain`; the kernel is held to it on the card within
 max |diff| <= 1e-4 * max(1, max |ref|) (five f32 products over <= 128 keys,
-summed in another order).
+summed in another order).  Both kernels run their products on the tensor
+cores as TF32 ``mma.sync`` in the 3xTF32 split (``csrc/mma_tf32.cuh``),
+which keeps them f32-accurate to ~2^-21 per product; one TF32 pass would
+miss both limits (``tests/test_torch_attention_tf32.py``).
 
 The TPU kernel's padding (L to 128 lanes, Dh to the sublane tile) is a TPU
 layout and is not carried over.  At ``valid_len == 0`` the port follows the
@@ -43,8 +46,8 @@ from . import _build
 from .dropout import STREAM_ATTENTION, keep_scale, threshold_and_scale
 
 NEG_INF = -1e30
-MAX_LEN = 128  # one thread per row, one block per (b, h) (csrc kMaxLen)
-MAX_HEAD_DIM = 64  # two rows of Dh floats in registers (csrc 4 * kMaxDim4)
+MAX_LEN = 128  # keys a block holds in 16 mma tiles of 8, one block per (b, h) (csrc kMaxLen)
+MAX_HEAD_DIM = 64  # the widest of the kernels' head widths 16, 32, 64 (csrc kWidths)
 
 _DROP_ARGTYPES = [ctypes.c_int, ctypes.c_uint64, ctypes.c_uint32, ctypes.c_float]
 _FWD_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_float]

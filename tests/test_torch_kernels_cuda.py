@@ -7,7 +7,9 @@ card is present:
     python -m pytest tests/test_torch_kernels_cuda.py -q
 
 Shapes cover the path's geometries at small batch plus ragged edges (L and
-M not multiples of the kernels' tiles), at dropout rate 0 and above it: the
+M not multiples of the kernels' tiles; for attention, L on both sides of the
+16-row warp tiles and of the 4-element Philox groups, Dh on both sides of
+the 16 / 32 / 64 head widths), at dropout rate 0 and above it: the
 kernels draw the same Philox masks as the plain versions, so the two are
 compared element by element at any rate.  Tolerances: attention forward max
 |diff| <= 1e-5 (one softmax over <= 128 keys in f32); attention backward
@@ -41,17 +43,28 @@ def _randn(rng, shape, scale, device):
     return torch.from_numpy((rng.standard_normal(shape) * scale).astype(np.float32)).to(device)
 
 
-@pytest.mark.parametrize("H,Dh", [(10, 10), (8, 64), (3, 7)])
-@pytest.mark.parametrize("L", [1, 37, 112, 128])
-def test_attention_kernel_matches_plain(cuda, H, Dh, L):
+# Head widths on both sides of the kernels' 16 / 32 / 64 widths and lengths on
+# both sides of the 16-row warp tiles and the 4-element Philox groups.
+ATTN_HEADS = [(10, 10), (8, 64), (3, 7), (2, 16), (2, 33)]
+ATTN_LENGTHS = [1, 15, 16, 17, 37, 112, 128]
+
+
+def _valid_lens(L):
+    return sorted({L, max(L - 3, 0), min(16, L), 1, 0})
+
+
+@pytest.mark.parametrize("H,Dh", ATTN_HEADS)
+@pytest.mark.parametrize("L", ATTN_LENGTHS)
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_attention_kernel_matches_plain(cuda, H, Dh, L, rate):
     rng = np.random.default_rng(L * 100 + Dh)
     q, k, v = (_randn(rng, (3, H, L, Dh), 1.0, cuda) for _ in range(3))
-    for vl in sorted({L, max(L - 3, 0), 1, 0}):
+    for vl in _valid_lens(L):
         before = A.fused_attention.launches
-        got = A.fused_attention(q, k, v, valid_len=vl)
+        got = A.fused_attention(q, k, v, valid_len=vl, dropout_rate=rate, dropout_seed=vl + 3)
         torch.cuda.synchronize()
         assert A.fused_attention.launches == before + 1
-        want = A.attention_plain(q, k, v, vl)
+        want = A.attention_plain(q, k, v, vl, rate, vl + 3)
         err = (got - want).abs().max().item()
         assert err <= 1e-5, f"valid_len={vl}: max |diff| {err}"
 
@@ -113,13 +126,13 @@ def _close(got, want, what):
     assert err <= tol, f"{what}: max |diff| {err} > {tol}"
 
 
-@pytest.mark.parametrize("H,Dh", [(10, 10), (8, 64), (3, 7)])
-@pytest.mark.parametrize("L", [1, 37, 112, 128])
+@pytest.mark.parametrize("H,Dh", ATTN_HEADS)
+@pytest.mark.parametrize("L", ATTN_LENGTHS)
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 def test_attention_backward_kernel_matches_plain(cuda, H, Dh, L, rate):
     rng = np.random.default_rng(L * 100 + Dh + 7)
     q, k, v, dout = (_randn(rng, (3, H, L, Dh), 1.0, cuda) for _ in range(4))
-    for vl in sorted({L, max(L - 3, 0), 1, 0}):
+    for vl in _valid_lens(L):
         if rate > 0.0:  # the forward kernel's mask is the plain version's
             got = A.fused_attention(q, k, v, valid_len=vl, dropout_rate=rate, dropout_seed=vl + 5)
             want = A.attention_plain(q, k, v, vl, rate, vl + 5)
