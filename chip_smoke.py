@@ -25,7 +25,9 @@ Phases, each printing JSON lines; any failure exits non-zero:
                keep fraction is within 5 sigma of 1 - rate.
                Times: CUDA events around 10 back-to-back calls queued behind
                a device sleep (so host launch cost is hidden), median of 21,
-               L2-warm; plain_ms for the plain version (autograd of it for
+               L2-warm (the MLP backward: 5 calls, median of 11, at both
+               rates, beside its workspace bytes and split launches);
+               plain_ms for the plain version (autograd of it for
                a backward); library_ms for F.scaled_dot_product_attention's
                forward and backward (attention only; the port never calls
                it).  bound_ms = max(bytes / 3.35 TB/s, flops / 165 TFLOP/s),
@@ -101,6 +103,12 @@ MLP_SHAPES = {
 }
 MLP_ROWS = 112 * 32
 SITE_RATE = {"ffn": 0.1, "head": 0.2}
+# The MLP backward kernel recomputes z1 on the tensor cores, its plain version
+# with cuBLAS in f32: sums in two orders, up to a few 1e-6 apart.  Where z1
+# lies that close to relu's kink the two take different branches of relu'
+# and their gradients differ by O(1) there, so the FFN inputs keep every z1
+# at least this far from 0.
+RELU_KINK = 2e-5
 STEP_LAUNCHES = {"attention_fwd": 24, "attention_bwd": 24, "mlp_fwd": 27, "mlp_bwd": 27}
 SOURCES = {
     "attention_fwd": ("gan_ffn_tpu_torch/csrc/attention_fwd.cu", "gan_ffn_tpu/ops/attention.py:69"),
@@ -322,6 +330,11 @@ def phase_kernels_mlp(torch, rows: Rows):
         w2 = (torch.rand(Hd, N, device="cuda", generator=gen) * 2 - 1) * Hd ** -0.5
         b2 = (torch.rand(N, device="cuda", generator=gen) * 2 - 1) * Hd ** -0.5
         dout = torch.randn(M, N, device="cuda", generator=gen)
+        while site == "ffn":  # no z1 within RELU_KINK of relu's kink (see RELU_KINK)
+            near = ((x.double() @ w1.double() + b1.double()).abs() < RELU_KINK).any(1)
+            if not near.any():
+                break
+            x[near] = torch.randn(int(near.sum().item()), K, device="cuda", generator=gen)
         args = (x, w1, b1, w2, b2)
         for rate in (0.0, SITE_RATE[site]):
             cfg, seed = site_cfg(site, rate), 2000 + K + N
@@ -351,25 +364,26 @@ def phase_kernels_mlp(torch, rows: Rows):
                 "library_ms": None,
             }
             fwd["bound_ms"], fwd["bound_by"] = bound_ms(*_mlp_bytes_flops(M, K, Hd, N, site == "head", False))
+            bwd = {
+                "ms": device_time_ms(torch, lambda: Mo.fused_mlp_backward(
+                    *args, dout, **cfg, dropout_seed=seed), reps=11, group=5),
+                "plain_ms": device_time_ms(torch, lambda: Mo.mlp_backward_plain(
+                    *args, dout, **cfg, dropout_seed=seed), reps=11, group=5),
+                "library_ms": None,
+                "workspace_bytes": 4 * Mo.bwd_workspace_floats(M, K, Hd, N),
+                "split_launches": Mo.bwd_launches(M, K, Hd, N),
+            }
+            bwd["bound_ms"], bwd["bound_by"] = bound_ms(
+                *_mlp_bytes_flops(M, K, Hd, N, site == "head", True))
             line = {"phase": "kernel", "name": "mlp", "shape": [M, K, Hd, N], "site": site,
                     "rate": rate, "fwd_max_abs_err": err, "fwd_max_rel_err": rel,
                     "bwd_max_abs_err": gabs, "bwd_max_rel_err": gerr,
-                    "launches_per_step": count, "fwd": fwd}
+                    "launches_per_step": count, "fwd": fwd, "bwd": bwd}
             if rate == 0.0:
                 rows.serve["mlp_fwd"].append((count, fwd))
             else:
-                bwd = {
-                    "ms": device_time_ms(torch, lambda: Mo.fused_mlp_backward(
-                        *args, dout, **cfg, dropout_seed=seed), reps=11, group=5),
-                    "plain_ms": device_time_ms(torch, lambda: Mo.mlp_backward_plain(
-                        *args, dout, **cfg, dropout_seed=seed), reps=11, group=5),
-                    "library_ms": None,
-                }
-                bwd["bound_ms"], bwd["bound_by"] = bound_ms(
-                    *_mlp_bytes_flops(M, K, Hd, N, site == "head", True))
                 rows.step["mlp_fwd"].append((count, fwd))
                 rows.step["mlp_bwd"].append((count, bwd))
-                line["bwd"] = bwd
             emit(line)
 
     # keep fraction of the kernel's mid mask: z1 = 1 everywhere, out[:, 0] sums the mask

@@ -1,0 +1,121 @@
+"""Time ``csrc/mlp_bwd.cu`` on the card, launch by launch.
+
+    python -m gan_ffn_tpu_torch.cli.mlp_bwd_profile [--label NAME]
+
+For each MLP geometry of the training path (M = 3584 rows; 100->2048->100
+and 512->2048->512 encoder FFNs, 100->512->100 and 512->1024->100 generator
+heads), at dropout rate 0 and at the path's rate (FFN 0.1, head 0.2), prints
+one JSON line: ``fused_mlp_backward``'s ms per call (CUDA events around 5
+calls queued behind a device sleep, median of 11, L2-warm) and, from
+``torch.profiler``, each kernel launch of one call in launch order with its
+device microseconds (median over 5 calls).  Where the package reports them
+(``ops.mlp.bwd_launches``), each split launch's output tiles, chunks and
+the workspace bytes are printed too.  The first line names the card and its
+power limit.
+
+The script imports the ``gan_ffn_tpu_torch`` that is first on ``sys.path``,
+so one process can time another checkout's kernel: run it from that
+checkout's root with ``python -c "import runpy, sys; sys.path.insert(0, '.');
+runpy.run_path('<this file>', run_name='__main__')" --label parent``, and
+compare two versions in turns (parent, change, change, parent) in one call.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import subprocess
+import sys
+
+import torch
+
+GEOMETRIES = ((100, 2048, 100, "ffn"), (512, 2048, 512, "ffn"), (100, 512, 100, "head"),
+              (512, 1024, 100, "head"))
+SITE_RATE = {"ffn": 0.1, "head": 0.2}
+ROWS = 3584
+
+
+def site_cfg(site: str, rate: float) -> dict:
+    if site == "ffn":
+        return dict(mid=("relu", "act_first", rate))
+    return dict(pre=("gelu", rate), mid=("gelu", "drop_first", rate),
+                post=("gelu", "drop_first", rate))
+
+
+def ms_per_call(fn, reps: int = 11, group: int = 5) -> float:
+    for _ in range(3):
+        fn()
+    samples = []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(20_000_000)
+        start.record()
+        for _ in range(group):
+            fn()
+        end.record()
+        end.synchronize()
+        samples.append(start.elapsed_time(end) / group)
+    return statistics.median(samples)
+
+
+def launches(fn, calls: int = 5) -> list:
+    """[(kernel name, device us)] of one ``fn()`` call, in launch order,
+    each the median over ``calls`` profiled calls."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    kernels = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
+                     key=lambda e: e.time_range.start)
+    if not kernels or len(kernels) % calls:
+        return [{"profiler": f"{len(kernels)} device events for {calls} calls"}]
+    per = len(kernels) // calls
+    out = []
+    for i in range(per):
+        name = kernels[i].name.replace("(anonymous namespace)::", "").removeprefix("void ")
+        name = name.split("(")[0]
+        us = statistics.median(kernels[c * per + i].time_range.elapsed_us() for c in range(calls))
+        out.append({"kernel": name, "us": us})
+    return out
+
+
+def main(argv=None) -> None:
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--label", default="tree", help="a name for this checkout in the output")
+    args = p.parse_args(argv)
+    if not torch.cuda.is_available():
+        sys.exit("mlp_bwd_profile: no CUDA card")
+    from gan_ffn_tpu_torch.ops import mlp as M
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True).stdout.strip()
+    print(json.dumps({"label": args.label, "card": smi, "package": M.__file__}), flush=True)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    for K, H, N, site in GEOMETRIES:
+        x = torch.randn(ROWS, K, device="cuda", generator=gen)
+        w1 = (torch.rand(K, H, device="cuda", generator=gen) * 2 - 1) * K ** -0.5
+        b1 = (torch.rand(H, device="cuda", generator=gen) * 2 - 1) * K ** -0.5
+        w2 = (torch.rand(H, N, device="cuda", generator=gen) * 2 - 1) * H ** -0.5
+        b2 = (torch.rand(N, device="cuda", generator=gen) * 2 - 1) * H ** -0.5
+        dout = torch.randn(ROWS, N, device="cuda", generator=gen)
+        for rate in (0.0, SITE_RATE[site]):
+            cfg = site_cfg(site, rate)
+            fn = lambda: M.fused_mlp_backward(x, w1, b1, w2, b2, dout, **cfg,  # noqa: E731
+                                              dropout_seed=2000 + K + N)
+            row = {"label": args.label, "M": ROWS, "K": K, "H": H, "N": N, "site": site,
+                   "rate": rate, "ms": ms_per_call(fn), "launches": launches(fn)}
+            if hasattr(M, "bwd_launches"):
+                row["split_launches"] = M.bwd_launches(ROWS, K, H, N)
+                row["workspace_bytes"] = 4 * M.bwd_workspace_floats(ROWS, K, H, N)
+            print(json.dumps(row), flush=True)
+
+
+if __name__ == "__main__":
+    main()

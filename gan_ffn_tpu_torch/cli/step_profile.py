@@ -1,0 +1,126 @@
+"""Where one train step's device time goes, on the card.
+
+    python -m gan_ffn_tpu_torch.cli.step_profile [--label NAME] [--steps 5]
+
+Builds the full-width 8-layer ``GAN_FFN`` (random weights from a seed) and
+trains it on one random batch at B = 32, L = 112 (dialogues of 97-110
+utterances, every dropout on), as ``chip_smoke.py``'s train step does.
+After 3 warm-up steps it profiles ``--steps`` steps with torch.profiler and
+prints one JSON line: wall ms per step (host clock, to the end of a
+synchronize), the device's busy ms per step (the union of its kernels'
+intervals) and idle share, and device ms per step by kernel, largest first
+(the port's kernels under their library's name, cuBLAS's and PyTorch's
+under their own).  The first line names the card and its power limit.
+
+Like ``cli/mlp_bwd_profile.py``, it imports the ``gan_ffn_tpu_torch`` first
+on ``sys.path``, so it can time another checkout (see there).
+"""
+
+from __future__ import annotations
+
+import argparse
+import collections
+import json
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+B, L = 32, 112
+
+
+def _batch(rng: np.random.Generator) -> dict:
+    lengths = rng.integers(97, 111, B)
+    umask = (np.arange(L)[None, :] < lengths[:, None]).astype(np.float32)
+    host = {
+        "audio": rng.standard_normal((L, B, 100)).astype(np.float32),
+        "visual": rng.standard_normal((L, B, 512)).astype(np.float32),
+        "text": rng.standard_normal((L, B, 100)).astype(np.float32),
+        "umask": umask, "label": rng.integers(0, 6, (B, L)) * umask.astype(np.int64),
+    }
+    batch = {k: torch.from_numpy(v).cuda() for k, v in host.items()}
+    batch["valid_len"] = int(lengths.max())
+    return batch
+
+
+def _busy_us(intervals) -> float:
+    """Length of the union of (start, end) intervals."""
+    busy, end = 0.0, float("-inf")
+    for s, e in sorted(intervals):
+        if e > end:
+            busy += e - max(s, end)
+            end = e
+    return busy
+
+
+# the port's kernels: each library's entry points
+LIBRARY = {"attention_fwd_kernel": "attention_fwd", "attention_bwd_kernel": "attention_bwd",
+           "mlp_fwd_kernel": "mlp_fwd", "gemm_kernel": "mlp_bwd", "reduce_kernel": "mlp_bwd",
+           "pre_kernel": "mlp_bwd"}
+
+
+def _kernel_name(name: str) -> str:
+    """A kernel's name without its namespace, template arguments and
+    parameters; the port's kernels as their library's name."""
+    name = name.replace("(anonymous namespace)::", "").removeprefix("void ")
+    name = name.split("(")[0].split("<")[0]
+    return LIBRARY.get(name, name[:80])
+
+
+def main(argv=None) -> None:
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--label", default="tree", help="a name for this checkout in the output")
+    p.add_argument("--steps", type=int, default=5, help="profiled train steps")
+    args = p.parse_args(argv)
+    if not torch.cuda.is_available():
+        sys.exit("step_profile: no CUDA card")
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from gan_ffn_tpu_torch.cli.train_iemocap import IEMOCAP_LOSS_WEIGHTS, N_CLASSES
+    from gan_ffn_tpu_torch.models import GAN_FFN
+    from gan_ffn_tpu_torch.nn.core import set_dropout_generator
+    from gan_ffn_tpu_torch.train.classifier import make_classifier_steps
+    from gan_ffn_tpu_torch.train.optim import torch_adam
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True).stdout.strip()
+    print(json.dumps({"label": args.label, "card": smi}), flush=True)
+    model = GAN_FFN(n_classes=N_CLASSES, gen_num_layers=8,
+                    generator=torch.Generator().manual_seed(1), device="cuda")
+    set_dropout_generator(model, torch.Generator().manual_seed(2))
+    opt = torch_adam(model.parameters(), 1e-4, weight_decay=0.008)
+    train_step, _ = make_classifier_steps(model, opt, N_CLASSES,
+                                          torch.from_numpy(IEMOCAP_LOSS_WEIGHTS).cuda())
+    batch = _batch(np.random.default_rng(0))
+    for _ in range(3):
+        train_step(batch)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(args.steps):
+            train_step(batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / args.steps
+    # device activities: kernels, copies and sets; not the device-side spans
+    # of user annotations (the optimizer's step), which cover the gaps too
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
+    per_name = collections.Counter()
+    for e in kernels:
+        per_name[_kernel_name(e.name)] += e.time_range.elapsed_us() / 1e3 / args.steps
+    busy_ms = _busy_us([(e.time_range.start, e.time_range.end) for e in kernels]) / 1e3 / args.steps
+    print(json.dumps({
+        "label": args.label, "B": B, "L": L, "valid_len": batch["valid_len"], "steps": args.steps,
+        "wall_ms_per_step": wall_ms, "device_busy_ms_per_step": busy_ms,
+        "device_idle_share": 1.0 - busy_ms / wall_ms, "kernels_per_step": len(kernels) / args.steps,
+        "device_ms_per_step_by_kernel": {k: round(v, 4) for k, v in per_name.most_common(25)},
+    }), flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,6 +1,7 @@
-// Tensor-core helpers for the attention kernels: f32-accurate products from
-// TF32 mma.sync (the 3xTF32 split), fragment loads from shared memory, quad
-// reductions, cp.async staging, and dropout masks in the fragment layout.
+// Tensor-core helpers for the attention kernels and the MLP backward:
+// f32-accurate products from TF32 mma.sync (the 3xTF32 split), fragment loads
+// from shared memory, quad reductions, cp.async staging, and dropout masks in
+// the fragment layout.
 //
 // mma.sync.m16n8k8 (tf32 in, f32 accumulate) fragment layout, with
 // g = lane / 4 and t = lane % 4 (PTX ISA, "Matrix Fragments for mma.m16n8k8"):
@@ -21,7 +22,9 @@
 //
 // Shared-memory tiles keep a row stride of Dp + 4 floats (Dp in {16, 32, 64}):
 // load_a / load_b_rows then hit 32 different banks (stride = 4 or 20 mod 32),
-// and load_b_pairs too (2 * stride = 8 mod 32).
+// and load_b_pairs too (2 * stride = 8 mod 32).  Tiles staged k-major, [k][m]
+// for A or [k][n] for B (load_a_fast / load_b_fast<true>), keep a row stride
+// of 8 mod 32 floats for the same reason.
 
 #pragma once
 
@@ -30,7 +33,7 @@
 
 #include "philox.cuh"
 
-// Phase probes, read by scripts/attention_probes.py: built with
+// Phase probes, read by gan_ffn_tpu_torch/cli/attention_probes.py: built with
 // -DGAN_ATTENTION_PROBES, lane 0 of each warp of the first 64 blocks records
 // clock64() at probe n (< 16); otherwise GAN_PROBE compiles to nothing.
 #ifdef GAN_ATTENTION_PROBES
@@ -115,6 +118,55 @@ __device__ __forceinline__ FragB load_b_pairs(const float* s, int ld, int k0, in
                                               int t) {
   const float* p = s + (k0 + 2 * t) * ld + n0 + g;
   return make_b(p[0], p[ld]);
+}
+
+// The split of CUTLASS's fast 3xTF32: hi = rna(x) as in split, lo = x - hi
+// left unrounded.  The tensor core reads only the top 19 bits of a tf32
+// operand, so it truncates lo: |x - hi - lo_tf32| < 2^-21 |x| (split: 2^-22),
+// in 3 instructions a value instead of 5.
+__device__ __forceinline__ void split_fast(float x, uint32_t& hi, uint32_t& lo) {
+  hi = rna(__float_as_uint(x));
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+__device__ __forceinline__ FragA make_a_fast(float a0, float a1, float a2, float a3) {
+  FragA f;
+  split_fast(a0, f.hi[0], f.lo[0]);
+  split_fast(a1, f.hi[1], f.lo[1]);
+  split_fast(a2, f.hi[2], f.lo[2]);
+  split_fast(a3, f.hi[3], f.lo[3]);
+  return f;
+}
+
+__device__ __forceinline__ FragB make_b_fast(float b0, float b1) {
+  FragB f;
+  split_fast(b0, f.hi[0], f.lo[0]);
+  split_fast(b1, f.hi[1], f.lo[1]);
+  return f;
+}
+
+// A = s[r0 .. r0 + 15][k0 .. k0 + 7] of s[m][k] (as load_a), or of s^T where
+// A is staged k-major (kKMajor: s[k][m], A^T row-major); split_fast.
+template <bool kKMajor>
+__device__ __forceinline__ FragA load_a_fast(const float* s, int ld, int r0, int k0, int g, int t) {
+  if (kKMajor) {
+    const float* p = s + (k0 + t) * ld + r0 + g;
+    return make_a_fast(p[0], p[8], p[4 * ld], p[4 * ld + 8]);
+  }
+  const float* p = s + (r0 + g) * ld + k0 + t;
+  return make_a_fast(p[0], p[8 * ld], p[4], p[8 * ld + 4]);
+}
+
+// B[k][n] = s[k0 + k][n0 + n] where B is staged k-major (kKMajor: s[k][n], k
+// in its own order), or s[n0 + n][k0 + k] (s[n][k], as load_b_rows); split_fast.
+template <bool kKMajor>
+__device__ __forceinline__ FragB load_b_fast(const float* s, int ld, int k0, int n0, int g, int t) {
+  if (kKMajor) {
+    const float* p = s + (k0 + t) * ld + n0 + g;
+    return make_b_fast(p[0], p[4 * ld]);
+  }
+  const float* p = s + (n0 + g) * ld + k0 + t;
+  return make_b_fast(p[0], p[4]);
 }
 
 // An accumulator tile (c0..c3) as the A operand, k order permuted.

@@ -35,9 +35,18 @@ visual FFN 512->2048->512.  The forward kernel (:func:`fused_mlp_supported`)
 streams d_ff in 128-column chunks and keeps a ``(32, N)`` float32
 accumulator in registers: ``N <= 512``, and one block's ``pre(x)`` rows plus
 double-buffered weight slices fit 227 KB of shared memory.  The backward
-(:func:`fused_mlp_bwd_supported`) is a chain of 64 x 64-tiled products with
-fixed shared memory (8.7 KB) and registers, so any geometry fits it whose
-flat indices stay below 2**31 and whose row tiles fit one launch's grid.
+(:func:`fused_mlp_bwd_supported`) is a chain of products on the tensor
+cores (TF32 ``mma.sync`` in the 3xTF32 split, f32-accurate), each block a
+64 x 64 output tile with fixed shared memory (55.3 KB: a ring of three
+32-deep slices) and registers, so any geometry fits it whose flat indices
+stay below 2**31 and whose row tiles fit one launch's grid.  Its bound is
+the products' flops at 165 TFLOP/s (495 TF32 over three products).  The
+launches that reduce over a long axis into at most half a wave of blocks
+(dx over H; dW1, db1 and dW2, db2 over M) split it into chunks that about
+fill one wave of :data:`BWD_WAVE_BLOCKS` (:func:`split_reduction`): each
+(tile, chunk) block writes a partial tile to a workspace of
+:func:`bwd_workspace_floats` floats, and a second kernel sums the partials
+in ascending chunk order.
 All four geometries of the path pass both:
 100->2048->100, 512->2048->512, 100->512->100 and 512->1024->100.
 """
@@ -62,12 +71,14 @@ INDEX_LIMIT = 2**31  # the kernels' int flat indices
 GRID_Y_LIMIT = 65535  # a launch's grid y extent
 # csrc tile constants: kRows, kSliceK, kChunk, kSliceH, kColGroup, kPad
 _ROWS, _SLICE_K, _CHUNK, _SLICE_H, _COL_GROUP, _PAD = 32, 32, 128, 16, 128, 4
-_BWD_TILE = 64  # csrc/mlp_bwd.cu kBM: output rows of one block
+# csrc/mlp_bwd.cu: kBM = kBN (an output tile's rows and columns), kBK (the
+# k-slice), kWaveBlocks (one wave: 4 blocks on each of the H100's 132 SMs)
+_BWD_TILE, _BWD_SLICE, BWD_WAVE_BLOCKS = 64, 32, 4 * 132
 
 _CHAIN_ARGTYPES = [ctypes.c_int] * 4 + [ctypes.c_uint64] + [ctypes.c_void_p] * 3
 _FWD_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + _CHAIN_ARGTYPES
                  + [ctypes.c_void_p])
-_BWD_ARGTYPES = ([ctypes.c_void_p] * 15 + [ctypes.c_int] * 4 + _CHAIN_ARGTYPES
+_BWD_ARGTYPES = ([ctypes.c_void_p] * 16 + [ctypes.c_int] * 4 + _CHAIN_ARGTYPES
                  + [ctypes.c_void_p])
 
 
@@ -86,11 +97,51 @@ def fused_mlp_supported(K: int, H: int, N: int) -> bool:
 def fused_mlp_bwd_supported(K: int, H: int, N: int, M: int = 1) -> bool:
     """True iff the backward CUDA kernel takes ``K -> H -> N`` over ``M``
     rows: its shared memory and registers do not depend on the geometry, so
-    only the flat indices and the grid's row tiles bound it (csrc
-    ``gan_mlp_bwd``)."""
+    only the flat indices and the grid's row tiles (of M, K + 1 and H + 1
+    outputs) bound it (csrc ``gan_mlp_bwd``).  A split's chunks stay far
+    below the grid's z extent: at most ``BWD_WAVE_BLOCKS``."""
     return (min(K, H, N, M) >= 1 and M * max(K, H, N) < INDEX_LIMIT
             and (K + 1) * H < INDEX_LIMIT and (H + 1) * N < INDEX_LIMIT
             and max(M, K, H) + 1 <= GRID_Y_LIMIT * _BWD_TILE)
+
+
+def split_reduction(tiles: int, depth: int) -> Tuple[int, int]:
+    """``(S, chunk)``: how a backward launch of ``tiles`` output tiles splits
+    a reduction of length ``depth`` (csrc ``split_reduction``).  Not at all
+    (``S = 1``) where the tiles make half of :data:`BWD_WAVE_BLOCKS` alone;
+    else into ``s = min(BWD_WAVE_BLOCKS // tiles, slices)`` chunks of
+    ``ceil(slices / s)`` 32-deep k-slices each, the last possibly shorter
+    (rounding may leave fewer than ``s``)."""
+    slices = -(-depth // _BWD_SLICE)
+    if 2 * tiles > BWD_WAVE_BLOCKS or slices <= 1:
+        return 1, slices * _BWD_SLICE
+    s = min(BWD_WAVE_BLOCKS // tiles, slices)
+    chunk = -(-slices // s) * _BWD_SLICE
+    return -(-depth // chunk), chunk
+
+
+def bwd_launches(M: int, K: int, H: int, N: int) -> list:
+    """The backward's three launches that may split their reduction: name,
+    output shape (the dW launches carry the bias as one more row), depth,
+    output tiles, chunks ``S``, chunk length and blocks."""
+    out = []
+    for name, rows, cols, depth in (("dx", M, K, H), ("dw1_db1", K + 1, H, M),
+                                    ("dw2_db2", H + 1, N, M)):
+        tiles = -(-rows // _BWD_TILE) * -(-cols // _BWD_TILE)
+        S, chunk = split_reduction(tiles, depth)
+        out.append({"name": name, "outputs": [rows, cols], "depth": depth, "tiles": tiles,
+                    "chunks": S, "chunk": chunk, "blocks": tiles * S})
+    return out
+
+
+def bwd_workspace_floats(M: int, K: int, H: int, N: int) -> int:
+    """Floats of workspace the backward kernel needs (csrc
+    ``gan_mlp_bwd_workspace_floats``): the largest chunks x outputs of a
+    launch that splits, 0 where none does."""
+    if min(M, K, H, N) < 1:
+        return 0
+    return max([l["chunks"] * l["outputs"][0] * l["outputs"][1]
+                for l in bwd_launches(M, K, H, N) if l["chunks"] > 1], default=0)
 
 
 def _act(name: Optional[str], x: torch.Tensor) -> torch.Tensor:
@@ -263,7 +314,8 @@ def fused_mlp_backward(x, w1, b1, w2, b2, dout, pre=None, mid=("relu", "act_firs
     """(dx, dw1, db1, dw2, db2) of :func:`fused_mlp` over ``(M, K)`` inputs
     for the upstream gradient ``dout (M, N)``, with the forward's chain and
     seed.  CPU tensors: :func:`mlp_backward_plain`; CUDA tensors:
-    ``mlp_bwd.cu`` (its launches and scratch buffers, one call)."""
+    ``mlp_bwd.cu`` (its launches, scratch buffers and workspace, one
+    call)."""
     K, H, N = _check_geometry(x, w1, b1, w2, b2)
     if x.dim() != 2 or dout.shape != (x.shape[0], N):
         raise ValueError(f"fused_mlp_backward takes x (M, K) and dout (M, N), got "
@@ -286,13 +338,16 @@ def fused_mlp_backward(x, w1, b1, w2, b2, dout, pre=None, mid=("relu", "act_firs
     t1 = empty(M, K) if pre is not None else empty(0)
     a1, d1 = empty(M, H), empty(M, H)
     g = empty(M, N) if post is not None else empty(0)
+    workspace = _build.function("mlp_bwd", "gan_mlp_bwd_workspace_floats", [ctypes.c_int] * 4,
+                                ctypes.c_longlong)
+    ws = empty(workspace(M, K, H, N))
     fn = _build.function("mlp_bwd", "gan_mlp_bwd", _BWD_ARGTYPES)
     with torch.cuda.device(x.device):
         code = fn(
             x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
             dout.data_ptr(), dx.data_ptr(), dw1.data_ptr(), db1.data_ptr(), dw2.data_ptr(),
             db2.data_ptr(), t1.data_ptr(), a1.data_ptr(), d1.data_ptr(), g.data_ptr(),
-            M, K, H, N, *args, torch.cuda.current_stream(x.device).cuda_stream,
+            ws.data_ptr(), M, K, H, N, *args, torch.cuda.current_stream(x.device).cuda_stream,
         )
     _build.check(code, "mlp_bwd")
     fused_mlp_backward.launches += 1

@@ -22,6 +22,7 @@ import math
 import numpy as np
 import pytest
 import torch
+from tf32_emulation import mm_1x, mm_3x, tf32
 
 from gan_ffn_tpu_torch.ops import attention as A
 from gan_ffn_tpu_torch.ops.dropout import STREAM_ATTENTION, keep_scale
@@ -29,23 +30,6 @@ from gan_ffn_tpu_torch.ops.dropout import STREAM_ATTENTION, keep_scale
 FWD_TOL = 1e-5
 GRAD_TOL = 1e-4  # relative to max(1, max |ref|)
 B, L = 4, 112
-
-
-def tf32(x: torch.Tensor) -> torch.Tensor:
-    """x rounded to TF32 (nearest, ties away from zero; low 13 bits cleared)."""
-    bits = x.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
-    bits = (bits + 0x1000) & 0xFFFFE000
-    return torch.where(bits >= 2**31, bits - 2**32, bits).to(torch.int32).view(torch.float32)
-
-
-def mm_3x(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    a_hi, b_hi = tf32(a), tf32(b)
-    a_lo, b_lo = tf32(a - a_hi), tf32(b - b_hi)
-    return (a_lo @ b_hi + a_hi @ b_lo) + a_hi @ b_hi
-
-
-def mm_1x(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    return tf32(a) @ tf32(b)
 
 
 def _weights(mm, q, k, valid_len, rate, seed):

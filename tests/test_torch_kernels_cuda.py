@@ -21,6 +21,7 @@ kernels sum in a fixed order, so two calls give identical bits.
 import numpy as np
 import pytest
 import torch
+from tf32_emulation import away_from_relu_kink
 
 from gan_ffn_tpu_torch.ops import attention as A
 from gan_ffn_tpu_torch.ops import mlp as M
@@ -178,9 +179,11 @@ FFN_DROP = dict(mid=("relu", "act_first", 0.1))
         (512, 1024, 100, HEAD_DROP),
         (37, 100, 33, HEAD_DROP),  # ragged everywhere
         (64, 130, 260, FFN_DROP),  # H % 4 != 0
+        (36, 204, 60, HEAD_DROP),  # K, H, N % 8 != 0: 16-byte copies, partial mma tiles
     ],
 )
-@pytest.mark.parametrize("rows", [1, 77, 3584])
+# 1000 and 3585 rows make the last chunk of the split reductions over M ragged
+@pytest.mark.parametrize("rows", [1, 77, 1000, 3584, 3585])
 def test_mlp_backward_kernel_matches_plain(cuda, K, H, N, cfg, rows):
     rng = np.random.default_rng(K + H + N + rows + 1)
     x = _randn(rng, (rows, K), 1.0, cuda)
@@ -189,6 +192,8 @@ def test_mlp_backward_kernel_matches_plain(cuda, K, H, N, cfg, rows):
     w2 = _randn(rng, (H, N), H ** -0.5, cuda)
     b2 = _randn(rng, (N,), 0.05, cuda)
     dout = _randn(rng, (rows, N), 1.0, cuda)
+    if cfg["mid"][0] == "relu":
+        x = away_from_relu_kink(x, w1, b1, lambda n: _randn(rng, (n, K), 1.0, cuda))
     seed = rows * 31 + K
     _close(M.fused_mlp(x, w1, b1, w2, b2, **cfg, dropout_seed=seed),
            M.mlp_plain(x, w1, b1, w2, b2, **cfg, dropout_seed=seed), "forward")
@@ -201,6 +206,19 @@ def test_mlp_backward_kernel_matches_plain(cuda, K, H, N, cfg, rows):
     for name, g, w, g2 in zip(("dx", "dw1", "db1", "dw2", "db2"), grads, want, again):
         _close(g, w, name)
         assert torch.equal(g, g2), f"{name}: two calls differ"
+
+
+def test_mlp_bwd_workspace_mirrors_the_kernel(cuda):
+    import ctypes
+
+    from gan_ffn_tpu_torch.ops import _build
+
+    query = _build.function("mlp_bwd", "gan_mlp_bwd_workspace_floats", [ctypes.c_int] * 4,
+                            ctypes.c_longlong)
+    for rows in (1, 77, 1000, 3584, 3585):
+        for K, H, N in ((100, 2048, 100), (512, 2048, 512), (100, 512, 100), (512, 1024, 100),
+                        (37, 100, 33), (36, 204, 60)):
+            assert query(rows, K, H, N) == M.bwd_workspace_floats(rows, K, H, N), (rows, K, H, N)
 
 
 def test_mlp_autograd_runs_both_kernels(cuda):
