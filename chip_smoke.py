@@ -21,8 +21,11 @@ Phases, each printing JSON lines; any failure exits non-zero:
                compared element by element.  Forward: attention max |diff|
                <= 1e-5, MLP <= 1e-4 * max(1, max |ref|).  Backward (against
                autograd of the plain version): <= 1e-4 * max(1, max |ref|)
-               per gradient, and two calls give identical bits.  The kernels'
-               keep fraction is within 5 sigma of 1 - rate.
+               per gradient, and two calls of either kernel give identical
+               bits.  The forward and the backward take the same branches of
+               relu' at inputs built to put z1 within 1e-6 of 0 (K = 100 and
+               512, M = 1 and 3584; mlp_relu_branches).  The kernels' keep
+               fraction is within 5 sigma of 1 - rate.
                Times: CUDA events around 10 back-to-back calls queued behind
                a device sleep (so host launch cost is hidden), median of 21,
                L2-warm (the MLP backward: 5 calls, median of 11, at both
@@ -103,11 +106,14 @@ MLP_SHAPES = {
 }
 MLP_ROWS = 112 * 32
 SITE_RATE = {"ffn": 0.1, "head": 0.2}
-# The MLP backward kernel recomputes z1 on the tensor cores, its plain version
-# with cuBLAS in f32: sums in two orders, up to a few 1e-6 apart.  Where z1
-# lies that close to relu's kink the two take different branches of relu'
-# and their gradients differ by O(1) there, so the FFN inputs keep every z1
-# at least this far from 0.
+# Where a kernel is held against its plain version: the kernels compute z1
+# on the tensor cores (3xTF32), the plain version with cuBLAS in f32, sums in
+# two orders up to a few 1e-6 apart.  Where z1 lies that close to relu's kink
+# the two take different branches of relu' and their gradients differ by
+# O(1) there, so those comparisons draw FFN inputs that keep every z1 at
+# least this far from 0.  The kernels agree with each other there: both
+# compute z1 through the same tile code, which mlp_relu_branches checks at
+# inputs built to lie on the kink.
 RELU_KINK = 2e-5
 STEP_LAUNCHES = {"attention_fwd": 24, "attention_bwd": 24, "mlp_fwd": 27, "mlp_bwd": 27}
 SOURCES = {
@@ -339,6 +345,7 @@ def phase_kernels_mlp(torch, rows: Rows):
         for rate in (0.0, SITE_RATE[site]):
             cfg, seed = site_cfg(site, rate), 2000 + K + N
             got = Mo.fused_mlp(*args, **cfg, dropout_seed=seed)
+            got_again = Mo.fused_mlp(*args, **cfg, dropout_seed=seed)
             grads = Mo.fused_mlp_backward(*args, dout, **cfg, dropout_seed=seed)
             again = Mo.fused_mlp_backward(*args, dout, **cfg, dropout_seed=seed)
             torch.cuda.synchronize()
@@ -348,6 +355,8 @@ def phase_kernels_mlp(torch, rows: Rows):
             if not rel <= MLP_TOL:
                 fail(f"mlp_fwd {K}->{Hd}->{N} ({site}) rate={rate}: "
                      f"max |diff| / max(1, max |ref|) {rel} > {MLP_TOL}")
+            if not torch.equal(got, got_again):
+                fail(f"mlp_fwd {K}->{Hd}->{N} ({site}) rate={rate}: two calls differ")
             plain = Mo.mlp_backward_plain(*args, dout, **cfg, dropout_seed=seed)
             gabs = max((g - w).abs().max().item() for g, w in zip(grads, plain))
             gerr = max(max_rel_err(g, w) for g, w in zip(grads, plain))
@@ -362,6 +371,8 @@ def phase_kernels_mlp(torch, rows: Rows):
                 "ms": device_time_ms(torch, lambda: Mo.fused_mlp(*args, **cfg, dropout_seed=seed)),
                 "plain_ms": device_time_ms(torch, lambda: Mo.mlp_plain(*args, **cfg, dropout_seed=seed)),
                 "library_ms": None,
+                "workspace_bytes": 4 * Mo.fwd_workspace_floats(M, K, Hd, N),
+                "launch": Mo.fwd_launch(M, K, Hd, N),
             }
             fwd["bound_ms"], fwd["bound_by"] = bound_ms(*_mlp_bytes_flops(M, K, Hd, N, site == "head", False))
             bwd = {
@@ -386,6 +397,8 @@ def phase_kernels_mlp(torch, rows: Rows):
                 rows.step["mlp_bwd"].append((count, bwd))
             emit(line)
 
+    mlp_relu_branches(torch, Mo)
+
     # keep fraction of the kernel's mid mask: z1 = 1 everywhere, out[:, 0] sums the mask
     rate, H = SITE_RATE["ffn"], 2048
     w2 = torch.zeros(H, 4, device="cuda")
@@ -399,6 +412,47 @@ def phase_kernels_mlp(torch, rows: Rows):
         fail(f"mlp dropout keeps {kept}, expected {1 - rate} +- {5 * sigma}")
     emit({"phase": "kernel", "name": "mlp", "keep_fraction": kept, "expected": 1 - rate,
           "sigma": sigma})
+
+
+def mlp_relu_branches(torch, Mo) -> None:
+    """The forward and the backward kernel take the same branch of relu' at
+    inputs whose z1 lie within ~1e-6 of 0 (K -> 512 -> 512 relu FFN, K = 100
+    and 512, M = 1 and 3584): every row is x0 plus noise of 1e-6, and b1 =
+    -(x0 W1) in f64, rounded to f32.  With W2 = I, b2 = 0 and no post, out > 0
+    exactly where the forward's z1 > 0.  dout holds whole numbers from 1 to
+    1024, so db1 = sum_r dout[r, j] relu'(z1[r, j]) is exact in f32 and is
+    held to sum_r dout[r, j] [out[r, j] > 0] in f64: a row on the other
+    branch moves its column by its dout, and two such rows cancel only where
+    their dout are equal.  Also reported: how many of those z1 the plain
+    version (cuBLAS's order) puts on the other side of 0."""
+    H = 512
+    eye, zero = torch.eye(H, device="cuda"), torch.zeros(H, device="cuda")
+    cfg = dict(mid=("relu", "act_first", 0.0))
+    for K in (100, 512):
+        for rows in (1, MLP_ROWS):
+            rng = np.random.default_rng(K + rows)
+            x0 = rng.standard_normal(K)
+            x = torch.from_numpy((x0 + 1e-6 * rng.standard_normal((rows, K))).astype(np.float32)).cuda()
+            w1 = torch.from_numpy((rng.standard_normal((K, H)) * K ** -0.5).astype(np.float32)).cuda()
+            b1 = -(torch.from_numpy(x0).cuda() @ w1.double()).float()
+            out = Mo.fused_mlp(x, w1, b1, eye, zero, **cfg)
+            again = Mo.fused_mlp(x, w1, b1, eye, zero, **cfg)
+            dout = torch.from_numpy(rng.integers(1, 1025, (rows, H)).astype(np.float32)).cuda()
+            db1 = Mo.fused_mlp_backward(x, w1, b1, eye, zero, dout, **cfg)[2]
+            plain = Mo.mlp_plain(x, w1, b1, eye, zero, **cfg)
+            torch.cuda.synchronize()
+            near = int(((x.double() @ w1.double() + b1.double()).abs() < 1e-6).sum().item())
+            want = (dout.double() * (out > 0)).sum(0)
+            line = {"phase": "kernel", "name": "mlp_relu_branches", "shape": [rows, K, H, H],
+                    "z1_within_1e-6": near, "z1": rows * H,
+                    "columns_fwd_bwd_differ": int((db1.double() != want).sum().item()),
+                    "z1_plain_other_side": int(((plain > 0) != (out > 0)).sum().item()),
+                    "fwd_repeat_identical": torch.equal(out, again)}
+            emit(line)
+            if near < rows * H // 10:
+                fail(f"mlp_relu_branches {line}: too few z1 near the kink to probe it")
+            if line["columns_fwd_bwd_differ"] or not line["fwd_repeat_identical"]:
+                fail(f"mlp_relu_branches {line}: forward and backward take other branches")
 
 
 def _post(url, payload):

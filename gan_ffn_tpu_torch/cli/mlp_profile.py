@@ -1,20 +1,21 @@
-"""Time ``csrc/mlp_bwd.cu`` on the card, launch by launch.
+"""Time the MLP kernels (``csrc/mlp_fwd.cu``, ``csrc/mlp_bwd.cu``) on the
+card, launch by launch.
 
-    python -m gan_ffn_tpu_torch.cli.mlp_bwd_profile [--label NAME]
+    python -m gan_ffn_tpu_torch.cli.mlp_profile [--label NAME]
 
 For each MLP geometry of the training path (M = 3584 rows; 100->2048->100
 and 512->2048->512 encoder FFNs, 100->512->100 and 512->1024->100 generator
 heads), at dropout rate 0 and at the path's rate (FFN 0.1, head 0.2), prints
-one JSON line: ``fused_mlp_backward``'s ms per call (CUDA events around 5
-calls queued behind a device sleep, median of 11, L2-warm) and, from
-``torch.profiler``, each kernel launch of one call in launch order with its
-device microseconds (median over 5 calls).  Where the package reports them
-(``ops.mlp.bwd_launches``), each split launch's output tiles, chunks and
-the workspace bytes are printed too.  The first line names the card and its
-power limit.
+one JSON line per kernel: ``fused_mlp``'s or ``fused_mlp_backward``'s ms per
+call (CUDA events around 5 calls queued behind a device sleep, median of 11,
+L2-warm) and, from ``torch.profiler``, each kernel launch of one call in
+launch order with its device microseconds (median over 5 calls).  Where the
+package reports them (``ops.mlp.fwd_launch``, ``ops.mlp.bwd_launches``),
+the launches' blocks, chunks and the workspace bytes are printed too.  The
+first line names the card and its power limit.
 
 The script imports the ``gan_ffn_tpu_torch`` that is first on ``sys.path``,
-so one process can time another checkout's kernel: run it from that
+so one process can time another checkout's kernels: run it from that
 checkout's root with ``python -c "import runpy, sys; sys.path.insert(0, '.');
 runpy.run_path('<this file>', run_name='__main__')" --label parent``, and
 compare two versions in turns (parent, change, change, parent) in one call.
@@ -90,7 +91,7 @@ def main(argv=None) -> None:
     p.add_argument("--label", default="tree", help="a name for this checkout in the output")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
-        sys.exit("mlp_bwd_profile: no CUDA card")
+        sys.exit("mlp_profile: no CUDA card")
     from gan_ffn_tpu_torch.ops import mlp as M
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -106,15 +107,23 @@ def main(argv=None) -> None:
         b2 = (torch.rand(N, device="cuda", generator=gen) * 2 - 1) * H ** -0.5
         dout = torch.randn(ROWS, N, device="cuda", generator=gen)
         for rate in (0.0, SITE_RATE[site]):
-            cfg = site_cfg(site, rate)
-            fn = lambda: M.fused_mlp_backward(x, w1, b1, w2, b2, dout, **cfg,  # noqa: E731
-                                              dropout_seed=2000 + K + N)
-            row = {"label": args.label, "M": ROWS, "K": K, "H": H, "N": N, "site": site,
-                   "rate": rate, "ms": ms_per_call(fn), "launches": launches(fn)}
-            if hasattr(M, "bwd_launches"):
-                row["split_launches"] = M.bwd_launches(ROWS, K, H, N)
-                row["workspace_bytes"] = 4 * M.bwd_workspace_floats(ROWS, K, H, N)
-            print(json.dumps(row), flush=True)
+            cfg, seed = site_cfg(site, rate), 2000 + K + N
+            for kernel in ("fwd", "bwd"):
+                if kernel == "fwd":
+                    fn = lambda: M.fused_mlp(  # noqa: E731
+                        x, w1, b1, w2, b2, **cfg, dropout_seed=seed)
+                else:
+                    fn = lambda: M.fused_mlp_backward(x, w1, b1, w2, b2, dout, **cfg,  # noqa: E731
+                                                      dropout_seed=seed)
+                row = {"label": args.label, "kernel": kernel, "M": ROWS, "K": K, "H": H, "N": N,
+                       "site": site, "rate": rate, "ms": ms_per_call(fn), "launches": launches(fn)}
+                if kernel == "fwd" and hasattr(M, "fwd_launch"):
+                    row["launch"] = M.fwd_launch(ROWS, K, H, N)
+                    row["workspace_bytes"] = 4 * M.fwd_workspace_floats(ROWS, K, H, N)
+                if kernel == "bwd" and hasattr(M, "bwd_launches"):
+                    row["split_launches"] = M.bwd_launches(ROWS, K, H, N)
+                    row["workspace_bytes"] = 4 * M.bwd_workspace_floats(ROWS, K, H, N)
+                print(json.dumps(row), flush=True)
 
 
 if __name__ == "__main__":

@@ -12,7 +12,7 @@ intervals) and idle share, and device ms per step by kernel, largest first
 (the port's kernels under their library's name, cuBLAS's and PyTorch's
 under their own).  The first line names the card and its power limit.
 
-Like ``cli/mlp_bwd_profile.py``, it imports the ``gan_ffn_tpu_torch`` first
+Like ``cli/mlp_profile.py``, it imports the ``gan_ffn_tpu_torch`` first
 on ``sys.path``, so it can time another checkout (see there).
 """
 
@@ -57,8 +57,11 @@ def _busy_us(intervals) -> float:
 
 # the port's kernels: each library's entry points
 LIBRARY = {"attention_fwd_kernel": "attention_fwd", "attention_bwd_kernel": "attention_bwd",
-           "mlp_fwd_kernel": "mlp_fwd", "gemm_kernel": "mlp_bwd", "reduce_kernel": "mlp_bwd",
-           "pre_kernel": "mlp_bwd"}
+           "mlp_fwd_kernel": "mlp_fwd", "mlp_fwd_reduce_kernel": "mlp_fwd",
+           "gemm_kernel": "mlp_bwd", "reduce_kernel": "mlp_bwd", "pre_kernel": "mlp_bwd"}
+# kernels that both MLP libraries launch (csrc/mlp_tile.cuh): each launch is
+# counted with the library of the kernel that runs next on the stream
+SHARED = {"mlp::pre_kernel"}
 
 
 def _kernel_name(name: str) -> str:
@@ -110,9 +113,14 @@ def main(argv=None) -> None:
     # of user annotations (the optimizer's step), which cover the gaps too
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA
                and not getattr(e, "is_user_annotation", False)]
+    kernels.sort(key=lambda e: e.time_range.start)
+    names = [_kernel_name(e.name) for e in kernels]
     per_name = collections.Counter()
-    for e in kernels:
-        per_name[_kernel_name(e.name)] += e.time_range.elapsed_us() / 1e3 / args.steps
+    for i, e in enumerate(kernels):
+        name = names[i]
+        if name in SHARED and i + 1 < len(kernels):
+            name = names[i + 1]
+        per_name[name] += e.time_range.elapsed_us() / 1e3 / args.steps
     busy_ms = _busy_us([(e.time_range.start, e.time_range.end) for e in kernels]) / 1e3 / args.steps
     print(json.dumps({
         "label": args.label, "B": B, "L": L, "valid_len": batch["valid_len"], "steps": args.steps,

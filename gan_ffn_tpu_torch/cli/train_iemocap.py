@@ -56,7 +56,7 @@ _LATER = {
     "epoch_fused": "module note 12 (epoch-fused stages)",
     "dp": "module note 13 (parallel and sweeps)",
     "scan_layers": "module note 15 (the scanned layer layout)",
-    "bf16": "Queue 1 item 3 (bf16 kernels)",
+    "bf16": "Queue 1 item 5 (bf16 kernels)",
     "tensorboard": "module note 15 (utilities)",
     "profile": "module note 15 (utilities)",
 }

@@ -30,19 +30,11 @@
 // 5-7's split reductions.  Nothing is stored between the forward and the
 // backward: the backward recomputes z1, z2 and the masks.
 //
-// Products: every one runs on the tensor cores as TF32 mma.sync.m16n8k8 in
-// the 3xTF32 split (mma_tf32.cuh), f32-accurate to ~2^-21 a product, where
-// one TF32 pass would miss the 1e-4 limit (tests/test_torch_mlp_tf32.py).  A
-// block computes a 64 x 64 output tile with 4 warps of 32 x 32 (2 x 4 mma
-// tiles each), over k-slices of 32 that cp.async stages in a ring of 3, so
-// two slices load while one multiplies.  Operands are staged as they lie in
-// device memory: the plain A and the transposed B as [m][k] and [n][k] tiles
-// (row stride 36 = 4 mod 32 floats), the transposed A and the plain B as
-// [k][m] and [k][n] tiles (row stride 72 = 8 mod 32), so every fragment load
-// hits 32 banks.  Copies are 16, 8 or 4 bytes, as the row strides and the
-// pointers allow.  The reduction's tail is zero-filled; the tail of the
-// output axis is not copied, since its products land only in outputs that
-// are never stored.  The ones column of steps 6 and 7 is written into the
+// Products: every one runs through mlp_tile.cuh's tile_product, 3xTF32
+// mma.sync on 64 x 64 tiles of 4 warps over a 3-stage cp.async ring of
+// 32-deep k-slices (that header describes it).  The z1 launch computes z1 as
+// mlp_fwd.cu does, through the same code on the same tiles, so the two give
+// the same bits.  The ones column of steps 6 and 7 is written into the
 // staged tiles once and never copied over.
 //
 // Filling the card: steps 5-7 reduce over a long axis (H or M) into few
@@ -75,46 +67,13 @@
 #include <math.h>
 #include <stdint.h>
 
-#include "mma_tf32.cuh"
-#include "philox.cuh"
+#include "mlp_tile.cuh"
 
 namespace {
 
-constexpr int kBM = 64, kBN = 64, kBK = 32;  // output tile and k-slice
-constexpr int kThreads = 128;                // 4 warps of 32 x 32 outputs, 2 x 2
-constexpr int kStages = 3;                   // cp.async ring
-constexpr int kLdK = kBK + 4;                // [m][k] and [n][k] tiles: 36 = 4 mod 32
-constexpr int kLdMN = kBM + 8;               // [k][m] and [k][n] tiles: 72 = 8 mod 32
-constexpr int kTile = kBM * kLdK;            // floats of one staged operand tile
-static_assert(kBM == kBN && kBK * kLdMN == kTile, "both layouts of a tile take kTile floats");
-constexpr int kSmem = kStages * 2 * kTile * (int)sizeof(float);  // 55,296 bytes
-// One wave of blocks: 4 resident on each of the H100's 132 SMs (registers
-// bound them at 128 threads of 128 registers).  Split launches aim for it.
-constexpr int kWaveBlocks = 4 * 132;
+using namespace mlp;
 
-enum Act { kNone = 0, kRelu = 1, kGelu = 2 };
-
-__device__ __forceinline__ float act(int a, float x) {
-  if (a == kRelu) return fmaxf(x, 0.f);
-  if (a == kGelu) return 0.5f * x * (1.f + erff(x * 0.70710678118654752f));
-  return x;
-}
-
-// d act(z) / dz.
-__device__ __forceinline__ float act_grad(int a, float z) {
-  if (a == kRelu) return z > 0.f ? 1.f : 0.f;
-  if (a == kGelu)
-    return 0.5f * (1.f + erff(z * 0.70710678118654752f)) +
-           z * expf(-0.5f * z * z) * 0.39894228040143268f;
-  return 1.f;
-}
-
-struct Chain {
-  int pre, mid, post;     // Act codes (pre / post kNone: absent)
-  int mid_act_first;      // 0 drop_first, 1 act_first
-  philox::Dropout site[3];  // pre, mid, post
-  int on[3];              // rate > 0
-};
+constexpr int kSmem = ring_floats(kStages) * (int)sizeof(float);  // 55,296 bytes
 
 enum Epi { kEpiZ1 = 0, kEpiZ2 = 1, kEpiDz1 = 2, kEpiDx = 3, kEpiGrad = 4 };
 
@@ -126,28 +85,6 @@ struct EpiArgs {
   int a_cols;         // grad: the real columns of A (the ones column is index a_cols)
 };
 
-// p[o .. o + n - 1] (n = 1..4; the rest 0): one 16-byte access when vec4
-// (o a multiple of 4, p 16-byte aligned) and n == 4.
-__device__ __forceinline__ void load4(const float* p, size_t o, int n, bool vec4, float (&v)[4]) {
-  if (vec4 && n == 4) {
-    const float4 q = *reinterpret_cast<const float4*>(p + o);
-    v[0] = q.x, v[1] = q.y, v[2] = q.z, v[3] = q.w;
-    return;
-  }
-#pragma unroll
-  for (int j = 0; j < 4; ++j) v[j] = j < n ? p[o + j] : 0.f;
-}
-
-__device__ __forceinline__ void store4(float* p, size_t o, int n, bool vec4, const float (&v)[4]) {
-  if (vec4 && n == 4) {
-    *reinterpret_cast<float4*>(p + o) = make_float4(v[0], v[1], v[2], v[3]);
-    return;
-  }
-#pragma unroll
-  for (int j = 0; j < 4; ++j)
-    if (j < n) p[o + j] = v[j];
-}
-
 // What the epilogue reads at outputs (r, c .. c + 3) besides the product: z2
 // dout, dx x (with pre), dz1 d1.
 template <int kEpi>
@@ -156,22 +93,6 @@ __device__ __forceinline__ void epi_in(int r, int c, int kM, int kN, bool vec4, 
   const bool reads = kEpi == kEpiZ2 || kEpi == kEpiDz1 || (kEpi == kEpiDx && chain.pre != kNone);
   if (!reads || r >= kM || c >= kN) return;
   load4(kEpi == kEpiDz1 ? e.out0 : e.aux, (size_t)r * kN + c, min(4, kN - c), vec4, in);
-}
-
-// a1 and d1 of z1 with the mid mask value ks.
-__device__ __forceinline__ void mid_act(const Chain& chain, float z, float ks, float& a, float& d) {
-  if (chain.on[1]) {
-    if (chain.mid_act_first) {
-      a = act(chain.mid, z) * ks;
-      d = ks * act_grad(chain.mid, z);
-    } else {
-      a = act(chain.mid, z * ks);
-      d = act_grad(chain.mid, z * ks) * ks;
-    }
-  } else {
-    a = act(chain.mid, z);
-    d = act_grad(chain.mid, z);
-  }
 }
 
 // The epilogue of outputs (r, c .. c + 3) of a kM x kN output (c a multiple
@@ -216,38 +137,6 @@ __device__ __forceinline__ void epilogue4(int r, int c, const float (&v)[4], con
   if (kEpi == kEpiZ1) store4(e.out1, o, n, vec4, out1);
 }
 
-// Starts copying the kRows x kCols tile whose element (r, c) is
-// src[(r0 + r) * ld + c0 + c] into dst (row stride kLd), in copies of W
-// floats.  The reduction runs along the rows (kRedRows) or along the
-// columns: past its end (r_lim or c_lim) the tile is zero-filled.  Past the
-// end of the output axis nothing is copied.
-template <int kRows, int kCols, int kLd, bool kRedRows, int W>
-__device__ __forceinline__ void load_tile_by(float* dst, const float* __restrict__ src, int ld,
-                                             int r0, int r_lim, int c0, int c_lim) {
-  constexpr int C = kCols / W;
-  static_assert(kRows * C % kThreads == 0, "whole copies per thread");
-#pragma unroll
-  for (int u = 0; u < kRows * C / kThreads; ++u) {
-    const int idx = threadIdx.x + u * kThreads;
-    const int r = idx / C, c = W * (idx % C);
-    const bool in_r = r0 + r < r_lim, in_c = c0 + c < c_lim;
-    if (kRedRows ? !in_c : !in_r) continue;
-    const bool valid = kRedRows ? in_r : in_c;
-    tf32::cp_async<W>(dst + r * kLd + c, valid ? src + (size_t)(r0 + r) * ld + c0 + c : src, valid);
-  }
-}
-
-template <int kRows, int kCols, int kLd, bool kRedRows>
-__device__ __forceinline__ void load_tile(float* dst, const float* __restrict__ src, int ld, int r0,
-                                          int r_lim, int c0, int c_lim, int vec) {
-  if (vec == 4)
-    load_tile_by<kRows, kCols, kLd, kRedRows, 4>(dst, src, ld, r0, r_lim, c0, c_lim);
-  else if (vec == 2)
-    load_tile_by<kRows, kCols, kLd, kRedRows, 2>(dst, src, ld, r0, r_lim, c0, c_lim);
-  else
-    load_tile_by<kRows, kCols, kLd, kRedRows, 1>(dst, src, ld, r0, r_lim, c0, c_lim);
-}
-
 // C[r, c] = sum_k A(r, k) B(k, c) over one 64 x 64 tile of a kM x kN output
 // and one chunk of the reduction, k in [z chunk, min((z + 1) chunk, kK)) for
 // z = blockIdx.z.  A(r, k) = kTA ? A[k * lda + r] : A[r * lda + k]; B(k, c) =
@@ -261,84 +150,24 @@ gemm_kernel(const float* __restrict__ A, int lda, int vec_a, const float* __rest
             int vec_b, int kM, int kN, int kK, int chunk, float* __restrict__ part, int vec4,
             Chain chain, EpiArgs e) {
   extern __shared__ __align__(16) float smem[];
-  float* sa = smem;                    // kStages tiles of A
-  float* sb = smem + kStages * kTile;  // and of B
   const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
   const int kbeg = blockIdx.z * chunk, kend = min(kbeg + chunk, kK);
-  const int nk = (kend - kbeg + kBK - 1) / kBK;
-  const int a_lim = kEpi == kEpiGrad ? e.a_cols : kM;  // rows of A in memory
-  const auto load = [&](int i) {
-    const int k0 = kbeg + i * kBK, s = i % kStages;
-    if constexpr (kTA)
-      load_tile<kBK, kBM, kLdMN, true>(sa + s * kTile, A, lda, k0, kend, m0, a_lim, vec_a);
-    else
-      load_tile<kBM, kBK, kLdK, false>(sa + s * kTile, A, lda, m0, a_lim, k0, kend, vec_a);
-    if constexpr (kTB)
-      load_tile<kBN, kBK, kLdK, false>(sb + s * kTile, B, ldb, n0, kN, k0, kend, vec_b);
-    else
-      load_tile<kBK, kBN, kLdMN, true>(sb + s * kTile, B, ldb, k0, kend, n0, kN, vec_b);
-  };
   if constexpr (kEpi == kEpiGrad) {  // the ones column, never copied over
     static_assert(kTA, "the ones column lives in a [k][m] tile");
     if (e.a_cols >= m0 && e.a_cols < m0 + kBM) {
       for (int i = threadIdx.x; i < kStages * kBK; i += kThreads)
-        sa[(i / kBK) * kTile + (i % kBK) * kLdMN + e.a_cols - m0] = 1.f;
+        smem[(i / kBK) * kTile + (i % kBK) * kLdMN + e.a_cols - m0] = 1.f;
     }
   }
-#pragma unroll
-  for (int i = 0; i < kStages - 1; ++i) {
-    if (i < nk) load(i);
-    tf32::stage_commit();
-  }
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int wm = (warp >> 1) * 32, wn = (warp & 1) * 32;
   float acc[2][4][4] = {};
-  for (int i = 0; i < nk; ++i) {
-    tf32::stage_wait<kStages - 2>();  // slice i is in; every warp is done with slice i - 1
-    if (i + kStages - 1 < nk) load(i + kStages - 1);  // into slice i - 1's buffer
-    tf32::stage_commit();
-    const float* a = sa + (i % kStages) * kTile;
-    const float* b = sb + (i % kStages) * kTile;
-#pragma unroll
-    for (int kk = 0; kk < kBK; kk += 8) {
-      tf32::FragA fa[2];
-#pragma unroll
-      for (int x = 0; x < 2; ++x)
-        fa[x] = tf32::load_a_fast<kTA>(a, kTA ? kLdMN : kLdK, wm + 16 * x, kk, g, t);
-#pragma unroll
-      for (int y = 0; y < 4; ++y) {
-        const tf32::FragB fb = tf32::load_b_fast<!kTB>(b, kTB ? kLdK : kLdMN, kk, wn + 8 * y, g, t);
-#pragma unroll
-        for (int x = 0; x < 2; ++x) tf32::mma3(acc[x][y], fa[x], fb);
-      }
-    }
-  }
+  const int a_lim = kEpi == kEpiGrad ? e.a_cols : kM;  // rows of A in memory
+  tile_product<kTA, kTB, false>(acc, smem, Operand{A, lda, vec_a, a_lim},
+                                Operand{B, ldb, vec_b, kN}, m0, n0, kbeg, kend);
 
-  // The tile goes through shared memory (row stride kLdMN), so that each
-  // thread takes 4 consecutive columns of 8 rows: 16-byte accesses and one
-  // Philox call per 4 mask values.
-  tf32::stage_wait<0>();
-  float* sc = smem;
-#pragma unroll
-  for (int x = 0; x < 2; ++x) {
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-#pragma unroll
-      for (int y = 0; y < 4; ++y)
-        *reinterpret_cast<float2*>(sc + (wm + 16 * x + 8 * h + g) * kLdMN + wn + 8 * y + 2 * t) =
-            make_float2(acc[x][y][2 * h], acc[x][y][2 * h + 1]);
-    }
-  }
-  __syncthreads();
-  constexpr int kRowsPer = kThreads / (kBN / 4);  // a thread's rows lie 8 apart
-  constexpr int kGroups = kBM / kRowsPer;         // 8 groups of 4 columns a thread
-  const int cc = 4 * (threadIdx.x % (kBN / 4)), c = n0 + cc, n = min(4, kN - c);
-  const int rt = threadIdx.x / (kBN / 4);  // the thread's first row of the tile
-  const auto staged = [&](int i, float (&v)[4]) {
-    const float4 q = *reinterpret_cast<const float4*>(sc + (rt + kRowsPer * i) * kLdMN + cc);
-    v[0] = q.x, v[1] = q.y, v[2] = q.z, v[3] = q.w;
-  };
+  stage_acc(smem, acc);
+  const int cc = staged_col(), c = n0 + cc, n = min(4, kN - c);
+  const int rt = staged_row0();  // the thread's first row of the tile
+  const auto staged = [&](int i, float (&v)[4]) { staged_row(smem, i, v); };
   if ((kEpi == kEpiDx || kEpi == kEpiGrad) && part != nullptr) {
 #pragma unroll
     for (int i = 0; i < kGroups; ++i) {
@@ -393,16 +222,6 @@ reduce_kernel(const float* __restrict__ part, int S, int kM, int kN, int vec4, C
   }
   const float bias[4] = {};
   epilogue4<kEpi>(r, c, v, bias, in, kM, kN, vec4, chain, e);
-}
-
-// t1 = act(x) * M_pre over (M, K).
-__global__ void pre_kernel(const float* __restrict__ x, float* __restrict__ t1, long long n,
-                           Chain chain) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  float t = act(chain.pre, x[i]);
-  if (chain.on[0]) t *= philox::keep_scale(chain.site[0], philox::kPre, (unsigned long long)i);
-  t1[i] = t;
 }
 
 struct Split {
@@ -511,9 +330,7 @@ int gan_mlp_bwd(const float* x, const float* w1, const float* b1, const float* w
 
   const float* t1_in = x;
   if (pre != kNone) {
-    const long long n = (long long)M * K;
-    pre_kernel<<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(x, t1, n, chain);
-    GAN_MLP_BWD_STEP(cudaGetLastError());
+    GAN_MLP_BWD_STEP(launch_pre(x, t1, (long long)M * K, chain, stream));
     t1_in = t1;
   }
   EpiArgs e{};

@@ -31,22 +31,24 @@ the kernel layout ``w1 (K, H)``, ``w2 (H, N)``.
 
 Which geometries the kernels take is derived for Hopper, not copied from the
 TPU guard, which is sized by the TPU backward kernel's VMEM and refuses the
-visual FFN 512->2048->512.  The forward kernel (:func:`fused_mlp_supported`)
-streams d_ff in 128-column chunks and keeps a ``(32, N)`` float32
-accumulator in registers: ``N <= 512``, and one block's ``pre(x)`` rows plus
-double-buffered weight slices fit 227 KB of shared memory.  The backward
-(:func:`fused_mlp_bwd_supported`) is a chain of products on the tensor
-cores (TF32 ``mma.sync`` in the 3xTF32 split, f32-accurate), each block a
-64 x 64 output tile with fixed shared memory (55.3 KB: a ring of three
-32-deep slices) and registers, so any geometry fits it whose flat indices
-stay below 2**31 and whose row tiles fit one launch's grid.  Its bound is
-the products' flops at 165 TFLOP/s (495 TF32 over three products).  The
-launches that reduce over a long axis into at most half a wave of blocks
-(dx over H; dW1, db1 and dW2, db2 over M) split it into chunks that about
-fill one wave of :data:`BWD_WAVE_BLOCKS` (:func:`split_reduction`): each
-(tile, chunk) block writes a partial tile to a workspace of
-:func:`bwd_workspace_floats` floats, and a second kernel sums the partials
-in ascending chunk order.
+visual FFN 512->2048->512.  Both kernels run their products on the tensor
+cores (TF32 ``mma.sync`` in the 3xTF32 split, f32-accurate), each block
+computing 64 x 64 output tiles with fixed shared memory and registers, so
+any geometry fits them whose flat indices stay below 2**31 and whose row
+tiles fit one launch's grid (:func:`fused_mlp_supported`).  Their bound is
+the products' flops at 165 TFLOP/s (495 TF32 over three products).  The forward computes z1 through
+the same tile code as the backward's recompute, so the two give the same
+bits and relu' takes the branch relu took (with ``pre``, both first write
+``pre(x)`` to a scratch by one shared elementwise kernel).  A forward block
+owns 64 rows and a chunk of d_ff (:func:`fwd_split`): it keeps its ``a1``
+tile in shared memory and writes a partial ``(64, N)`` product to a workspace of
+:func:`fwd_workspace_floats` floats, which a second kernel sums in
+ascending chunk order.  The backward launches that reduce over a long axis
+into at most half a wave of blocks (dx over H; dW1, db1 and dW2, db2 over
+M) split it into chunks that about fill one wave of :data:`WAVE_BLOCKS`
+(:func:`split_reduction`): each (tile, chunk) block writes a partial tile
+to a workspace of :func:`bwd_workspace_floats` floats, and a second kernel
+sums the partials in ascending chunk order.
 All four geometries of the path pass both:
 100->2048->100, 512->2048->512, 100->512->100 and 512->1024->100.
 """
@@ -65,58 +67,45 @@ from .dropout import STREAM_MID, STREAM_POST, STREAM_PRE, keep_scale, threshold_
 
 ACTS = {None: 0, "relu": 1, "gelu": 2}  # the csrc Act codes
 ORDERS = ("drop_first", "act_first")
-MAX_OUT = 512  # csrc kMaxColGroups * kColGroup
-SMEM_LIMIT = 232_448  # bytes of shared memory one H100 block may use
 INDEX_LIMIT = 2**31  # the kernels' int flat indices
 GRID_Y_LIMIT = 65535  # a launch's grid y extent
-# csrc tile constants: kRows, kSliceK, kChunk, kSliceH, kColGroup, kPad
-_ROWS, _SLICE_K, _CHUNK, _SLICE_H, _COL_GROUP, _PAD = 32, 32, 128, 16, 128, 4
-# csrc/mlp_bwd.cu: kBM = kBN (an output tile's rows and columns), kBK (the
+# csrc/mlp_tile.cuh: kBM = kBN (an output tile's rows and columns), kBK (the
 # k-slice), kWaveBlocks (one wave: 4 blocks on each of the H100's 132 SMs)
-_BWD_TILE, _BWD_SLICE, BWD_WAVE_BLOCKS = 64, 32, 4 * 132
+_TILE, _SLICE, WAVE_BLOCKS = 64, 32, 4 * 132
+# csrc/mlp_fwd.cu kMaxChunkTiles: the 64-column tiles of d_ff a forward block holds
+FWD_CHUNK_TILES = 4
 
 _CHAIN_ARGTYPES = [ctypes.c_int] * 4 + [ctypes.c_uint64] + [ctypes.c_void_p] * 3
-_FWD_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + _CHAIN_ARGTYPES
+_FWD_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + _CHAIN_ARGTYPES
                  + [ctypes.c_void_p])
 _BWD_ARGTYPES = ([ctypes.c_void_p] * 16 + [ctypes.c_int] * 4 + _CHAIN_ARGTYPES
                  + [ctypes.c_void_p])
 
 
-def _smem_bytes(K: int, N: int) -> int:
-    """Shared memory of one forward block (csrc ``gan_mlp_fwd_smem_bytes``)."""
-    Kp = -(-K // _SLICE_K) * _SLICE_K + _PAD
-    Np = -(-N // _COL_GROUP) * _COL_GROUP
-    return 4 * (_ROWS * Kp + 2 * _SLICE_K * _CHUNK + _ROWS * (_CHUNK + _PAD) + 2 * _SLICE_H * Np)
-
-
-def fused_mlp_supported(K: int, H: int, N: int) -> bool:
-    """True iff the forward CUDA kernel takes the ``K -> H -> N`` geometry."""
-    return min(K, H, N) >= 1 and N <= MAX_OUT and _smem_bytes(K, N) <= SMEM_LIMIT
-
-
-def fused_mlp_bwd_supported(K: int, H: int, N: int, M: int = 1) -> bool:
-    """True iff the backward CUDA kernel takes ``K -> H -> N`` over ``M``
-    rows: its shared memory and registers do not depend on the geometry, so
-    only the flat indices and the grid's row tiles (of M, K + 1 and H + 1
-    outputs) bound it (csrc ``gan_mlp_bwd``).  A split's chunks stay far
-    below the grid's z extent: at most ``BWD_WAVE_BLOCKS``."""
+def fused_mlp_supported(K: int, H: int, N: int, M: int = 1) -> bool:
+    """True iff both CUDA kernels take ``K -> H -> N`` over ``M`` rows.
+    Their shared memory and registers do not depend on the geometry, so
+    only the int flat indices and the grid's row tiles bound them: those of
+    the backward's outputs (M, K + 1 and H + 1 rows; csrc ``gan_mlp_bwd``),
+    which hold the forward's (csrc ``gan_mlp_fwd``) too.  A split's chunks
+    stay far below the grid's z extent: at most ``WAVE_BLOCKS``."""
     return (min(K, H, N, M) >= 1 and M * max(K, H, N) < INDEX_LIMIT
             and (K + 1) * H < INDEX_LIMIT and (H + 1) * N < INDEX_LIMIT
-            and max(M, K, H) + 1 <= GRID_Y_LIMIT * _BWD_TILE)
+            and max(M, K, H) + 1 <= GRID_Y_LIMIT * _TILE)
 
 
 def split_reduction(tiles: int, depth: int) -> Tuple[int, int]:
     """``(S, chunk)``: how a backward launch of ``tiles`` output tiles splits
     a reduction of length ``depth`` (csrc ``split_reduction``).  Not at all
-    (``S = 1``) where the tiles make half of :data:`BWD_WAVE_BLOCKS` alone;
-    else into ``s = min(BWD_WAVE_BLOCKS // tiles, slices)`` chunks of
+    (``S = 1``) where the tiles make half of :data:`WAVE_BLOCKS` alone;
+    else into ``s = min(WAVE_BLOCKS // tiles, slices)`` chunks of
     ``ceil(slices / s)`` 32-deep k-slices each, the last possibly shorter
     (rounding may leave fewer than ``s``)."""
-    slices = -(-depth // _BWD_SLICE)
-    if 2 * tiles > BWD_WAVE_BLOCKS or slices <= 1:
-        return 1, slices * _BWD_SLICE
-    s = min(BWD_WAVE_BLOCKS // tiles, slices)
-    chunk = -(-slices // s) * _BWD_SLICE
+    slices = -(-depth // _SLICE)
+    if 2 * tiles > WAVE_BLOCKS or slices <= 1:
+        return 1, slices * _SLICE
+    s = min(WAVE_BLOCKS // tiles, slices)
+    chunk = -(-slices // s) * _SLICE
     return -(-depth // chunk), chunk
 
 
@@ -127,7 +116,7 @@ def bwd_launches(M: int, K: int, H: int, N: int) -> list:
     out = []
     for name, rows, cols, depth in (("dx", M, K, H), ("dw1_db1", K + 1, H, M),
                                     ("dw2_db2", H + 1, N, M)):
-        tiles = -(-rows // _BWD_TILE) * -(-cols // _BWD_TILE)
+        tiles = -(-rows // _TILE) * -(-cols // _TILE)
         S, chunk = split_reduction(tiles, depth)
         out.append({"name": name, "outputs": [rows, cols], "depth": depth, "tiles": tiles,
                     "chunks": S, "chunk": chunk, "blocks": tiles * S})
@@ -142,6 +131,42 @@ def bwd_workspace_floats(M: int, K: int, H: int, N: int) -> int:
         return 0
     return max([l["chunks"] * l["outputs"][0] * l["outputs"][1]
                 for l in bwd_launches(M, K, H, N) if l["chunks"] > 1], default=0)
+
+
+def fwd_split(M: int, H: int) -> Tuple[int, int]:
+    """``(S, chunk)``: how the forward kernel splits d_ff over blocks at
+    ``M`` rows (csrc ``fwd_split``).  Into at least the chunks a block's
+    ``a1`` tile allows (:data:`FWD_CHUNK_TILES` 64-column tiles each); where
+    that leaves at most half of :data:`WAVE_BLOCKS` blocks, into ``s =
+    min(WAVE_BLOCKS // row tiles, tiles of d_ff)`` chunks instead.  A
+    chunk takes ``ceil(tiles / s)`` 64-column tiles, the last possibly
+    shorter (rounding may leave fewer than ``s``)."""
+    rows = -(-M // _TILE)
+    tiles = -(-H // _TILE)
+    s = -(-tiles // FWD_CHUNK_TILES)
+    if 2 * rows * s <= WAVE_BLOCKS:
+        s = max(s, min(WAVE_BLOCKS // rows, tiles))
+    per = -(-tiles // s)
+    return -(-tiles // per), per * _TILE
+
+
+def fwd_launch(M: int, K: int, H: int, N: int) -> dict:
+    """The forward's main launch: row tiles, d_ff chunks ``S`` and their
+    columns, blocks, and whether a second kernel sums the partials."""
+    S, chunk = fwd_split(M, H)
+    rows = -(-M // _TILE)
+    return {"row_tiles": rows, "chunks": S, "chunk": chunk, "blocks": rows * S,
+            "reduce": S > 1}
+
+
+def fwd_workspace_floats(M: int, K: int, H: int, N: int) -> int:
+    """Floats of workspace the forward kernel needs (csrc
+    ``gan_mlp_fwd_workspace_floats``): ``S * M * N`` where d_ff splits into
+    ``S > 1`` chunks, else 0."""
+    if min(M, K, H, N) < 1:
+        return 0
+    S, _ = fwd_split(M, H)
+    return S * M * N if S > 1 else 0
 
 
 def _act(name: Optional[str], x: torch.Tensor) -> torch.Tensor:
@@ -230,12 +255,16 @@ def _launch_fwd(x2, w1, b1, w2, b2, chain, seed) -> torch.Tensor:
     out = torch.empty((M, N), dtype=x2.dtype, device=x2.device)
     if M == 0:
         return out
+    workspace = _build.function("mlp_fwd", "gan_mlp_fwd_workspace_floats", [ctypes.c_int] * 4,
+                                ctypes.c_longlong)
+    ws = torch.empty(workspace(M, K, H, N), dtype=torch.float32, device=x2.device)
+    t1 = torch.empty((M, K) if chain[0] is not None else 0, dtype=torch.float32, device=x2.device)
     fn = _build.function("mlp_fwd", "gan_mlp_fwd", _FWD_ARGTYPES)
     args, _arrays = _chain_args(*chain, seed)
     with torch.cuda.device(x2.device):
         code = fn(
             x2.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
-            out.data_ptr(), M, K, H, N, *args,
+            out.data_ptr(), t1.data_ptr(), ws.data_ptr(), M, K, H, N, *args,
             torch.cuda.current_stream(x2.device).cuda_stream,
         )
     _build.check(code, "mlp_fwd")
@@ -285,8 +314,8 @@ def fused_mlp(
     ``w1 (K, H)``, ``b1 (H,)``, ``w2 (H, N)``, ``b2 (N,)``.  ``dropout_seed``
     (a host int, default 0) draws every mask of the call.  On CUDA tensors
     the kernels take float32, contiguous operands in a geometry that
-    :func:`fused_mlp_supported` and :func:`fused_mlp_bwd_supported` accept,
-    and raise on anything else.  Differentiable in every tensor argument.
+    :func:`fused_mlp_supported` accepts, and raise on anything else.
+    Differentiable in every tensor argument.
     """
     _parse_chain(pre, mid, post)
     K, H, N = _check_geometry(x, w1, b1, w2, b2)
@@ -296,11 +325,10 @@ def fused_mlp(
     _check_cuda_operands("fused_mlp", (x, w1, b1, w2, b2), x.device)
     lead = x.shape[:-1]
     M = x.numel() // K
-    if not (fused_mlp_supported(K, H, N) and fused_mlp_bwd_supported(K, H, N, max(M, 1))):
+    if not fused_mlp_supported(K, H, N, max(M, 1)):
         raise ValueError(
-            f"fused_mlp kernels do not take M={M} K={K} H={H} N={N} (forward: N <= "
-            f"{MAX_OUT} and one block's shared memory <= {SMEM_LIMIT} bytes; backward: "
-            f"flat indices < 2**31 and at most {GRID_Y_LIMIT * _BWD_TILE} rows)"
+            f"fused_mlp kernels do not take M={M} K={K} H={H} N={N} (flat indices < 2**31 "
+            f"and at most {GRID_Y_LIMIT * _TILE} rows)"
         )
     out = _FusedMLP.apply(x.reshape(M, K), w1, b1, w2, b2, (pre, mid, post), seed)
     return out.reshape(*lead, N)
@@ -325,7 +353,7 @@ def fused_mlp_backward(x, w1, b1, w2, b2, dout, pre=None, mid=("relu", "act_firs
     dout = dout.contiguous()
     _check_cuda_operands("fused_mlp_backward", (x, w1, b1, w2, b2, dout), x.device)
     M = x.shape[0]
-    if not fused_mlp_bwd_supported(K, H, N, max(M, 1)):
+    if not fused_mlp_supported(K, H, N, max(M, 1)):
         raise ValueError(f"fused_mlp_backward kernel does not take M={M} K={K} H={H} N={N}")
     dx = torch.empty_like(x)
     dw1, db1, dw2, db2 = (torch.empty_like(t) for t in (w1, b1, w2, b2))

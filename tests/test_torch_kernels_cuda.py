@@ -89,6 +89,8 @@ def test_attention_kernel_refuses_what_it_does_not_take(cuda):
         (37, 100, 33, HEAD),  # ragged everywhere: 4-byte weight copies
         (64, 130, 260, FFN),  # H % 4 != 0: 4-byte copies, 3 column groups
         (100, 300, 200, HEAD),  # 16-byte copies, a partial d_ff chunk, 2 column groups
+        (100, 2048, 1024, FFN),  # N past 512: 16 pieces of the output, a 117 MB workspace
+        (4096, 256, 64, HEAD),  # K past 896: 128 k-slices to one z1 tile
     ],
 )
 @pytest.mark.parametrize("rows", [1, 77, 3584])
@@ -101,24 +103,46 @@ def test_mlp_kernel_matches_plain(cuda, K, H, N, cfg, rows):
     b2 = _randn(rng, (N,), 0.05, cuda)
     before = M.fused_mlp.launches
     got = M.fused_mlp(x, w1, b1, w2, b2, **cfg)
+    again = M.fused_mlp(x, w1, b1, w2, b2, **cfg)
     torch.cuda.synchronize()
-    assert M.fused_mlp.launches == before + 1
+    assert M.fused_mlp.launches == before + 2
     want = M.mlp_plain(x, w1, b1, w2, b2, **cfg)
     tol = 1e-4 * max(1.0, want.abs().max().item())
     err = (got - want).abs().max().item()
     assert err <= tol, f"max |diff| {err} > {tol}"
+    assert torch.equal(got, again), "two calls differ"
 
 
-def test_mlp_guard_mirrors_the_kernel_shared_memory(cuda):
+def test_mlp_fwd_workspace_mirrors_the_kernel(cuda):
     import ctypes
 
     from gan_ffn_tpu_torch.ops import _build
 
-    smem = _build.function("mlp_fwd", "gan_mlp_fwd_smem_bytes", [ctypes.c_int] * 2)
-    for K, N in ((1, 1), (37, 33), (100, 100), (512, 512), (512, 100), (896, 512), (900, 513)):
-        want = smem(K, N)
-        assert (M._smem_bytes(K, N) if N <= M.MAX_OUT else 0) == want, (K, N)
-        assert M.fused_mlp_supported(K, 64, N) == (0 < want <= M.SMEM_LIMIT), (K, N)
+    query = _build.function("mlp_fwd", "gan_mlp_fwd_workspace_floats", [ctypes.c_int] * 4,
+                            ctypes.c_longlong)
+    for rows in (1, 77, 1000, 3584, 3585, 20000):
+        for K, H, N in ((100, 2048, 100), (512, 2048, 512), (100, 512, 100), (512, 1024, 100),
+                        (37, 100, 33), (64, 130, 260), (100, 300, 200), (100, 2048, 1024),
+                        (4096, 256, 64)):
+            assert query(rows, K, H, N) == M.fwd_workspace_floats(rows, K, H, N), (rows, K, H, N)
+
+
+@pytest.mark.parametrize("K,H,N,cfg", [(37, 100, 33, HEAD), (64, 128, 100, FFN)])
+def test_mlp_forward_unsplit_matches_plain(cuda, K, H, N, cfg):
+    """d_ff in one chunk and 313 row tiles: the block applies b2 and post
+    itself (no workspace, no second kernel)."""
+    rows = 20000
+    assert M.fwd_launch(rows, K, H, N)["chunks"] == 1
+    rng = np.random.default_rng(K + H + N)
+    x = _randn(rng, (rows, K), 1.0, cuda)
+    w1 = _randn(rng, (K, H), K ** -0.5, cuda)
+    b1 = _randn(rng, (H,), 0.05, cuda)
+    w2 = _randn(rng, (H, N), H ** -0.5, cuda)
+    b2 = _randn(rng, (N,), 0.05, cuda)
+    for rate in (0.0, 0.2):
+        c = {k: (*v[:-1], rate) for k, v in cfg.items()}
+        got = M.fused_mlp(x, w1, b1, w2, b2, **c, dropout_seed=5)
+        _close(got, M.mlp_plain(x, w1, b1, w2, b2, **c, dropout_seed=5), f"rate={rate}")
 
 
 def _close(got, want, what):
@@ -180,6 +204,8 @@ FFN_DROP = dict(mid=("relu", "act_first", 0.1))
         (37, 100, 33, HEAD_DROP),  # ragged everywhere
         (64, 130, 260, FFN_DROP),  # H % 4 != 0
         (36, 204, 60, HEAD_DROP),  # K, H, N % 8 != 0: 16-byte copies, partial mma tiles
+        (100, 2048, 1024, FFN_DROP),  # N past 512
+        (4096, 256, 64, HEAD_DROP),  # K past 896
     ],
 )
 # 1000 and 3585 rows make the last chunk of the split reductions over M ragged
@@ -217,7 +243,7 @@ def test_mlp_bwd_workspace_mirrors_the_kernel(cuda):
                             ctypes.c_longlong)
     for rows in (1, 77, 1000, 3584, 3585):
         for K, H, N in ((100, 2048, 100), (512, 2048, 512), (100, 512, 100), (512, 1024, 100),
-                        (37, 100, 33), (36, 204, 60)):
+                        (37, 100, 33), (36, 204, 60), (100, 2048, 1024), (4096, 256, 64)):
             assert query(rows, K, H, N) == M.bwd_workspace_floats(rows, K, H, N), (rows, K, H, N)
 
 
@@ -257,3 +283,49 @@ def test_kernel_masks_keep_one_minus_rate(cuda):
                       mid=("relu", "act_first", rate), dropout_seed=9)
     kept = out.sum().item() * (1 - rate) / (3584 * 2048)
     assert abs(kept - (1 - rate)) <= 5 * (rate * (1 - rate) / (3584 * 2048)) ** 0.5
+
+
+def near_kink_inputs(rng, rows, K, H, pre, device):
+    """x, w1, b1 of a K -> H relu FFN whose z1 mostly lie within ~1e-6 of 0:
+    every row is x0 plus noise of 1e-6, and b1 = -(pre(x0) w1) in f64,
+    rounded to f32.  The sign of such a z1 depends on the order of its sum."""
+    x0 = rng.standard_normal(K)
+    x = (x0 + 1e-6 * rng.standard_normal((rows, K))).astype(np.float32)
+    w1 = (rng.standard_normal((K, H)) * K ** -0.5).astype(np.float32)
+    t0 = torch.from_numpy(x0.astype(np.float32)).double()
+    if pre is not None:
+        t0 = torch.nn.functional.gelu(t0)
+    b1 = -(t0 @ torch.from_numpy(w1).double()).float()
+    return (torch.from_numpy(x).to(device), torch.from_numpy(w1).to(device), b1.to(device))
+
+
+@pytest.mark.parametrize("K,pre", [(100, None), (512, None), (100, "gelu")])
+@pytest.mark.parametrize("rows", [1, 3584])
+def test_mlp_forward_and_backward_take_the_same_relu_branches(cuda, K, pre, rows):
+    """Both kernels compute z1 through the same tile code, so relu' takes in
+    the backward the branch relu took in the forward, even where z1 is
+    within rounding of 0.  With W2 = I, b2 = 0 and no post, out > 0 exactly
+    where the forward's z1 > 0.  dout holds whole numbers from 1 to 1024:
+    the backward's db1 = sum_r dout[r, j] relu'(z1[r, j]) is then exact in
+    f32 (every term and partial sum is a whole number below 2**24), and a
+    row taking the other branch moves its column by its dout, so two rows
+    that took opposite branches cancel only where their dout are equal."""
+    H = 512
+    rng = np.random.default_rng(K + rows)
+    x, w1, b1 = near_kink_inputs(rng, rows, K, H, pre, cuda)
+    cfg = dict(mid=("relu", "act_first", 0.0))
+    if pre is not None:
+        cfg["pre"] = (pre, 0.0)
+    eye, zero = torch.eye(H, device=cuda), torch.zeros(H, device=cuda)
+    dout = torch.from_numpy(rng.integers(1, 1025, (rows, H)).astype(np.float32)).to(cuda)
+    out = M.fused_mlp(x, w1, b1, eye, zero, **cfg)
+    again = M.fused_mlp(x, w1, b1, eye, zero, **cfg)
+    db1 = M.fused_mlp_backward(x, w1, b1, eye, zero, dout, **cfg)[2]
+    torch.cuda.synchronize()
+    t1 = x.double() if pre is None else torch.nn.functional.gelu(x.double())
+    near = ((t1 @ w1.double() + b1.double()).abs() < 1e-6).sum().item()
+    assert near >= rows * H // 10, f"only {near} of {rows * H} z1 within 1e-6 of 0"
+    assert torch.equal(out, again), "two forward calls differ"
+    want = (dout.double() * (out > 0)).sum(0)
+    assert torch.equal(db1.double(), want), (
+        f"{(db1.double() != want).sum().item()} columns take other branches")

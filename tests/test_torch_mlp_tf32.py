@@ -1,19 +1,23 @@
-"""Why the MLP backward kernel's arithmetic meets its limit: the algorithm of
-``csrc/mlp_bwd.cu`` emulated on the CPU.
+"""Why the MLP kernels' arithmetic meets its limit: the algorithms of
+``csrc/mlp_fwd.cu`` and ``csrc/mlp_bwd.cu`` emulated on the CPU.
 
-The kernel runs every product on the tensor cores as TF32 ``mma.sync`` in
+The kernels run every product on the tensor cores as TF32 ``mma.sync`` in
 the 3xTF32 split of ``split_fast`` (``tests/tf32_emulation.py``: hi rounded
 by bit masking as the kernel does, lo truncated as the tensor core reads
-it), and splits the long reductions of dx (over H) and of dW1, db1,
-dW2, db2 (over M) into the chunks of ``ops.mlp.split_reduction``, which the
-kernel sums in ascending order; db comes from a ones column appended to A.
-Here the same algorithm, with the same Philox masks (``keep_scale``), runs
-at M = 3584 for the four MLP geometries of the training path at the path's
-dropout rates (FFN mid 0.1; head pre, mid and post 0.2), and each gradient
-is held to ``mlp_backward_plain`` within 1e-4 * max(1, max |ref|), the card
-tests' limit.  Products of two TF32 values are exact in f32 and the sums
-are f32, as on the tensor cores; the order of the sums inside a chunk
-differs from the card's.
+it).  The backward splits the long reductions of dx (over H) and of dW1,
+db1, dW2, db2 (over M) into the chunks of ``ops.mlp.split_reduction``, which
+the kernel sums in ascending order; db comes from a ones column appended to
+A.  The forward computes z1 as the backward does, keeps a1 on chip, and
+multiplies it by W2 in the d_ff chunks of ``ops.mlp.fwd_split``, whose
+partial products a second kernel sums in ascending order before b2 and
+post.  Here the same algorithms, with the same Philox masks
+(``keep_scale``), run at M = 3584 for the four MLP geometries of the
+training path at rate 0 and at the path's dropout rates (FFN mid 0.1; head
+pre, mid and post 0.2), and each output is held to ``mlp_plain`` or
+``mlp_backward_plain`` within 1e-4 * max(1, max |ref|), the card tests'
+limit.  Products of two TF32 values are exact in f32 and the sums are f32,
+as on the tensor cores; the order of the sums inside a chunk differs from
+the card's.
 
 One TF32 pass instead of three misses the limit: emulated the same way, it
 is off by 5.3e-4 (100->512->100) to 8.1e-2 (100->2048->100, where its
@@ -54,30 +58,55 @@ def split_mm(mm, a, b, tiles):
     return total
 
 
+def first_layer(mm, x, w1, b1, pre, mid, dropout_seed):
+    """(t1, a1, d1) of both kernels: t1 = pre(x), z1 = t1 W1 + b1 by ``mm``,
+    a1 = mid(z1) and d1 = mid'(z1), each with its Philox mask."""
+    (a_pre, a_mid, order, _), (r_pre, r_mid, _) = M._parse_chain(pre, mid, None)
+    rows, K = x.shape
+    H = w1.shape[1]
+    t1 = x
+    if a_pre is not None:
+        t1 = _act(a_pre, x)
+        if r_pre > 0:
+            t1 = t1 * keep_scale(dropout_seed, STREAM_PRE, (rows, K), r_pre, x.device)
+    z1 = mm(t1, w1) + b1
+    if r_mid > 0:
+        m = keep_scale(dropout_seed, STREAM_MID, (rows, H), r_mid, x.device)
+        if order == "act_first":
+            return t1, _act(a_mid, z1) * m, m * _act_grad(a_mid, z1)
+        return t1, _act(a_mid, z1 * m), _act_grad(a_mid, z1 * m) * m
+    return t1, _act(a_mid, z1), _act_grad(a_mid, z1)
+
+
+def kernel_forward(mm, x, w1, b1, w2, b2, pre=None, mid=("relu", "act_first", 0.0), post=None,
+                   dropout_seed=0):
+    """out by mlp_fwd.cu's algorithm with the product ``mm``: a1 W2 over the
+    d_ff chunks of ``fwd_split``, the partials summed in ascending order."""
+    _, a1, _ = first_layer(mm, x, w1, b1, pre, mid, dropout_seed)
+    (_, _, _, a_post), (_, _, r_post) = M._parse_chain(pre, mid, post)
+    S, chunk = M.fwd_split(x.shape[0], w1.shape[1])
+    z2 = mm(a1[:, :chunk], w2[:chunk])
+    for s in range(1, S):
+        z2 = z2 + mm(a1[:, s * chunk:(s + 1) * chunk], w2[s * chunk:(s + 1) * chunk])
+    z2 = z2 + b2
+    if a_post is None:
+        return z2
+    if r_post > 0:
+        z2 = z2 * keep_scale(dropout_seed, STREAM_POST, z2.shape, r_post, x.device)
+    return _act(a_post, z2)
+
+
 def kernel_backward(mm, x, w1, b1, w2, b2, dout, pre=None, mid=("relu", "act_first", 0.0),
                     post=None, dropout_seed=0):
     """(dx, dw1, db1, dw2, db2) by mlp_bwd.cu's algorithm with the product ``mm``."""
-    (a_pre, a_mid, order, a_post), (r_pre, r_mid, r_post) = M._parse_chain(pre, mid, post)
+    (a_pre, _, _, a_post), (r_pre, _, r_post) = M._parse_chain(pre, mid, post)
     rows, K = x.shape
     H, N = w2.shape
 
     def mask(stream, cols, rate):
         return keep_scale(dropout_seed, stream, (rows, cols), rate, x.device)
 
-    t1 = x
-    if a_pre is not None:
-        t1 = _act(a_pre, x)
-        if r_pre > 0:
-            t1 = t1 * mask(STREAM_PRE, K, r_pre)
-    z1 = mm(t1, w1) + b1
-    if r_mid > 0:
-        m = mask(STREAM_MID, H, r_mid)
-        if order == "act_first":
-            a1, d1 = _act(a_mid, z1) * m, m * _act_grad(a_mid, z1)
-        else:
-            a1, d1 = _act(a_mid, z1 * m), _act_grad(a_mid, z1 * m) * m
-    else:
-        a1, d1 = _act(a_mid, z1), _act_grad(a_mid, z1)
+    t1, a1, d1 = first_layer(mm, x, w1, b1, pre, mid, dropout_seed)
     g = dout
     if a_post is not None:
         z2 = mm(a1, w2) + b2
@@ -103,16 +132,16 @@ def _site(site, rate):
                 post=("gelu", "drop_first", rate))
 
 
-def _inputs(rows, K, H, N, site):
-    """x, w1, b1, w2, b2, dout from a seed; for the relu FFN, x away from
-    relu's kink (``away_from_relu_kink``)."""
+def _inputs(rows, K, H, N, site, off_kink=True):
+    """x, w1, b1, w2, b2, dout from a seed; for the relu FFN and off_kink, x
+    away from relu's kink (``away_from_relu_kink``)."""
     rng = np.random.default_rng(rows + K + H + N)
 
     def randn(shape, scale):
         return torch.from_numpy((rng.standard_normal(shape) * scale).astype(np.float32))
 
     x, w1, b1 = randn((rows, K), 1.0), randn((K, H), K ** -0.5), randn((H,), 0.05)
-    if site == "ffn":
+    if site == "ffn" and off_kink:
         x = away_from_relu_kink(x, w1, b1, lambda n: randn((n, K), 1.0))
     return x, w1, b1, randn((H, N), H ** -0.5), randn((N,), 0.05), randn((rows, N), 1.0)
 
@@ -154,7 +183,7 @@ def test_every_long_reduction_fills_the_card(K, H, N, site, rate):
     for l in M.bwd_launches(ROWS, K, H, N):
         S, chunk, depth, tiles = l["chunks"], l["chunk"], l["depth"], l["tiles"]
         assert 256 <= l["blocks"] == tiles * S, l
-        assert S == 1 or l["blocks"] <= M.BWD_WAVE_BLOCKS, l
+        assert S == 1 or l["blocks"] <= M.WAVE_BLOCKS, l
         assert chunk % 32 == 0 and (S - 1) * chunk < depth <= S * chunk, l
     assert M.bwd_workspace_floats(ROWS, K, H, N) * 4 <= 10**7
 
@@ -166,3 +195,41 @@ def test_split_reduction_edges():
     assert M.split_reduction(1, 3584) == (112, 32)  # single k-slices
     assert M.split_reduction(16, 77) == (3, 32)  # 77 = 32 + 32 + 13
     assert M.split_reduction(18, 3584) == (28, 128)  # 29 asked; 4-slice chunks make 28
+
+
+@pytest.mark.parametrize("K,H,N,site,rate", PATH)
+@pytest.mark.parametrize("at_rate", [False, True])
+def test_forward_3xtf32_chunks_meet_the_limit(K, H, N, site, rate, at_rate):
+    """The forward at rate 0 and at the path's rate, on inputs drawn without
+    the kink filter: relu is continuous, so a z1 near 0 moves out by no more
+    than z1's own error."""
+    x, w1, b1, w2, b2, _ = _inputs(ROWS, K, H, N, site, off_kink=False)
+    cfg = _site(site, rate if at_rate else 0.0)
+    got = kernel_forward(mm_3x_fast, x, w1, b1, w2, b2, **cfg, dropout_seed=ROWS + K)
+    want = M.mlp_plain(x, w1, b1, w2, b2, **cfg, dropout_seed=ROWS + K)
+    err = (got - want).abs().max().item() / max(1.0, want.abs().max().item())
+    assert err <= GRAD_TOL, f"max |diff| / max(1, max |ref|) {err}"
+
+
+@pytest.mark.parametrize("K,H,N,site,rate", PATH)
+def test_the_forward_fills_the_card(K, H, N, site, rate):
+    """At M = 3584 the forward runs >= half a wave of blocks (row tiles x
+    d_ff chunks), in chunks of whole 64-column tiles of at most
+    FWD_CHUNK_TILES that cover d_ff; the workspace stays under 60 MB."""
+    l = M.fwd_launch(ROWS, K, H, N)
+    S, chunk = l["chunks"], l["chunk"]
+    assert 2 * l["blocks"] >= M.WAVE_BLOCKS and l["blocks"] == l["row_tiles"] * S, l
+    assert chunk % 64 == 0 and chunk <= 64 * M.FWD_CHUNK_TILES, l
+    assert (S - 1) * chunk < H <= S * chunk, l
+    assert M.fwd_workspace_floats(ROWS, K, H, N) == (S * ROWS * N if S > 1 else 0)
+    assert M.fwd_workspace_floats(ROWS, K, H, N) * 4 <= 6e7
+
+
+def test_fwd_split_edges():
+    assert M.fwd_split(3584, 2048) == (8, 256)  # the a1 tile caps a chunk at 256 columns
+    assert M.fwd_split(3584, 512) == (8, 64)  # 2 chunks would be 112 blocks: split to 8
+    assert M.fwd_split(3584, 1024) == (8, 128)  # 9 asked; 2-tile chunks make 8
+    assert M.fwd_split(1, 2048) == (32, 64)  # one row tile: single 64-column tiles
+    assert M.fwd_split(20000, 100) == (1, 128)  # 313 row tiles fill half a wave unsplit
+    assert M.fwd_split(20000, 300) == (2, 192)  # 626 blocks in the fewest chunks
+    assert M.fwd_split(3584, 300) == (5, 64)

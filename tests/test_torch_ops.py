@@ -127,8 +127,13 @@ def test_mlp_plain_matches_jax(K, H, N, cfg, pallas):
 def test_mlp_supported_takes_every_serving_geometry():
     for K, H, N in ((100, 2048, 100), (512, 2048, 512), (100, 512, 100), (512, 1024, 100)):
         assert TM.fused_mlp_supported(K, H, N)
-    assert not TM.fused_mlp_supported(100, 2048, 1024)  # accumulator columns
-    assert not TM.fused_mlp_supported(4096, 2048, 512)  # shared memory
+    # the tiled kernels hold no (rows, N) accumulator and stage fixed tiles:
+    # any width fits, and only the int flat indices and the grid's rows bound them
+    assert TM.fused_mlp_supported(100, 2048, 1024) and TM.fused_mlp_supported(4096, 2048, 512)
+    assert TM.fused_mlp_supported(512, 2048, 512, 3584)
+    assert not TM.fused_mlp_supported(512, 2048, 512, 2**31 // 2048)  # flat index of (M, H)
+    assert not TM.fused_mlp_supported(1, 1, 1, 65535 * 64 + 1)  # row tiles past the grid
+    assert not TM.fused_mlp_supported(0, 2048, 100)
 
 
 def test_attention_dropout_applies_the_twin_mask():
@@ -224,11 +229,12 @@ def test_mlp_backward_plain_matches_jax(K, H, N, cfg, pallas):
 
 def test_mlp_backward_guard_takes_every_path_geometry():
     for K, H, N in ((100, 2048, 100), (512, 2048, 512), (100, 512, 100), (512, 1024, 100)):
-        assert TM.fused_mlp_bwd_supported(K, H, N, 3584)
-    assert not TM.fused_mlp_bwd_supported(512, 2048, 512, 2**21)  # flat indices >= 2**31
+        assert TM.fused_mlp_supported(K, H, N, 3584)
+    assert not TM.fused_mlp_supported(512, 2048, 512, 2**21)  # flat indices >= 2**31
     rows = TM.GRID_Y_LIMIT * 64  # the grid's row tiles
-    assert TM.fused_mlp_bwd_supported(1, 1, 1, rows - 1)
-    assert not TM.fused_mlp_bwd_supported(1, 1, 1, rows)
+    assert TM.fused_mlp_supported(1, 1, 1, rows - 1)
+    assert not TM.fused_mlp_supported(1, 1, 1, rows)
+    assert not TM.fused_mlp_supported(2**20, 2048, 1)  # the flat index of (K + 1, H)
 
 
 def test_non_cpu_tensors_never_take_the_plain_path():

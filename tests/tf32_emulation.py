@@ -46,12 +46,14 @@ RELU_KINK = 2e-5
 
 def away_from_relu_kink(x, w1, b1, redraw):
     """x with its rows replaced by ``redraw(n)`` (n new rows) where z1 =
-    x w1 + b1 comes within RELU_KINK of 0.  The MLP backward kernel
-    recomputes z1 in 3xTF32, its plain version in f32 with another order of
-    the sums, up to a few 1e-6 apart at K = 512.  Where z1 is that close to
-    relu's kink the two take different branches of relu', and the gradients
-    differ by O(1) there: a comparison would measure the branch, not the
-    arithmetic."""
+    x w1 + b1 comes within RELU_KINK of 0; only for holding a kernel's
+    gradients against the plain version.  The MLP kernels compute z1 in
+    3xTF32, the plain version in f32 with another order of the sums, up to
+    a few 1e-6 apart at K = 512.  Where z1 is that close to relu's kink the
+    two take different branches of relu', and the gradients differ by O(1)
+    there: a comparison would measure the branch, not the arithmetic.  The
+    two kernels compute z1 the same way and agree on the kink, which the
+    card tests check at inputs built to lie on it."""
     while True:
         near = ((x.double() @ w1.double() + b1.double()).abs() < RELU_KINK).any(1)
         if not near.any():
