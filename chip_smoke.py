@@ -47,12 +47,26 @@ Phases, each printing JSON lines; any failure exits non-zero:
                Prints ms/request and utterances/s at L=112, B=32, and the
                forward's device time (CUDA events, launches hidden) beside
                its host time with the inputs on the card.
-5. training -- cli/train_iemocap.main (stage B) trains the full-width
-               8-layer GAN_FFN for 2 epochs on a synthetic fixture whose
-               batches fill the 112 bucket (B=32), with every dropout on:
-               finite losses, a report file, and exactly 24 + 24 attention
-               and 27 + 27 MLP kernel calls (forward + backward) per train
-               step.  Then one train step at B=32, L=112 is timed (device ms
+5. training -- cli/train_iemocap.main runs the published pipeline at full
+               width (8 layers) on a synthetic fixture whose batches fill
+               the 112 bucket (B=32), with every dropout on: 1 epoch of
+               stage A (the 12-duel adversarial pre-training of the three
+               generators against the three discriminators), the six
+               networks saved, the generators grafted into GAN_FFN, then 2
+               epochs of stage B.  Checks: a 1-row GAN_loss.csv of finite
+               losses, the six checkpoints and their opt/ files, finite
+               stage-B losses, a report file, and exactly 240 / 192 / 252 /
+               198 attention_fwd / attention_bwd / mlp_fwd / mlp_bwd calls
+               per stage-A step plus 24 + 24 attention and 27 + 27 MLP
+               calls (forward + backward) per stage-B train step.  Then one
+               stage-A step at B=32, L=112, every dropout on (gan_step:
+               launches, host and enqueue ms, duel-utterances/s, peak
+               memory), and one deterministic 12-duel step on the card
+               against the same step on the CPU from the same weights and
+               batch (gan_step_vs_cpu: depth 8, L=64, B=4, Adam eps 1e-3;
+               the 12 losses within 1e-3 relative, every parameter after
+               the step within 1e-5 absolute).  Then one stage-B train step
+               at B=32, L=112 is timed (device ms
                by CUDA events with the launches queued behind a device
                sleep; host ms to the end of a synchronize; utterances/s),
                with each kernel's share of the step's device time.  Last,
@@ -63,9 +77,9 @@ Phases, each printing JSON lines; any failure exits non-zero:
 
 The kernel counts are set to 0 just before the serving and the training
 paths run and are read just after; the comparisons of phase 3 do not count.
-The line before the last is the ``kernels`` summary (times per train step at
-B=32, L=112, at the path's dropout rates); the last line is
-``{"ok": true, "device": {...}}``.
+The line before the last is the ``kernels`` summary (times per stage-B train
+step at B=32, L=112, at the path's dropout rates, and each kernel's launches
+per stage-A step); the last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -116,6 +130,11 @@ SITE_RATE = {"ffn": 0.1, "head": 0.2}
 # inputs built to lie on the kink.
 RELU_KINK = 2e-5
 STEP_LAUNCHES = {"attention_fwd": 24, "attention_bwd": 24, "mlp_fwd": 27, "mlp_bwd": 27}
+# One stage-A step: an encoder pass launches 8 attention and 8 FFN kernels, a
+# generator's head one more MLP; a disc duel runs 3 forward and 2 backward
+# passes (discriminator, generator, discriminator), a gen duel 2 and 2.
+GAN_STEP_LAUNCHES = {"attention_fwd": 240, "attention_bwd": 192, "mlp_fwd": 252, "mlp_bwd": 198}
+GAN_PARAM_TOL = 1e-5  # absolute, on every parameter after one deterministic 12-duel step
 SOURCES = {
     "attention_fwd": ("gan_ffn_tpu_torch/csrc/attention_fwd.cu", "gan_ffn_tpu/ops/attention.py:69"),
     "attention_bwd": ("gan_ffn_tpu_torch/csrc/attention_bwd.cu", "gan_ffn_tpu/ops/attention.py:86"),
@@ -605,9 +624,11 @@ def phase_training(torch):
     from gan_ffn_tpu_torch.data import get_iemocap_loaders, write_synthetic_iemocap
     from gan_ffn_tpu_torch.models import GAN_FFN
     from gan_ffn_tpu_torch.nn.core import set_dropout_generator
+    from gan_ffn_tpu_torch.train.gan import DISC_NAMES, GEN_NAMES
     from gan_ffn_tpu_torch.train.loop import batch_to_tensors
+    from gan_ffn_tpu_torch.utils.artifacts import load_gan_loss_csv
 
-    epochs = 2
+    epochs, gan_epochs = 2, 1
     with tempfile.TemporaryDirectory() as tmp:
         data = write_synthetic_iemocap(os.path.join(tmp, "iemocap.pkl"), n_train=120, n_test=31,
                                        min_len=97, max_len=110, seed=0)
@@ -615,10 +636,10 @@ def phase_training(torch):
         lengths = {b.seq_len for loader in (train, valid, test) for b in loader}
         if lengths != {112}:
             fail(f"the training fixture's batches have lengths {lengths}, expected the 112 bucket")
-        argv = ["--GAN-epochs", "0", "--epochs", str(epochs), "--num-layers", "8",
+        save_dir = os.path.join(tmp, "GAN_save")
+        argv = ["--GAN-epochs", str(gan_epochs), "--epochs", str(epochs), "--num-layers", "8",
                 "--batch-size", "32", "--seed", "0", "--device", "cuda", "--data-path", data,
-                "--output-dir", os.path.join(tmp, "output"),
-                "--model-save-path", os.path.join(tmp, "GAN_save")]
+                "--output-dir", os.path.join(tmp, "output"), "--model-save-path", save_dir]
         out = io.StringIO()
         t0 = time.perf_counter()
         _reset_counts()
@@ -629,24 +650,38 @@ def phase_training(torch):
         seconds = time.perf_counter() - t0
         report_ok = os.path.isfile(result["report_path"]) and os.path.getsize(result["report_path"]) > 0
         ckpt_ok = os.path.isfile(result["checkpoint"])
+        gan_history = load_gan_loss_csv(os.path.join(tmp, "output", "GAN_loss.csv"))
+        gan_files = [os.path.join(save_dir, sub, f"{name}.pt")
+                     for name in GEN_NAMES + DISC_NAMES for sub in ("", "opt")]
+        missing = [f for f in gan_files if not os.path.isfile(f)]
         batch = batch_to_tensors(next(iter(train)), "cuda")
-    lines = [l for l in out.getvalue().splitlines() if l.startswith("epoch ")]
+    log = out.getvalue().splitlines()
+    lines = [l for l in log if l.startswith("epoch ")]
     losses = [float(w) for l in lines for k, w in zip(l.split()[::2], l.split()[1::2])
               if k.endswith("_loss")]
     if len(lines) != epochs or len(losses) != 3 * epochs or not all(map(math.isfinite, losses)):
         fail(f"training epochs: {lines}")
     if not (report_ok and ckpt_ok and math.isfinite(result["best_loss"])):
         fail(f"training wrote no report or checkpoint: {result}")
+    if (len(gan_history) != gan_epochs
+            or not all(math.isfinite(v) for row in gan_history for v in row.values())):
+        fail(f"stage A's GAN_loss.csv: {gan_history}")
+    if missing:
+        fail(f"stage A saved no {missing}")
+    gan_steps = gan_epochs * len(train)  # stage A's loader: batch 32, valid 0.1, the same seed
     n_steps, n_evals = epochs * len(train), epochs * (len(valid) + len(test))
     expect = {name: per * (n_steps + (n_evals if name.endswith("fwd") else 0))
-              for name, per in STEP_LAUNCHES.items()}
+              + GAN_STEP_LAUNCHES[name] * gan_steps for name, per in STEP_LAUNCHES.items()}
     if counts != expect:
-        fail(f"training launches {counts}, expected {expect} ({n_steps} train steps, "
-             f"{n_evals} eval forwards)")
+        fail(f"training launches {counts}, expected {expect} ({gan_steps} stage-A steps, "
+             f"{n_steps} stage-B train steps, {n_evals} eval forwards)")
     emit({"phase": "training", "cli": "gan_ffn_tpu_torch.cli.train_iemocap", "argv": argv[:10],
+          "gan_epochs": [l for l in log if l.startswith("GAN epoch ")], "gan_loss_csv": gan_history,
           "epochs": lines, "best_loss": result["best_loss"], "f1": result["f1"],
-          "train_steps": n_steps, "eval_forwards": n_evals, "launches": counts,
-          "seconds": seconds})
+          "gan_steps": gan_steps, "train_steps": n_steps, "eval_forwards": n_evals,
+          "launches": counts, "seconds": seconds})
+
+    gan_step = phase_gan_step(torch, batch)
 
     # one train step at B=32, L=112, every dropout on
     model = GAN_FFN(n_classes=6, gen_num_layers=8, generator=torch.Generator().manual_seed(1),
@@ -712,7 +747,90 @@ def phase_training(torch):
     emit({"phase": "train_step_vs_cpu", "L": L, "B": B, "loss_cpu": results["cpu"][0],
           "loss_cuda": results["cuda"][0], "loss_rel_err": loss_err,
           "max_grad_rel_err": grad_err, "parameters": len(results["cpu"][1])})
-    return counts, step
+    return counts, step, gan_step
+
+
+def _gan_state(torch, device, seed, deterministic=False, eps=None):
+    from gan_ffn_tpu_torch.nn.core import set_dropout_generator
+    from gan_ffn_tpu_torch.train.gan import GANConfig, init_gan_state, make_gan_train_step
+
+    state = init_gan_state(GANConfig(num_layers=8, seed=seed), device=device)
+    dropout_seeds = torch.Generator().manual_seed(seed + 1)
+    for module in state.modules.values():
+        set_dropout_generator(module, dropout_seeds)
+    if eps is not None:
+        for opt in state.opts.values():
+            for group in opt.param_groups:
+                group["eps"] = eps
+    return state, make_gan_train_step(state.modules, state.opts, deterministic=deterministic)
+
+
+def phase_gan_step(torch, batch):
+    """One stage-A step (the 12 duels) at B=32, L=112 with every dropout on,
+    then one deterministic step on the card against the CPU."""
+    from gan_ffn_tpu_torch.cli.common import gan_batch_from
+    from gan_ffn_tpu_torch.train.gan import DUEL_SCHEDULE
+
+    gan_batch = gan_batch_from(batch)
+    state, gan_step = _gan_state(torch, "cuda", 5)
+    step_counts = []
+    for _ in range(2):
+        before = _read_counts()
+        losses = gan_step(gan_batch)
+        torch.cuda.synchronize()
+        step_counts.append({k: v - before[k] for k, v in _read_counts().items()})
+    if any(c != GAN_STEP_LAUNCHES for c in step_counts):
+        fail(f"launches per stage-A step {step_counts}, expected {GAN_STEP_LAUNCHES}")
+    if not all(math.isfinite(v.item()) for v in losses.values()):
+        fail(f"stage-A step losses {losses}")
+    torch.cuda.reset_peak_memory_stats()
+    enqueue_ms, host_ms = [], []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        gan_step(gan_batch)
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        enqueue_ms.append((t1 - t0) * 1e3)
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+    host = statistics.median(host_ms)
+    utterances = int(batch["umask"].sum().item())
+    line = {"phase": "gan_step", "B": 32, "L": 112, "valid_len": batch["valid_len"],
+            "n_real": batch["n_real"], "utterances": utterances, "duels": len(DUEL_SCHEDULE),
+            "launches_per_step": step_counts[0], "host_ms": host,
+            "enqueue_ms": statistics.median(enqueue_ms), "host_ms_all": host_ms,
+            "duel_utterances_per_s": len(DUEL_SCHEDULE) * utterances / (host / 1e3),
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+    emit(line)
+    del state, gan_step
+
+    # one deterministic 12-duel step on the card against the CPU, same weights and batch
+    rng = np.random.default_rng(6)
+    L, B = 64, 4
+    host_batch = {k: rng.standard_normal((L, B, d)).astype(np.float32)
+                  for k, d in (("audio", 100), ("visual", 512), ("text", 100))}
+    results = {}
+    for device in ("cpu", "cuda"):
+        state, step = _gan_state(torch, device, 7, deterministic=True, eps=1e-3)
+        tensors = {k: torch.from_numpy(v).to(device) for k, v in host_batch.items()}
+        t0 = time.perf_counter()
+        losses = step({**tensors, "valid_len": 50, "n_real": 3})
+        results[device] = ([losses[f"duel_{i}"].item() for i in range(len(DUEL_SCHEDULE))],
+                           {f"{name}.{k}": v.cpu() for name, m in state.modules.items()
+                            for k, v in m.state_dict().items()},
+                           time.perf_counter() - t0)
+    (cpu_losses, cpu_params, cpu_s), (card_losses, card_params, card_s) = results["cpu"], results["cuda"]
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(card_losses, cpu_losses))
+    param_err = max((card_params[k] - v).abs().max().item() for k, v in cpu_params.items())
+    worst = max(cpu_params, key=lambda k: (card_params[k] - cpu_params[k]).abs().max().item())
+    emit({"phase": "gan_step_vs_cpu", "L": L, "B": B, "valid_len": 50, "n_real": 3, "layers": 8,
+          "losses_cpu": cpu_losses, "losses_cuda": card_losses, "max_loss_rel_err": loss_err,
+          "max_param_abs_err": param_err, "worst_param": worst, "parameters": len(cpu_params),
+          "seconds_cpu": cpu_s, "seconds_cuda": card_s})
+    if not (loss_err <= E2E_TOL and param_err <= GAN_PARAM_TOL):
+        fail(f"card vs CPU stage-A step at L=64, B=4: losses {loss_err} (limit {E2E_TOL} "
+             f"relative), parameters {param_err} (limit {GAN_PARAM_TOL} absolute)")
+    return line
 
 
 def main() -> None:
@@ -732,7 +850,7 @@ def main() -> None:
     phase_kernels_attention(torch, rows)
     phase_kernels_mlp(torch, rows)
     serve_counts, fwd_ms = phase_serving(torch)
-    train_counts, step = phase_training(torch)
+    train_counts, step, gan_step = phase_training(torch)
 
     kernels = []
     for name, step_rows in rows.step.items():
@@ -750,6 +868,7 @@ def main() -> None:
                    "launches_per_step calls at the shapes of the kernels phase",
             "launches_per_step": sum(n for n, _ in step_rows),
             "share_of_train_step": ms / step["device_ms"],
+            "gan_step_launches": gan_step["launches_per_step"][name],
         }
         if name in rows.serve:
             serve = rows.serve[name]
@@ -761,6 +880,8 @@ def main() -> None:
     for entry in kernels:
         if entry["launches"] < 1:
             fail(f"{entry['name']} was not launched on the training path")
+        if entry["gan_step_launches"] < 1:
+            fail(f"{entry['name']} was not launched in the stage-A step")
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": info["name"], "count": info["count"]}})
 

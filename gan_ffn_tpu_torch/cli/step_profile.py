@@ -1,14 +1,17 @@
-"""Where one train step's device time goes, on the card.
+"""Where one train step's device time goes, on the card, for stage B and
+stage A.
 
     python -m gan_ffn_tpu_torch.cli.step_profile [--label NAME] [--steps 5]
 
 Builds the full-width 8-layer ``GAN_FFN`` (random weights from a seed) and
 trains it on one random batch at B = 32, L = 112 (dialogues of 97-110
-utterances, every dropout on), as ``chip_smoke.py``'s train step does.
-After 3 warm-up steps it profiles ``--steps`` steps with torch.profiler and
-prints one JSON line: wall ms per step (host clock, to the end of a
-synchronize), the device's busy ms per step (the union of its kernels'
-intervals) and idle share, and device ms per step by kernel, largest first
+utterances, every dropout on), as ``chip_smoke.py``'s train step does; then
+the six full-width stage-A networks, through the 12-duel step on the same
+batch.  For each, after 3 warm-up steps it profiles ``--steps`` steps with
+torch.profiler and prints one JSON line: wall ms per step (host clock, to
+the end of a synchronize), the device's busy ms per step (the union of its
+kernels' intervals) and idle share, the port's four kernels' ms per step and
+share of the busy time, and device ms per step by kernel, largest first
 (the port's kernels under their library's name, cuBLAS's and PyTorch's
 under their own).  The first line names the card and its power limit.
 
@@ -41,7 +44,7 @@ def _batch(rng: np.random.Generator) -> dict:
         "umask": umask, "label": rng.integers(0, 6, (B, L)) * umask.astype(np.int64),
     }
     batch = {k: torch.from_numpy(v).cuda() for k, v in host.items()}
-    batch["valid_len"] = int(lengths.max())
+    batch["valid_len"], batch["n_real"] = int(lengths.max()), B
     return batch
 
 
@@ -72,43 +75,20 @@ def _kernel_name(name: str) -> str:
     return LIBRARY.get(name, name[:80])
 
 
-def main(argv=None) -> None:
-    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("--label", default="tree", help="a name for this checkout in the output")
-    p.add_argument("--steps", type=int, default=5, help="profiled train steps")
-    args = p.parse_args(argv)
-    if not torch.cuda.is_available():
-        sys.exit("step_profile: no CUDA card")
+def _profile(step, steps: int) -> dict:
+    """Device time of ``steps`` calls of ``step()`` after 3 warm-up calls."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from gan_ffn_tpu_torch.cli.train_iemocap import IEMOCAP_LOSS_WEIGHTS, N_CLASSES
-    from gan_ffn_tpu_torch.models import GAN_FFN
-    from gan_ffn_tpu_torch.nn.core import set_dropout_generator
-    from gan_ffn_tpu_torch.train.classifier import make_classifier_steps
-    from gan_ffn_tpu_torch.train.optim import torch_adam
-
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True).stdout.strip()
-    print(json.dumps({"label": args.label, "card": smi}), flush=True)
-    model = GAN_FFN(n_classes=N_CLASSES, gen_num_layers=8,
-                    generator=torch.Generator().manual_seed(1), device="cuda")
-    set_dropout_generator(model, torch.Generator().manual_seed(2))
-    opt = torch_adam(model.parameters(), 1e-4, weight_decay=0.008)
-    train_step, _ = make_classifier_steps(model, opt, N_CLASSES,
-                                          torch.from_numpy(IEMOCAP_LOSS_WEIGHTS).cuda())
-    batch = _batch(np.random.default_rng(0))
     for _ in range(3):
-        train_step(batch)
+        step()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(args.steps):
-            train_step(batch)
+        for _ in range(steps):
+            step()
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / args.steps
+        wall_ms = (time.perf_counter() - t0) * 1e3 / steps
     # device activities: kernels, copies and sets; not the device-side spans
     # of user annotations (the optimizer's step), which cover the gaps too
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA
@@ -120,14 +100,59 @@ def main(argv=None) -> None:
         name = names[i]
         if name in SHARED and i + 1 < len(kernels):
             name = names[i + 1]
-        per_name[name] += e.time_range.elapsed_us() / 1e3 / args.steps
-    busy_ms = _busy_us([(e.time_range.start, e.time_range.end) for e in kernels]) / 1e3 / args.steps
-    print(json.dumps({
-        "label": args.label, "B": B, "L": L, "valid_len": batch["valid_len"], "steps": args.steps,
-        "wall_ms_per_step": wall_ms, "device_busy_ms_per_step": busy_ms,
-        "device_idle_share": 1.0 - busy_ms / wall_ms, "kernels_per_step": len(kernels) / args.steps,
+        per_name[name] += e.time_range.elapsed_us() / 1e3 / steps
+    busy_ms = _busy_us([(e.time_range.start, e.time_range.end) for e in kernels]) / 1e3 / steps
+    port_ms = sum(per_name[name] for name in set(LIBRARY.values()))
+    return {
+        "steps": steps, "wall_ms_per_step": wall_ms, "device_busy_ms_per_step": busy_ms,
+        "device_idle_share": 1.0 - busy_ms / wall_ms, "kernels_per_step": len(kernels) / steps,
+        "port_kernels_ms_per_step": port_ms, "port_kernels_share_of_busy": port_ms / busy_ms,
         "device_ms_per_step_by_kernel": {k: round(v, 4) for k, v in per_name.most_common(25)},
-    }), flush=True)
+    }
+
+
+def main(argv=None) -> None:
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--label", default="tree", help="a name for this checkout in the output")
+    p.add_argument("--steps", type=int, default=5, help="profiled train steps")
+    args = p.parse_args(argv)
+    if not torch.cuda.is_available():
+        sys.exit("step_profile: no CUDA card")
+
+    from gan_ffn_tpu_torch.cli.common import gan_batch_from
+    from gan_ffn_tpu_torch.cli.train_iemocap import IEMOCAP_LOSS_WEIGHTS, N_CLASSES
+    from gan_ffn_tpu_torch.models import GAN_FFN
+    from gan_ffn_tpu_torch.nn.core import set_dropout_generator
+    from gan_ffn_tpu_torch.train.classifier import make_classifier_steps
+    from gan_ffn_tpu_torch.train.gan import GANConfig, init_gan_state, make_gan_train_step
+    from gan_ffn_tpu_torch.train.optim import torch_adam
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True).stdout.strip()
+    print(json.dumps({"label": args.label, "card": smi}), flush=True)
+    batch = _batch(np.random.default_rng(0))
+    head = {"label": args.label, "B": B, "L": L, "valid_len": batch["valid_len"]}
+
+    model = GAN_FFN(n_classes=N_CLASSES, gen_num_layers=8,
+                    generator=torch.Generator().manual_seed(1), device="cuda")
+    set_dropout_generator(model, torch.Generator().manual_seed(2))
+    opt = torch_adam(model.parameters(), 1e-4, weight_decay=0.008)
+    train_step, _ = make_classifier_steps(model, opt, N_CLASSES,
+                                          torch.from_numpy(IEMOCAP_LOSS_WEIGHTS).cuda())
+    print(json.dumps({**head, "step": "stage_b", **_profile(lambda: train_step(batch), args.steps)}),
+          flush=True)
+    del model, opt, train_step
+
+    state = init_gan_state(GANConfig(num_layers=8, seed=3), device="cuda")
+    dropout_seeds = torch.Generator().manual_seed(4)
+    for module in state.modules.values():
+        set_dropout_generator(module, dropout_seeds)
+    gan_step = make_gan_train_step(state.modules, state.opts)
+    gan_batch = gan_batch_from(batch)
+    print(json.dumps({**head, "step": "stage_a", **_profile(lambda: gan_step(gan_batch),
+                                                             args.steps)}), flush=True)
 
 
 if __name__ == "__main__":

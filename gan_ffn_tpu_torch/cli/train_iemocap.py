@@ -1,28 +1,38 @@
 """IEMOCAP GAN-FFN trainer on PyTorch (counterpart of
-``gan_ffn_tpu/cli/train_iemocap.py``; reference train_IEMOCAP.py:441-760),
-stage B only.
+``gan_ffn_tpu/cli/train_iemocap.py``; reference train_IEMOCAP.py:441-760).
 
-The flagship ``GAN_FFN`` classifier is trained with the masked NLL and
-torch's Adam (coupled L2), per epoch on train, then evaluated on valid and
-test; the epoch with the lowest test loss is kept.  At the end the report
-goes to ``{output_dir}/test_out_GAN-epochs={g}_F1-score={f1}.txt`` and the
-best classifier's ``state_dict`` to ``{model_save_path}/classifier_best.pt``
-(``torch.save``).  The msgpack checkpoints of the JAX package are not read
-or written here; that bridge is ROADMAP module note 8.
+Pipeline, as the reference's:
 
-Stage A, the adversarial pre-training of the generators, is not ported yet
-(ROADMAP Queue 1, item 1): ``--GAN-epochs`` must be 0, and the generators
-start from the classifier's own init.  The flags of the JAX trainer are
-accepted by name; those that need stage A or a later slice are refused with
-the ROADMAP item that brings them.  ``--device`` (default ``cuda``) picks
-the device; ``--no-cuda`` is the reference's way to ask for the CPU.
+1. Stage A: ``--GAN-epochs`` epochs of the 12-duel adversarial pre-training
+   of the three generators against the three discriminators
+   (``cli/common.train_gan``), on loaders of its own (batch 32, valid 0.1).
+   The loss history goes to ``{output_dir}/GAN_loss.csv`` and
+   ``GAN_loss.png``, the six networks and their Adams to
+   ``{model_save_path}/{name}.pt`` and ``opt/{name}.pt``.  With
+   ``--use-trained-GAN`` the six are loaded instead (fresh Adams, as the
+   reference resumes) and trained ``--continue-train-GAN-step`` more epochs,
+   numbered on from the CSV's last, then saved again.
+2. The three trained generators are grafted into ``GAN_FFN``.
+3. Stage B: the classifier is trained with the masked NLL and torch's Adam
+   (coupled L2), per epoch on train, then evaluated on valid and test; the
+   epoch with the lowest test loss is kept.  The report goes to
+   ``{output_dir}/test_out_GAN-epochs={g}_F1-score={f1}.txt`` and the best
+   classifier's ``state_dict`` to ``{model_save_path}/classifier_best.pt``.
 
-Seeds: ``--seed`` draws the weights (a CPU ``torch.Generator``), seeds
-torch's RNG for the dropouts outside the kernels (positional encoding,
-residuals), and seeds the generator that hands each kernel call its dropout
-seed.
+The msgpack checkpoints of the JAX package are not read or written here
+(ROADMAP module note 8).  The flags of the JAX trainer are accepted by name;
+those that need a later slice are refused with the ROADMAP item that brings
+them.  ``--gan-schedule`` is accepted, and both values run the same eager
+loop.  ``--device`` (default ``cuda``) picks the device; ``--no-cuda`` is the
+reference's way to ask for the CPU.
 
-Run: ``python -m gan_ffn_tpu_torch.cli.train_iemocap --synthetic --GAN-epochs 0 --epochs 2``
+Seeds: ``--seed`` draws the weights of both stages (CPU ``torch.Generator``s)
+and seeds torch's RNG for stage B's dropouts outside the kernels (positional
+encoding, residuals); ``--seed + 1`` seeds torch's RNG for stage A's and the
+generator that hands stage A's kernel calls their dropout seeds;
+``--seed + 2`` seeds that generator for stage B.
+
+Run: ``python -m gan_ffn_tpu_torch.cli.train_iemocap --synthetic --GAN-epochs 2 --epochs 2``
 """
 
 from __future__ import annotations
@@ -40,9 +50,13 @@ from ..evaluation.metrics import f1_score
 from ..evaluation.reports import format_test_report, write_test_report
 from ..models import GAN_FFN
 from ..nn.core import set_dropout_generator
-from ..train.classifier import make_classifier_steps
+from ..train.classifier import GENERATOR_GAN_KEYS, graft_generator_params, make_classifier_steps
+from ..train.gan import GANConfig, init_gan_state
 from ..train.loop import run_epoch
 from ..train.optim import torch_adam
+from ..utils.artifacts import draw_gan_loss, load_gan_loss_csv, save_gan_loss_csv
+from ..utils.checkpoint import load_gan_state, save_gan_state
+from .common import train_gan
 
 # IEMOCAP class weights (train_IEMOCAP.py:653)
 IEMOCAP_LOSS_WEIGHTS = np.array(
@@ -52,18 +66,17 @@ N_CLASSES = 6
 
 # flag -> the ROADMAP item that brings it
 _LATER = {
-    "use_trained_GAN": "Queue 1 item 1 (stage A) and module note 8 (checkpoints)",
     "epoch_fused": "module note 12 (epoch-fused stages)",
     "dp": "module note 13 (parallel and sweeps)",
     "scan_layers": "module note 15 (the scanned layer layout)",
-    "bf16": "Queue 1 item 5 (bf16 kernels)",
+    "bf16": "Queue 1 item 4 (bf16 kernels)",
     "tensorboard": "module note 15 (utilities)",
     "profile": "module note 15 (utilities)",
 }
 
 
 def build_parser() -> argparse.ArgumentParser:
-    p = argparse.ArgumentParser(description="IEMOCAP GAN-FFN trainer (PyTorch, stage B)")
+    p = argparse.ArgumentParser(description="IEMOCAP GAN-FFN trainer (PyTorch)")
     p.add_argument("--no-cuda", action="store_true", default=False,
                    help="train on the CPU (the same as --device cpu)")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
@@ -74,16 +87,17 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--batch-size", type=int, default=32, metavar="BS", help="batch size")
     p.add_argument("--epochs", type=int, default=160, metavar="E", help="number of epochs")
     p.add_argument("--GAN-epochs", type=int, default=150, metavar="E",
-                   help="number of GAN epochs: must be 0 until stage A is ported")
+                   help="number of GAN epochs")
     p.add_argument("--class-weight", action="store_true", default=True, help="use class weight")
     p.add_argument("--attention", action="store_true", default=False,
                    help="compat; unused by GAN_FFN")
     p.add_argument("--tensorboard", action="store_true", default=False, help="refused for now")
     p.add_argument("--tb-grad-histograms", choices=("epoch", "batch"), default="epoch",
                    help="compat; needs --tensorboard")
-    p.add_argument("--use-trained-GAN", action="store_true", default=False, help="refused for now")
+    p.add_argument("--use-trained-GAN", action="store_true", default=False,
+                   help="load the six GAN networks from --model-save-path")
     p.add_argument("--continue-train-GAN-step", type=int, default=5, metavar="E",
-                   help="compat; needs --use-trained-GAN")
+                   help="GAN epochs to continue training the loaded networks for")
     p.add_argument("--data-path", default="data/iemocap/IEMOCAP_features.pkl")
     p.add_argument("--synthetic", action="store_true", default=False,
                    help="generate a synthetic feature pickle if data-path is missing")
@@ -92,7 +106,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--num-layers", type=int, default=8, help="transformer encoder depth")
     p.add_argument("--scan-layers", action="store_true", default=False, help="refused for now")
     p.add_argument("--gan-schedule", choices=("fused", "stepwise"), default="fused",
-                   help="compat; stage A only")
+                   help="compat: both run stage A's one eager loop")
     p.add_argument("--epoch-fused", action="store_true", default=False, help="refused for now")
     p.add_argument("--dp", action="store_true", default=False, help="refused for now")
     p.add_argument("--lr-schedule", choices=("reference", "decay"), default="reference",
@@ -109,12 +123,41 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
+def stage_a(args, device):
+    """Stage A as the reference runs it: train the six GAN networks (or load
+    them, and continue), then save them and their loss history."""
+    gan_cfg = GANConfig(num_layers=args.num_layers, seed=args.seed)  # lr 1e-4, betas (0.5, 0.6)
+    gan_train_loader, _, _ = get_iemocap_loaders(
+        args.data_path, batch_size=32, valid=0.1, seed=args.seed,
+        strict_parity=args.strict_parity,
+    )
+    loss_csv = os.path.join(args.output_dir, "GAN_loss.csv")
+    torch.manual_seed(args.seed + 1)
+    if args.use_trained_GAN:
+        gan_state = load_gan_state(args.model_save_path, *init_gan_state(gan_cfg, device),
+                                   reset_opt=True)
+        print("=" * 15, args.model_save_path + " loaded trained GAN", "=" * 15)
+        if args.continue_train_GAN_step <= 0:
+            return gan_state
+        history = load_gan_loss_csv(loss_csv) if os.path.exists(loss_csv) else []
+        print("=" * 15, "continue train GAN", "=" * 15)
+        gan_state, history = train_gan(
+            gan_cfg, gan_train_loader, args.continue_train_GAN_step, state=gan_state,
+            history=history, start_epoch=(history[-1]["epoch"] + 1) if history else 0,
+            device=device,
+        )
+    else:
+        gan_state, history = train_gan(gan_cfg, gan_train_loader, args.GAN_epochs, device=device)
+    save_gan_loss_csv(history, loss_csv)
+    draw_gan_loss(history, os.path.join(args.output_dir, "GAN_loss.png"))
+    save_gan_state(args.model_save_path, gan_state)
+    print("=" * 15, "finished training GAN", "=" * 15)
+    return gan_state
+
+
 def main(argv=None) -> dict:
     parser = build_parser()
     args = parser.parse_args(argv)
-    if args.GAN_epochs != 0:
-        parser.error("--GAN-epochs must be 0: stage A (adversarial pre-training) is not "
-                     "ported yet (ROADMAP Queue 1 item 1)")
     for flag, item in _LATER.items():
         if getattr(args, flag):
             parser.error(f"--{flag.replace('_', '-')} is not ported yet (ROADMAP {item})")
@@ -133,9 +176,15 @@ def main(argv=None) -> dict:
         )
         print(f"wrote synthetic features to {args.data_path}")
 
+    gan_state = stage_a(args, device)
+
+    # ---- Stage B: GAN_FFN with the trained generators ----
     torch.manual_seed(args.seed)
     model = GAN_FFN(n_classes=N_CLASSES, dropout=args.dropout, gen_num_layers=args.num_layers,
                     generator=torch.Generator().manual_seed(args.seed), device=device)
+    gan_weights = {f"{name}.{k}": v for name in GENERATOR_GAN_KEYS
+                   for k, v in gan_state.modules[name].state_dict().items()}
+    model.load_state_dict(graft_generator_params(model.state_dict(), gan_weights))
     set_dropout_generator(model, torch.Generator().manual_seed(args.seed + 2))
     train_loader, valid_loader, test_loader = get_iemocap_loaders(
         args.data_path, batch_size=args.batch_size, valid=0.1, seed=args.seed,

@@ -1,1 +1,2 @@
-"""Stage B training: the optimizer, the classifier steps and the epoch loop."""
+"""Training: stage A (the adversarial engine), stage B (the classifier
+steps and the epoch loop) and the optimizer."""

@@ -1,1 +1,2 @@
-"""Utilities: the JAX-to-port weight bridge."""
+"""Utilities: the JAX-to-port weight bridge, stage A's checkpoints and its
+loss-history artifacts."""

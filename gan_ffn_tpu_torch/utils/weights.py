@@ -1,6 +1,7 @@
-"""Weight bridge: JAX ``GAN_FFN`` params -> the port's ``state_dict``.
+"""Weight bridge: JAX params -> the port's ``state_dict``s, for ``GAN_FFN``
+and for the six networks of stage A.
 
-The JAX tree (nested dicts of arrays) maps onto the port's module tree name
+A JAX tree (nested dicts of arrays) maps onto the port's module tree name
 for name, with four rewrites:
 
 - TorchLinear ``kernel (in, out)`` -> ``weight (out, in)``;
@@ -20,6 +21,8 @@ from typing import Any, Dict, Mapping
 
 import numpy as np
 import torch
+
+from ..train.gan import DISC_NAMES, GEN_NAMES
 
 _LAYER = re.compile(r"layers_(\d+)")
 _TRANSPOSED = {"kernel": "weight", "in_proj_kernel": "in_proj_weight"}
@@ -61,9 +64,10 @@ def unstack_layer_params(params):
     return {k: unstack_layer_params(v) for k, v in params.items()}
 
 
-def gan_ffn_state_dict_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    """JAX ``GAN_FFN`` params (nested dicts of arrays, unrolled or scanned
-    layout) -> the port's ``GAN_FFN`` ``state_dict`` (float32 CPU tensors)."""
+def state_dict_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """Any JAX module's params (nested dicts of arrays, unrolled or scanned
+    layout) -> the ``state_dict`` of the port's module of the same tree
+    (float32 CPU tensors)."""
     out: Dict[str, torch.Tensor] = {}
 
     def walk(node, path):
@@ -81,3 +85,16 @@ def gan_ffn_state_dict_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Te
 
     walk(unstack_layer_params(params), [])
     return out
+
+
+def gan_ffn_state_dict_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """JAX ``GAN_FFN`` params -> the port's ``GAN_FFN`` ``state_dict``."""
+    return state_dict_from_jax(params)
+
+
+def gan_state_dicts_from_jax(gan_params: Mapping[str, Any]) -> Dict[str, Dict[str, torch.Tensor]]:
+    """The JAX GAN state's ``params`` (``init_gan_state(...)["params"]``:
+    one tree for each of the six networks) -> ``{name: state_dict}`` for the
+    port's six modules of ``train.gan.create_gan_modules``, the visual
+    discriminator's ``object`` included."""
+    return {name: state_dict_from_jax(gan_params[name]) for name in GEN_NAMES + DISC_NAMES}

@@ -266,9 +266,9 @@ def test_cli_trains_on_the_cpu(tmp_path):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--GAN-epochs", "1"], "Queue 1 item 1"),
-    (["--GAN-epochs", "0", "--bf16"], "Queue 1 item 5"),
-    (["--GAN-epochs", "0", "--use-trained-GAN"], "module note 8"),
+    (["--GAN-epochs", "0", "--epoch-fused"], "module note 12"),
+    (["--GAN-epochs", "0", "--bf16"], "Queue 1 item 4"),
+    (["--GAN-epochs", "0", "--dp"], "module note 13"),
 ])
 def test_cli_refuses_what_later_slices_bring(flags, item, capsys):
     with pytest.raises(SystemExit) as exc:
