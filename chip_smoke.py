@@ -11,10 +11,12 @@ Phases, each printing JSON lines; any failure exits non-zero:
                one process each, all at once; prints each library's nvcc
                seconds and each kernel's registers and spill bytes.
 3. kernels  -- each kernel against its plain PyTorch version on the card, at
-               the training path's shapes (B=32, L=112 bucket): attention
-               (32,10,112,10) and (32,8,112,64) at valid_len 112/90/1/0, and
+               the training paths' shapes (L=112 bucket; B=32 on the
+               flagship path, B=30 on the DialogueRNN path): attention
+               (B,10,112,10) and (B,8,112,64) at valid_len 112/90/1/0, and
                the ragged (4,2,17,33) at rate 0.1 for correctness only; MLP
-               at M=3584 rows for the four K->H->N geometries.  Each at
+               at M=3584 and M=3360 rows (the latter with a partial last
+               64-row tile) for the four K->H->N geometries.  Each at
                dropout rate 0 and at the path's rate (attention 0.1, encoder
                FFN mid 0.1, generator head pre/mid/post 0.2): the kernels
                draw the plain versions' Philox masks, so the outputs are
@@ -24,7 +26,7 @@ Phases, each printing JSON lines; any failure exits non-zero:
                per gradient, and two calls of either kernel give identical
                bits.  The forward and the backward take the same branches of
                relu' at inputs built to put z1 within 1e-6 of 0 (K = 100 and
-               512, M = 1 and 3584; mlp_relu_branches).  The kernels' keep
+               512, M = 1, 3360 and 3584; mlp_relu_branches).  The kernels' keep
                fraction is within 5 sigma of 1 - rate.
                Times: CUDA events around 10 back-to-back calls queued behind
                a device sleep (so host launch cost is hidden), median of 21,
@@ -74,18 +76,41 @@ Phases, each printing JSON lines; any failure exits non-zero:
                the CPU (plain versions) from the same weights and batch
                (L=64, B=4): loss and every parameter's gradient within max
                |diff| <= 1e-3 * max(1, max |ref|).
+6. dialoguernn -- cli/train_iemocap_dialoguernn.main at full width (8-layer
+               generators, D_g = D_p = 500, context attention general,
+               every dropout on) for 2 epochs on phase 5's fixture at B=30
+               (L=112 batches, the test loader's last with 1 real
+               dialogue), loading the six networks phase 5 saved.  Checks:
+               finite losses, the checkpoint, the best epoch's attention
+               weights of shape (112, n_real, 112) per test batch, and
+               exactly 24 + 24 attention and 27 + 27 MLP calls per train
+               step and 24 + 27 per eval forward.  Then one train step at
+               B=30, L=112 with every dropout on (dialoguernn_step: launches,
+               host and enqueue ms, utterances/s, peak memory), and one
+               deterministic step on the card against the CPU from the same
+               weights and batch (dialoguernn_step_vs_cpu: depth 8, L=64,
+               B=4 with a fully padded column): loss and every gradient
+               within max |diff| <= 1e-3 * max(1, max |ref|).  Both
+               step-vs-CPU steps also hold every gradient to its own scale,
+               max |diff| <= 0.25 * max |ref| (a wrong or zeroed gradient
+               would be O(1); relu' branch flips move a relu FFN's W1 and b1
+               gradients by a few percent), and print the worst gradient's
+               max |ref|.
 
-The kernel counts are set to 0 just before the serving and the training
-paths run and are read just after; the comparisons of phase 3 do not count.
-The line before the last is the ``kernels`` summary (times per stage-B train
-step at B=32, L=112, at the path's dropout rates, and each kernel's launches
-per stage-A step); the last line is ``{"ok": true, "device": {...}}``.
+The kernel counts are set to 0 just before the serving, the training and
+the DialogueRNN paths run and are read just after; the comparisons of phase
+3 do not count.  The line before the last is the ``kernels`` summary (times
+per stage-B train step at B=32, L=112, at the path's dropout rates, the same
+sums at the DialogueRNN step's B=30 shapes, and each kernel's launches per
+stage-A step and per DialogueRNN train step); the last line is ``{"ok":
+true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
 import contextlib
 import io
+import itertools
 import json
 import math
 import os
@@ -108,10 +133,12 @@ MLP_TOL = 1e-4
 E2E_TOL = 1e-3
 GRID = (1, 4, 8, 32)
 ATTN_RATE = 0.1
-# (B, H, L, Dh) -> attention launches per forward (and per backward) at B=32, L=112
+# (B, H, L, Dh) -> attention launches per forward (and per backward) at L=112:
+# B=32 on the flagship path, B=30 on the DialogueRNN path
 ATTN_SHAPES = {(32, 10, 112, 10): 16, (32, 8, 112, 64): 8}
+DRNN_ATTN_SHAPES = {(30, 10, 112, 10): 16, (30, 8, 112, 64): 8}
 RAGGED_ATTN_SHAPE = (4, 2, 17, 33)  # L, Dh off the 16-row tiles and the head widths
-# (K, H, N, site) -> MLP launches per forward (and per backward) at M = 112 * 32 rows
+# (K, H, N, site) -> MLP launches per forward (and per backward) at M = 112 * B rows
 MLP_SHAPES = {
     (100, 2048, 100, "ffn"): 16,
     (512, 2048, 512, "ffn"): 8,
@@ -119,6 +146,7 @@ MLP_SHAPES = {
     (512, 1024, 100, "head"): 1,
 }
 MLP_ROWS = 112 * 32
+DRNN_MLP_ROWS = 112 * 30  # 52.5 tiles of 64 rows: a partial last tile
 SITE_RATE = {"ffn": 0.1, "head": 0.2}
 # Where a kernel is held against its plain version: the kernels compute z1
 # on the tensor cores (3xTF32), the plain version with cuBLAS in f32, sums in
@@ -135,6 +163,11 @@ STEP_LAUNCHES = {"attention_fwd": 24, "attention_bwd": 24, "mlp_fwd": 27, "mlp_b
 # passes (discriminator, generator, discriminator), a gen duel 2 and 2.
 GAN_STEP_LAUNCHES = {"attention_fwd": 240, "attention_bwd": 192, "mlp_fwd": 252, "mlp_bwd": 198}
 GAN_PARAM_TOL = 1e-5  # absolute, on every parameter after one deterministic 12-duel step
+# max |diff| / max |ref| of each gradient of a card-vs-CPU step: a wrong or
+# zeroed gradient shows as O(1).  Not tighter: a relu FFN's W1 and b1
+# gradients move by a few percent of their scale where the card's and the
+# CPU's z1 fall on either side of relu's kink (see RELU_KINK).
+OWN_SCALE_TOL = 0.25
 SOURCES = {
     "attention_fwd": ("gan_ffn_tpu_torch/csrc/attention_fwd.cu", "gan_ffn_tpu/ops/attention.py:69"),
     "attention_bwd": ("gan_ffn_tpu_torch/csrc/attention_bwd.cu", "gan_ffn_tpu/ops/attention.py:86"),
@@ -224,12 +257,17 @@ def phase_build():
 
 class Rows:
     """Per-kernel timing rows: ``step`` at the training path's rates (one
-    train step), ``serve`` at rate 0 (one serving forward)."""
+    flagship train step, B=32), ``drnn`` the same for one DialogueRNN train
+    step (B=30), ``serve`` at rate 0 (one serving forward, B=32)."""
 
     def __init__(self):
         self.step = {name: [] for name in SOURCES}
+        self.drnn = {name: [] for name in SOURCES}
         self.serve = {"attention_fwd": [], "mlp_fwd": []}
         self.err = {name: 0.0 for name in SOURCES}
+
+    def path(self, B: int) -> dict:
+        return self.step if B == 32 else self.drnn
 
 
 def _attention_bytes_flops(B, H, L, Dh, backward):
@@ -245,7 +283,7 @@ def phase_kernels_attention(torch, rows: Rows):
     from gan_ffn_tpu_torch.ops import attention as A
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    for (B, H, L, Dh), count in ATTN_SHAPES.items():
+    for (B, H, L, Dh), count in {**ATTN_SHAPES, **DRNN_ATTN_SHAPES}.items():
         q, k, v, dout = (torch.randn(B, H, L, Dh, device="cuda", generator=gen) for _ in range(4))
         for rate in (0.0, ATTN_RATE):
             for vl in (L, 90, 1, 0):
@@ -294,10 +332,11 @@ def phase_kernels_attention(torch, rows: Rows):
                 }
                 bwd["bound_ms"], bwd["bound_by"] = bound_ms(*_attention_bytes_flops(B, H, L, Dh, True))
                 if rate == 0.0:
-                    rows.serve["attention_fwd"].append((count, fwd))
+                    if B == 32:
+                        rows.serve["attention_fwd"].append((count, fwd))
                 else:
-                    rows.step["attention_fwd"].append((count, fwd))
-                    rows.step["attention_bwd"].append((count, bwd))
+                    rows.path(B)["attention_fwd"].append((count, fwd))
+                    rows.path(B)["attention_bwd"].append((count, bwd))
                 emit({"name": "attention", **line, "launches_per_step": count,
                       "fwd": fwd, "bwd": bwd})
 
@@ -347,8 +386,8 @@ def phase_kernels_mlp(torch, rows: Rows):
     from gan_ffn_tpu_torch.ops import mlp as Mo
 
     gen = torch.Generator(device="cuda").manual_seed(1)
-    M = MLP_ROWS
-    for (K, Hd, N, site), count in MLP_SHAPES.items():
+    for M, ((K, Hd, N, site), count) in itertools.product((MLP_ROWS, DRNN_MLP_ROWS),
+                                                          MLP_SHAPES.items()):
         x = torch.randn(M, K, device="cuda", generator=gen)
         w1 = (torch.rand(K, Hd, device="cuda", generator=gen) * 2 - 1) * K ** -0.5
         b1 = (torch.rand(Hd, device="cuda", generator=gen) * 2 - 1) * K ** -0.5
@@ -410,16 +449,17 @@ def phase_kernels_mlp(torch, rows: Rows):
                     "bwd_max_abs_err": gabs, "bwd_max_rel_err": gerr,
                     "launches_per_step": count, "fwd": fwd, "bwd": bwd}
             if rate == 0.0:
-                rows.serve["mlp_fwd"].append((count, fwd))
+                if M == MLP_ROWS:
+                    rows.serve["mlp_fwd"].append((count, fwd))
             else:
-                rows.step["mlp_fwd"].append((count, fwd))
-                rows.step["mlp_bwd"].append((count, bwd))
+                rows.path(M // 112)["mlp_fwd"].append((count, fwd))
+                rows.path(M // 112)["mlp_bwd"].append((count, bwd))
             emit(line)
 
     mlp_relu_branches(torch, Mo)
 
     # keep fraction of the kernel's mid mask: z1 = 1 everywhere, out[:, 0] sums the mask
-    rate, H = SITE_RATE["ffn"], 2048
+    rate, H, M = SITE_RATE["ffn"], 2048, MLP_ROWS
     w2 = torch.zeros(H, 4, device="cuda")
     w2[:, 0] = 1.0
     out = Mo.fused_mlp(torch.zeros(M, 100, device="cuda"), torch.zeros(100, H, device="cuda"),
@@ -436,7 +476,7 @@ def phase_kernels_mlp(torch, rows: Rows):
 def mlp_relu_branches(torch, Mo) -> None:
     """The forward and the backward kernel take the same branch of relu' at
     inputs whose z1 lie within ~1e-6 of 0 (K -> 512 -> 512 relu FFN, K = 100
-    and 512, M = 1 and 3584): every row is x0 plus noise of 1e-6, and b1 =
+    and 512, M = 1, 3360 and 3584): every row is x0 plus noise of 1e-6, and b1 =
     -(x0 W1) in f64, rounded to f32.  With W2 = I, b2 = 0 and no post, out > 0
     exactly where the forward's z1 > 0.  dout holds whole numbers from 1 to
     1024, so db1 = sum_r dout[r, j] relu'(z1[r, j]) is exact in f32 and is
@@ -448,7 +488,7 @@ def mlp_relu_branches(torch, Mo) -> None:
     eye, zero = torch.eye(H, device="cuda"), torch.zeros(H, device="cuda")
     cfg = dict(mid=("relu", "act_first", 0.0))
     for K in (100, 512):
-        for rows in (1, MLP_ROWS):
+        for rows in (1, DRNN_MLP_ROWS, MLP_ROWS):
             rng = np.random.default_rng(K + rows)
             x0 = rng.standard_normal(K)
             x = torch.from_numpy((x0 + 1e-6 * rng.standard_normal((rows, K))).astype(np.float32)).cuda()
@@ -609,7 +649,7 @@ def _read_counts():
 
 
 def _steps(torch, model, deterministic=False):
-    from gan_ffn_tpu_torch.cli.train_iemocap import IEMOCAP_LOSS_WEIGHTS, N_CLASSES
+    from gan_ffn_tpu_torch.cli.common import IEMOCAP_LOSS_WEIGHTS, IEMOCAP_N_CLASSES as N_CLASSES
     from gan_ffn_tpu_torch.train.classifier import make_classifier_steps
     from gan_ffn_tpu_torch.train.optim import torch_adam
 
@@ -619,7 +659,9 @@ def _steps(torch, model, deterministic=False):
     return make_classifier_steps(model, opt, N_CLASSES, weights, deterministic=deterministic)
 
 
-def phase_training(torch):
+def phase_training(torch, tmp: str):
+    """The flagship trainer in ``tmp``; its fixture and GAN_save/ stay there
+    for :func:`phase_dialoguernn`."""
     from gan_ffn_tpu_torch.cli import train_iemocap as CLI
     from gan_ffn_tpu_torch.data import get_iemocap_loaders, write_synthetic_iemocap
     from gan_ffn_tpu_torch.models import GAN_FFN
@@ -629,32 +671,31 @@ def phase_training(torch):
     from gan_ffn_tpu_torch.utils.artifacts import load_gan_loss_csv
 
     epochs, gan_epochs = 2, 1
-    with tempfile.TemporaryDirectory() as tmp:
-        data = write_synthetic_iemocap(os.path.join(tmp, "iemocap.pkl"), n_train=120, n_test=31,
-                                       min_len=97, max_len=110, seed=0)
-        train, valid, test = get_iemocap_loaders(data, batch_size=32, valid=0.1, seed=0)
-        lengths = {b.seq_len for loader in (train, valid, test) for b in loader}
-        if lengths != {112}:
-            fail(f"the training fixture's batches have lengths {lengths}, expected the 112 bucket")
-        save_dir = os.path.join(tmp, "GAN_save")
-        argv = ["--GAN-epochs", str(gan_epochs), "--epochs", str(epochs), "--num-layers", "8",
-                "--batch-size", "32", "--seed", "0", "--device", "cuda", "--data-path", data,
-                "--output-dir", os.path.join(tmp, "output"), "--model-save-path", save_dir]
-        out = io.StringIO()
-        t0 = time.perf_counter()
-        _reset_counts()
-        with contextlib.redirect_stdout(out):
-            result = CLI.main(argv)
-        torch.cuda.synchronize()
-        counts = _read_counts()
-        seconds = time.perf_counter() - t0
-        report_ok = os.path.isfile(result["report_path"]) and os.path.getsize(result["report_path"]) > 0
-        ckpt_ok = os.path.isfile(result["checkpoint"])
-        gan_history = load_gan_loss_csv(os.path.join(tmp, "output", "GAN_loss.csv"))
-        gan_files = [os.path.join(save_dir, sub, f"{name}.pt")
-                     for name in GEN_NAMES + DISC_NAMES for sub in ("", "opt")]
-        missing = [f for f in gan_files if not os.path.isfile(f)]
-        batch = batch_to_tensors(next(iter(train)), "cuda")
+    data = write_synthetic_iemocap(os.path.join(tmp, "iemocap.pkl"), n_train=120, n_test=31,
+                                   min_len=97, max_len=110, seed=0)
+    train, valid, test = get_iemocap_loaders(data, batch_size=32, valid=0.1, seed=0)
+    lengths = {b.seq_len for loader in (train, valid, test) for b in loader}
+    if lengths != {112}:
+        fail(f"the training fixture's batches have lengths {lengths}, expected the 112 bucket")
+    save_dir = os.path.join(tmp, "GAN_save")
+    argv = ["--GAN-epochs", str(gan_epochs), "--epochs", str(epochs), "--num-layers", "8",
+            "--batch-size", "32", "--seed", "0", "--device", "cuda", "--data-path", data,
+            "--output-dir", os.path.join(tmp, "output"), "--model-save-path", save_dir]
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    _reset_counts()
+    with contextlib.redirect_stdout(out):
+        result = CLI.main(argv)
+    torch.cuda.synchronize()
+    counts = _read_counts()
+    seconds = time.perf_counter() - t0
+    report_ok = os.path.isfile(result["report_path"]) and os.path.getsize(result["report_path"]) > 0
+    ckpt_ok = os.path.isfile(result["checkpoint"])
+    gan_history = load_gan_loss_csv(os.path.join(tmp, "output", "GAN_loss.csv"))
+    gan_files = [os.path.join(save_dir, sub, f"{name}.pt")
+                 for name in GEN_NAMES + DISC_NAMES for sub in ("", "opt")]
+    missing = [f for f in gan_files if not os.path.isfile(f)]
+    batch = batch_to_tensors(next(iter(train)), "cuda")
     log = out.getvalue().splitlines()
     lines = [l for l in log if l.startswith("epoch ")]
     losses = [float(w) for l in lines for k, w in zip(l.split()[::2], l.split()[1::2])
@@ -688,23 +729,10 @@ def phase_training(torch):
                     device="cuda")
     set_dropout_generator(model, torch.Generator().manual_seed(2))
     train_step, _ = _steps(torch, model)
-    step_counts = []
-    for _ in range(3):
-        before = _read_counts()
-        train_step(batch)
-        torch.cuda.synchronize()
-        step_counts.append({k: v - before[k] for k, v in _read_counts().items()})
+    step_counts = _launches_per_step(torch, lambda: train_step(batch))
     if any(c != STEP_LAUNCHES for c in step_counts):
         fail(f"launches per train step {step_counts}, expected {STEP_LAUNCHES}")
-    enqueue_ms, host_ms = [], []
-    for _ in range(10):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        train_step(batch)
-        t1 = time.perf_counter()
-        torch.cuda.synchronize()
-        enqueue_ms.append((t1 - t0) * 1e3)
-        host_ms.append((time.perf_counter() - t0) * 1e3)
+    host_ms, enqueue_ms = _host_ms(torch, lambda: train_step(batch), 10)
     enqueue = statistics.median(enqueue_ms)
     torch.cuda.reset_peak_memory_stats()
     device_ms = device_time_ms(torch, lambda: train_step(batch), reps=7, group=3,
@@ -729,25 +757,73 @@ def phase_training(torch):
         "text": rng.standard_normal((L, B, 100)).astype(np.float32),
         "umask": umask, "label": rng.integers(0, 6, (B, L)) * umask.astype(np.int64),
     }
-    cpu_model = GAN_FFN(n_classes=6, gen_num_layers=8, generator=torch.Generator().manual_seed(4),
-                        device="cpu")
-    card_model = GAN_FFN(n_classes=6, gen_num_layers=8, device="cuda")
+    vs_cpu = _step_vs_cpu(torch, GAN_FFN, dict(n_classes=6, gen_num_layers=8), host_batch,
+                          int(lengths.max()), seed=4)
+    emit({"phase": "train_step_vs_cpu", "L": L, "B": B, **vs_cpu})
+    return counts, step, gan_step
+
+
+def _launches_per_step(torch, step, n: int = 3) -> list:
+    """Each kernel's launches in each of ``n`` calls of ``step()``."""
+    counts = []
+    for _ in range(n):
+        before = _read_counts()
+        step()
+        torch.cuda.synchronize()
+        counts.append({k: v - before[k] for k, v in _read_counts().items()})
+    return counts
+
+
+def _host_ms(torch, step, n: int):
+    """Host ms of each of ``n`` calls of ``step()`` to the end of a
+    synchronize, and their enqueue ms (to the return of the call)."""
+    host_ms, enqueue_ms = [], []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step()
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        enqueue_ms.append((t1 - t0) * 1e3)
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+    return host_ms, enqueue_ms
+
+
+def _step_vs_cpu(torch, cls, kwargs: dict, host_batch: dict, valid_len: int, seed: int) -> dict:
+    """One deterministic classifier train step of ``cls(**kwargs)`` on the
+    CPU (plain versions) and on the card from the same weights and batch;
+    fails unless the loss and every parameter's gradient agree within
+    max |diff| / max(1, max |ref|) <= E2E_TOL, and each gradient within
+    OWN_SCALE_TOL of its own max |ref|."""
+    cpu_model = cls(**kwargs, generator=torch.Generator().manual_seed(seed), device="cpu")
+    card_model = cls(**kwargs, device="cuda")
     card_model.load_state_dict(cpu_model.state_dict())
     results = {}
     for name, model in (("cpu", cpu_model), ("cuda", card_model)):
         tensors = {k: torch.from_numpy(v).to(name) for k, v in host_batch.items()}
-        tensors["valid_len"] = int(lengths.max())
+        tensors["valid_len"] = valid_len
         loss, _ = _steps(torch, model, deterministic=True)[0](tensors)
         results[name] = (loss.item(), {k: p.grad.cpu() for k, p in model.named_parameters()})
-    loss_err = abs(results["cuda"][0] - results["cpu"][0]) / max(1.0, abs(results["cpu"][0]))
-    grad_err = max(max_rel_err(results["cuda"][1][k], g) for k, g in results["cpu"][1].items())
-    if not (loss_err <= E2E_TOL and grad_err <= E2E_TOL):
-        fail(f"card vs CPU train step at L=64, B=4: loss {loss_err}, gradients {grad_err} "
-             f"(max |diff| / max(1, max |ref|)) > {E2E_TOL}")
-    emit({"phase": "train_step_vs_cpu", "L": L, "B": B, "loss_cpu": results["cpu"][0],
-          "loss_cuda": results["cuda"][0], "loss_rel_err": loss_err,
-          "max_grad_rel_err": grad_err, "parameters": len(results["cpu"][1])})
-    return counts, step, gan_step
+    (cpu_loss, cpu_grads), (card_loss, card_grads) = results["cpu"], results["cuda"]
+    loss_err = abs(card_loss - cpu_loss) / max(1.0, abs(cpu_loss))
+    errs = {k: max_rel_err(card_grads[k], g) for k, g in cpu_grads.items()}
+    worst = max(errs, key=errs.get)
+    ref = {k: g.abs().max().item() for k, g in cpu_grads.items()}
+    if not (loss_err <= E2E_TOL and errs[worst] <= E2E_TOL):
+        fail(f"card vs CPU {cls.__name__} train step: loss {loss_err}, gradients {errs[worst]} "
+             f"at {worst} (max |diff| / max(1, max |ref|), max |ref| {ref[worst]}) > {E2E_TOL}")
+    diff = {k: (card_grads[k] - g).abs().max().item() for k, g in cpu_grads.items()}
+    own = {k: d / ref[k] if ref[k] else (0.0 if d == 0 else math.inf) for k, d in diff.items()}
+    own_worst = max(own, key=own.get)
+    if not own[own_worst] <= OWN_SCALE_TOL:
+        fail(f"card vs CPU {cls.__name__} train step: gradient {own_worst} off by "
+             f"{own[own_worst]} of its max |ref| {ref[own_worst]} > {OWN_SCALE_TOL}")
+    return {"loss_cpu": cpu_loss, "loss_cuda": card_loss, "loss_rel_err": loss_err,
+            "max_grad_rel_err": errs[worst], "worst_grad": worst,
+            "worst_grad_max_abs_ref": ref[worst], "max_abs_ref": max(ref.values()),
+            "max_grad_own_scale_err": own[own_worst], "worst_own_scale_grad": own_worst,
+            "worst_own_scale_grad_max_abs_ref": ref[own_worst], "min_max_abs_ref": min(ref.values()),
+            "parameters": len(cpu_grads)}
 
 
 def _gan_state(torch, device, seed, deterministic=False, eps=None):
@@ -773,26 +849,14 @@ def phase_gan_step(torch, batch):
 
     gan_batch = gan_batch_from(batch)
     state, gan_step = _gan_state(torch, "cuda", 5)
-    step_counts = []
-    for _ in range(2):
-        before = _read_counts()
-        losses = gan_step(gan_batch)
-        torch.cuda.synchronize()
-        step_counts.append({k: v - before[k] for k, v in _read_counts().items()})
+    losses = {}
+    step_counts = _launches_per_step(torch, lambda: losses.update(gan_step(gan_batch)), n=2)
     if any(c != GAN_STEP_LAUNCHES for c in step_counts):
         fail(f"launches per stage-A step {step_counts}, expected {GAN_STEP_LAUNCHES}")
     if not all(math.isfinite(v.item()) for v in losses.values()):
         fail(f"stage-A step losses {losses}")
     torch.cuda.reset_peak_memory_stats()
-    enqueue_ms, host_ms = [], []
-    for _ in range(5):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        gan_step(gan_batch)
-        t1 = time.perf_counter()
-        torch.cuda.synchronize()
-        enqueue_ms.append((t1 - t0) * 1e3)
-        host_ms.append((time.perf_counter() - t0) * 1e3)
+    host_ms, enqueue_ms = _host_ms(torch, lambda: gan_step(gan_batch), 5)
     host = statistics.median(host_ms)
     utterances = int(batch["umask"].sum().item())
     line = {"phase": "gan_step", "B": 32, "L": 112, "valid_len": batch["valid_len"],
@@ -833,6 +897,104 @@ def phase_gan_step(torch, batch):
     return line
 
 
+def phase_dialoguernn(torch, tmp: str) -> dict:
+    """The DialogueRNN trainer at full width on the training phase's
+    fixture, loading that phase's six stage-A networks; one timed train
+    step at B=30, L=112; one deterministic step on the card against the
+    CPU."""
+    from gan_ffn_tpu_torch.cli import train_iemocap_dialoguernn as CLI
+    from gan_ffn_tpu_torch.data import get_iemocap_loaders
+    from gan_ffn_tpu_torch.models import GAN_FFN_DialogueRNN
+    from gan_ffn_tpu_torch.nn.core import set_dropout_generator
+    from gan_ffn_tpu_torch.train.loop import batch_to_tensors
+
+    epochs, B = 2, 30
+    data, save_dir = os.path.join(tmp, "iemocap.pkl"), os.path.join(tmp, "GAN_save")
+    train, valid, test = get_iemocap_loaders(data, batch_size=B, valid=0.1, seed=0)
+    if {(b.seq_len, b.batch_size) for loader in (train, valid, test) for b in loader} != {(112, B)}:
+        fail("the DialogueRNN fixture's batches are not all of L=112, B=30")
+    argv = ["--epochs", str(epochs), "--num-layers", "8", "--seed", "0", "--device", "cuda",
+            "--data-path", data, "--output-dir", os.path.join(tmp, "output_dialoguernn"),
+            "--model-save-path", save_dir]
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    _reset_counts()
+    with contextlib.redirect_stdout(out):
+        result = CLI.main(argv)
+    torch.cuda.synchronize()
+    counts = _read_counts()
+    seconds = time.perf_counter() - t0
+    log = out.getvalue().splitlines()
+    lines = [l for l in log if l.startswith("epoch ")]
+    losses = [float(w) for l in lines for k, w in zip(l.split()[::2], l.split()[1::2])
+              if k.endswith("_loss")]
+    if len(lines) != epochs or len(losses) != 3 * epochs or not all(map(math.isfinite, losses)):
+        fail(f"DialogueRNN epochs: {lines}")
+    if not any("loaded trained GAN" in l for l in log):
+        fail("the DialogueRNN trainer did not load the flagship trainer's GAN networks")
+    if not (math.isfinite(result["best_loss"])
+            and os.path.isfile(os.path.join(save_dir, "dialoguernn_classifier_best.pt"))):
+        fail(f"the DialogueRNN trainer wrote no checkpoint or lost its loss: {result}")
+    attn = result["attentions"]
+    shapes = {k: [a.shape for a in attn[k]] for k in ("alpha", "alpha_f", "alpha_b")}
+    want_shapes = [(112, len(v), 112) for v in attn["vids"]]
+    if (sum(map(len, attn["vids"])) != sum(b.n_real for b in test)
+            or any(s != want_shapes for s in shapes.values())
+            or not all(np.isfinite(a).all() for k in shapes for a in attn[k])):
+        fail(f"DialogueRNN attentions: {shapes} for vids of {[len(v) for v in attn['vids']]}")
+    n_steps, n_evals = epochs * len(train), epochs * (len(valid) + len(test))
+    expect = {name: per * (n_steps + (n_evals if name.endswith("fwd") else 0))
+              for name, per in STEP_LAUNCHES.items()}
+    if counts != expect:
+        fail(f"DialogueRNN launches {counts}, expected {expect} ({n_steps} train steps, "
+             f"{n_evals} eval forwards)")
+    emit({"phase": "dialoguernn", "cli": "gan_ffn_tpu_torch.cli.train_iemocap_dialoguernn",
+          "argv": argv[:8], "epochs": lines, "best_loss": result["best_loss"], "f1": result["f1"],
+          "attention_shapes": {k: [list(s) for s in v] for k, v in shapes.items()},
+          "train_steps": n_steps, "eval_forwards": n_evals, "launches": counts,
+          "seconds": seconds})
+
+    # one train step at B=30, L=112, every dropout on
+    batch = batch_to_tensors(next(iter(train)), "cuda")
+    model = GAN_FFN_DialogueRNN(n_classes=6, gen_num_layers=8,
+                                generator=torch.Generator().manual_seed(1), device="cuda")
+    set_dropout_generator(model, torch.Generator().manual_seed(2))
+    torch.manual_seed(3)
+    train_step, _ = _steps(torch, model)
+    step_counts = _launches_per_step(torch, lambda: train_step(batch))
+    if any(c != STEP_LAUNCHES for c in step_counts):
+        fail(f"launches per DialogueRNN train step {step_counts}, expected {STEP_LAUNCHES}")
+    torch.cuda.reset_peak_memory_stats()
+    host_ms, enqueue_ms = _host_ms(torch, lambda: train_step(batch), 5)
+    host = statistics.median(host_ms)
+    utterances = int(batch["umask"].sum().item())
+    step = {"phase": "dialoguernn_step", "B": B, "L": 112, "valid_len": batch["valid_len"],
+            "n_real": batch["n_real"], "utterances": utterances,
+            "launches_per_step": step_counts[0], "host_ms": host,
+            "enqueue_ms": statistics.median(enqueue_ms), "host_ms_all": host_ms,
+            "utterances_per_s": utterances / (host / 1e3),
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+    emit(step)
+    del model, train_step
+
+    # one deterministic step on the card against the CPU path: depth 8, n_real < B
+    rng = np.random.default_rng(5)
+    L, B = 64, 4
+    lengths = np.array([64, 41, 17, 0])
+    umask = (np.arange(L)[None, :] < lengths[:, None]).astype(np.float32)
+    host_batch = {
+        "audio": rng.standard_normal((L, B, 100)).astype(np.float32),
+        "visual": rng.standard_normal((L, B, 512)).astype(np.float32),
+        "text": rng.standard_normal((L, B, 100)).astype(np.float32),
+        "qmask": np.eye(2, dtype=np.float32)[rng.integers(0, 2, (L, B))] * umask.T[:, :, None],
+        "umask": umask, "label": rng.integers(0, 6, (B, L)) * umask.astype(np.int64),
+    }
+    vs_cpu = _step_vs_cpu(torch, GAN_FFN_DialogueRNN, dict(n_classes=6, gen_num_layers=8),
+                          host_batch, int(lengths.max()), seed=6)
+    emit({"phase": "dialoguernn_step_vs_cpu", "L": L, "B": B, "n_real": 3, **vs_cpu})
+    return counts, step
+
+
 def main() -> None:
     import torch
 
@@ -850,13 +1012,16 @@ def main() -> None:
     phase_kernels_attention(torch, rows)
     phase_kernels_mlp(torch, rows)
     serve_counts, fwd_ms = phase_serving(torch)
-    train_counts, step, gan_step = phase_training(torch)
+    with tempfile.TemporaryDirectory() as tmp:
+        train_counts, step, gan_step = phase_training(torch, tmp)
+        drnn_counts, drnn_step = phase_dialoguernn(torch, tmp)
 
     kernels = []
     for name, step_rows in rows.step.items():
         total = lambda key, rs=step_rows: sum(n * r[key] for n, r in rs)  # noqa: E731
         lib = [r["library_ms"] for _, r in step_rows]
         ms = total("ms")
+        drnn = rows.drnn[name]
         entry = {
             "name": name, "route": "cuda", "source": SOURCES[name][0], "replaces": SOURCES[name][1],
             "launches": train_counts[name], "max_abs_err": rows.err[name],
@@ -869,6 +1034,14 @@ def main() -> None:
             "launches_per_step": sum(n for n, _ in step_rows),
             "share_of_train_step": ms / step["device_ms"],
             "gan_step_launches": gan_step["launches_per_step"][name],
+            "dialoguernn_launches": drnn_counts[name],
+            "dialoguernn_step_launches": drnn_step["launches_per_step"][name],
+            # the same sums at the DialogueRNN step's shapes (B=30, M=3360)
+            "dialoguernn_step_kernel_ms": sum(n * r["ms"] for n, r in drnn),
+            "dialoguernn_step_plain_ms": sum(n * r["plain_ms"] for n, r in drnn),
+            "dialoguernn_step_bound_ms": sum(n * r["bound_ms"] for n, r in drnn),
+            "dialoguernn_step_library_ms": (None if any(r["library_ms"] is None for _, r in drnn)
+                                            else sum(n * r["library_ms"] for n, r in drnn)),
         }
         if name in rows.serve:
             serve = rows.serve[name]
@@ -882,6 +1055,8 @@ def main() -> None:
             fail(f"{entry['name']} was not launched on the training path")
         if entry["gan_step_launches"] < 1:
             fail(f"{entry['name']} was not launched in the stage-A step")
+        if entry["dialoguernn_step_launches"] < 1:
+            fail(f"{entry['name']} was not launched in the DialogueRNN train step")
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": info["name"], "count": info["count"]}})
 

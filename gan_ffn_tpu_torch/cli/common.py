@@ -1,5 +1,6 @@
 """Shared wiring of the training entry points (counterpart of
-``gan_ffn_tpu/cli/common.py``): stage A's epoch loop.
+``gan_ffn_tpu/cli/common.py``): stage A's epoch loop and its run as both
+IEMOCAP trainers drive it, the class weights and the parameter count.
 
 The JAX package's epoch-fused branch (one program per epoch) is not ported:
 its GPU counterpart is CUDA-graph capture (ROADMAP module note 12).
@@ -7,16 +8,81 @@ its GPU counterpart is CUDA-graph capture (ROADMAP module note 12).
 
 from __future__ import annotations
 
+import argparse
+import os
 import time
 from typing import Callable, Dict, Iterable, Mapping, Optional, Tuple
 
+import numpy as np
 import torch
+from torch import nn
 
+from ..data import get_iemocap_loaders, write_synthetic_iemocap
 from ..data.loaders import Batch
 from ..nn.core import set_dropout_generator
+from ..train.classifier import GENERATOR_GAN_KEYS, graft_generator_params
 from ..train.gan import LOGGED_LOSS_KEYS, GANConfig, GANState, init_gan_state, make_gan_train_step
 from ..train.loop import batch_to_tensors
-from ..utils.artifacts import LossHistory, append_loss_row
+from ..utils.artifacts import (LossHistory, append_loss_row, draw_gan_loss, load_gan_loss_csv,
+                               save_gan_loss_csv)
+from ..utils.checkpoint import load_gan_state, save_gan_state
+
+# IEMOCAP 6-class weights (train_IEMOCAP.py:653)
+IEMOCAP_LOSS_WEIGHTS = np.array(
+    [1.2, 0.60072, 0.38066, 0.94019, 0.67924, 0.34332], dtype=np.float32
+)
+IEMOCAP_N_CLASSES = 6
+
+# a trainer's flag -> the ROADMAP item that brings it
+LATER_FLAGS = {
+    "epoch_fused": "module note 12 (epoch-fused stages)",
+    "dp": "module note 13 (parallel and sweeps)",
+    "scan_layers": "module note 15 (the scanned layer layout)",
+    "bf16": "Queue 1 item 4 (bf16 kernels)",
+    "tensorboard": "module note 15 (utilities)",
+    "profile": "module note 15 (utilities)",
+}
+
+
+def setup(parser: argparse.ArgumentParser, argv=None) -> Tuple[argparse.Namespace, torch.device]:
+    """A trainer's start: parse ``argv``, refuse the flags of
+    :data:`LATER_FLAGS` that it has and that are set, pick the device
+    (``--device``, or the CPU with ``--no-cuda``; a parser error where it
+    asks for a card that is not there), turn TF32 off in cuBLAS and cuDNN,
+    and write the synthetic fixture where ``--synthetic`` asks for it."""
+    args = parser.parse_args(argv)
+    for flag, item in LATER_FLAGS.items():
+        if getattr(args, flag, False):
+            parser.error(f"--{flag.replace('_', '-')} is not ported yet (ROADMAP {item})")
+    print(args)
+    device = torch.device("cpu" if args.no_cuda else args.device)
+    if device.type == "cuda":
+        if not torch.cuda.is_available():
+            parser.error("no CUDA card: pass --device cpu to train on the CPU")
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    print(f"Running on {device}"
+          + (f" ({torch.cuda.get_device_name(device)})" if device.type == "cuda" else ""))
+    if args.synthetic and not os.path.exists(args.data_path):
+        write_synthetic_iemocap(
+            args.data_path, n_train=args.synthetic_train, n_test=args.synthetic_test,
+            seed=args.seed,
+        )
+        print(f"wrote synthetic features to {args.data_path}")
+    return args, device
+
+
+def param_count(model: nn.Module) -> int:
+    return sum(p.numel() for p in model.parameters())
+
+
+def graft_generators(model: nn.Module, gan_state: GANState) -> None:
+    """Load stage A's three generators into ``model``'s (reference: the
+    trained generator objects passed into the classifier,
+    train_IEMOCAP.py:629-635)."""
+    gan_weights = {f"{name}.{k}": v for name in GENERATOR_GAN_KEYS
+                   for k, v in gan_state.modules[name].state_dict().items()}
+    model.load_state_dict(graft_generator_params(model.state_dict(), gan_weights))
 
 
 def gan_batch_from(tensors: Mapping) -> Dict[str, object]:
@@ -77,3 +143,42 @@ def train_gan(
             f"({12 * utterances / max(dt, 1e-9):.1f} duel-utterances/sec)"
         )
     return state, history
+
+
+def stage_a(args, device, load: bool, continue_epochs: int) -> GANState:
+    """Stage A as the reference's trainers run it, on loaders of its own
+    (batch 32, valid 0.1): train the six GAN networks for
+    ``args.GAN_epochs`` epochs, or, with ``load``, load them from
+    ``args.model_save_path`` (fresh Adams, as the reference resumes) and
+    train them ``continue_epochs`` more, numbered on from the loss CSV's
+    last.  Whatever was trained is saved with its loss history
+    (``{output_dir}/GAN_loss.{csv,png}``); loaded networks that train no
+    more are returned as they are.  torch's RNG is seeded with
+    ``args.seed + 1`` for stage A's dropouts outside the kernels."""
+    gan_cfg = GANConfig(num_layers=args.num_layers, seed=args.seed)  # lr 1e-4, betas (0.5, 0.6)
+    gan_train_loader, _, _ = get_iemocap_loaders(
+        args.data_path, batch_size=32, valid=0.1, seed=args.seed,
+        strict_parity=args.strict_parity,
+    )
+    loss_csv = os.path.join(args.output_dir, "GAN_loss.csv")
+    torch.manual_seed(args.seed + 1)
+    if load:
+        gan_state = load_gan_state(args.model_save_path, *init_gan_state(gan_cfg, device),
+                                   reset_opt=True)
+        print("=" * 15, args.model_save_path + " loaded trained GAN", "=" * 15)
+        if continue_epochs <= 0:
+            return gan_state
+        history = load_gan_loss_csv(loss_csv) if os.path.exists(loss_csv) else []
+        print("=" * 15, "continue train GAN", "=" * 15)
+        gan_state, history = train_gan(
+            gan_cfg, gan_train_loader, continue_epochs, state=gan_state,
+            history=history, start_epoch=(history[-1]["epoch"] + 1) if history else 0,
+            device=device,
+        )
+    else:
+        gan_state, history = train_gan(gan_cfg, gan_train_loader, args.GAN_epochs, device=device)
+    save_gan_loss_csv(history, loss_csv)
+    draw_gan_loss(history, os.path.join(args.output_dir, "GAN_loss.png"))
+    save_gan_state(args.model_save_path, gan_state)
+    print("=" * 15, "finished training GAN", "=" * 15)
+    return gan_state

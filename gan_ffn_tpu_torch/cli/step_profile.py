@@ -1,5 +1,5 @@
-"""Where one train step's device time goes, on the card, for stage B and
-stage A.
+"""Where one train step's device time goes, on the card, for stage B of
+both classifiers and for stage A.
 
     python -m gan_ffn_tpu_torch.cli.step_profile [--label NAME] [--steps 5]
 
@@ -7,7 +7,9 @@ Builds the full-width 8-layer ``GAN_FFN`` (random weights from a seed) and
 trains it on one random batch at B = 32, L = 112 (dialogues of 97-110
 utterances, every dropout on), as ``chip_smoke.py``'s train step does; then
 the six full-width stage-A networks, through the 12-duel step on the same
-batch.  For each, after 3 warm-up steps it profiles ``--steps`` steps with
+batch; then the full-width ``GAN_FFN_DialogueRNN`` (8-layer generators,
+D_g = D_p = 500, context attention ``general``) on one such batch at B =
+30, the DialogueRNN trainer's.  For each, after 3 warm-up steps it profiles ``--steps`` steps with
 torch.profiler and prints one JSON line: wall ms per step (host clock, to
 the end of a synchronize), the device's busy ms per step (the union of its
 kernels' intervals) and idle share, the port's four kernels' ms per step and
@@ -32,9 +34,10 @@ import numpy as np
 import torch
 
 B, L = 32, 112
+DIALOGUERNN_B = 30
 
 
-def _batch(rng: np.random.Generator) -> dict:
+def _batch(rng: np.random.Generator, B: int = B) -> dict:
     lengths = rng.integers(97, 111, B)
     umask = (np.arange(L)[None, :] < lengths[:, None]).astype(np.float32)
     host = {
@@ -43,6 +46,8 @@ def _batch(rng: np.random.Generator) -> dict:
         "text": rng.standard_normal((L, B, 100)).astype(np.float32),
         "umask": umask, "label": rng.integers(0, 6, (B, L)) * umask.astype(np.int64),
     }
+    speakers = np.eye(2, dtype=np.float32)[rng.integers(0, 2, (L, B))]
+    host["qmask"] = speakers * umask.T[:, :, None]
     batch = {k: torch.from_numpy(v).cuda() for k, v in host.items()}
     batch["valid_len"], batch["n_real"] = int(lengths.max()), B
     return batch
@@ -120,8 +125,8 @@ def main(argv=None) -> None:
         sys.exit("step_profile: no CUDA card")
 
     from gan_ffn_tpu_torch.cli.common import gan_batch_from
-    from gan_ffn_tpu_torch.cli.train_iemocap import IEMOCAP_LOSS_WEIGHTS, N_CLASSES
-    from gan_ffn_tpu_torch.models import GAN_FFN
+    from gan_ffn_tpu_torch.cli.common import IEMOCAP_LOSS_WEIGHTS, IEMOCAP_N_CLASSES as N_CLASSES
+    from gan_ffn_tpu_torch.models import GAN_FFN, GAN_FFN_DialogueRNN
     from gan_ffn_tpu_torch.nn.core import set_dropout_generator
     from gan_ffn_tpu_torch.train.classifier import make_classifier_steps
     from gan_ffn_tpu_torch.train.gan import GANConfig, init_gan_state, make_gan_train_step
@@ -143,6 +148,18 @@ def main(argv=None) -> None:
                                           torch.from_numpy(IEMOCAP_LOSS_WEIGHTS).cuda())
     print(json.dumps({**head, "step": "stage_b", **_profile(lambda: train_step(batch), args.steps)}),
           flush=True)
+    del model, opt, train_step
+
+    d_batch = _batch(np.random.default_rng(0), DIALOGUERNN_B)
+    model = GAN_FFN_DialogueRNN(n_classes=N_CLASSES, gen_num_layers=8,
+                                generator=torch.Generator().manual_seed(1), device="cuda")
+    set_dropout_generator(model, torch.Generator().manual_seed(2))
+    opt = torch_adam(model.parameters(), 1e-4, weight_decay=1e-5)
+    train_step, _ = make_classifier_steps(model, opt, N_CLASSES,
+                                          torch.from_numpy(IEMOCAP_LOSS_WEIGHTS).cuda())
+    print(json.dumps({**head, "B": DIALOGUERNN_B, "valid_len": d_batch["valid_len"],
+                      "step": "dialoguernn",
+                      **_profile(lambda: train_step(d_batch), args.steps)}), flush=True)
     del model, opt, train_step
 
     state = init_gan_state(GANConfig(num_layers=8, seed=3), device="cuda")

@@ -45,34 +45,16 @@ import time
 import numpy as np
 import torch
 
-from ..data import get_iemocap_loaders, write_synthetic_iemocap
+from ..data import get_iemocap_loaders
 from ..evaluation.metrics import f1_score
 from ..evaluation.reports import format_test_report, write_test_report
 from ..models import GAN_FFN
 from ..nn.core import set_dropout_generator
-from ..train.classifier import GENERATOR_GAN_KEYS, graft_generator_params, make_classifier_steps
-from ..train.gan import GANConfig, init_gan_state
+from ..train.classifier import make_classifier_steps
 from ..train.loop import run_epoch
 from ..train.optim import torch_adam
-from ..utils.artifacts import draw_gan_loss, load_gan_loss_csv, save_gan_loss_csv
-from ..utils.checkpoint import load_gan_state, save_gan_state
-from .common import train_gan
-
-# IEMOCAP class weights (train_IEMOCAP.py:653)
-IEMOCAP_LOSS_WEIGHTS = np.array(
-    [1.2, 0.60072, 0.38066, 0.94019, 0.67924, 0.34332], dtype=np.float32
-)
-N_CLASSES = 6
-
-# flag -> the ROADMAP item that brings it
-_LATER = {
-    "epoch_fused": "module note 12 (epoch-fused stages)",
-    "dp": "module note 13 (parallel and sweeps)",
-    "scan_layers": "module note 15 (the scanned layer layout)",
-    "bf16": "Queue 1 item 4 (bf16 kernels)",
-    "tensorboard": "module note 15 (utilities)",
-    "profile": "module note 15 (utilities)",
-}
+from .common import (IEMOCAP_LOSS_WEIGHTS, IEMOCAP_N_CLASSES, graft_generators, param_count,
+                     setup, stage_a)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -123,78 +105,27 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def stage_a(args, device):
-    """Stage A as the reference runs it: train the six GAN networks (or load
-    them, and continue), then save them and their loss history."""
-    gan_cfg = GANConfig(num_layers=args.num_layers, seed=args.seed)  # lr 1e-4, betas (0.5, 0.6)
-    gan_train_loader, _, _ = get_iemocap_loaders(
-        args.data_path, batch_size=32, valid=0.1, seed=args.seed,
-        strict_parity=args.strict_parity,
-    )
-    loss_csv = os.path.join(args.output_dir, "GAN_loss.csv")
-    torch.manual_seed(args.seed + 1)
-    if args.use_trained_GAN:
-        gan_state = load_gan_state(args.model_save_path, *init_gan_state(gan_cfg, device),
-                                   reset_opt=True)
-        print("=" * 15, args.model_save_path + " loaded trained GAN", "=" * 15)
-        if args.continue_train_GAN_step <= 0:
-            return gan_state
-        history = load_gan_loss_csv(loss_csv) if os.path.exists(loss_csv) else []
-        print("=" * 15, "continue train GAN", "=" * 15)
-        gan_state, history = train_gan(
-            gan_cfg, gan_train_loader, args.continue_train_GAN_step, state=gan_state,
-            history=history, start_epoch=(history[-1]["epoch"] + 1) if history else 0,
-            device=device,
-        )
-    else:
-        gan_state, history = train_gan(gan_cfg, gan_train_loader, args.GAN_epochs, device=device)
-    save_gan_loss_csv(history, loss_csv)
-    draw_gan_loss(history, os.path.join(args.output_dir, "GAN_loss.png"))
-    save_gan_state(args.model_save_path, gan_state)
-    print("=" * 15, "finished training GAN", "=" * 15)
-    return gan_state
-
-
 def main(argv=None) -> dict:
     parser = build_parser()
-    args = parser.parse_args(argv)
-    for flag, item in _LATER.items():
-        if getattr(args, flag):
-            parser.error(f"--{flag.replace('_', '-')} is not ported yet (ROADMAP {item})")
-    print(args)
-    device = torch.device("cpu" if args.no_cuda else args.device)
-    if device.type == "cuda":
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
-    print(f"Running on {device}"
-          + (f" ({torch.cuda.get_device_name(device)})" if device.type == "cuda" else ""))
-
-    if args.synthetic and not os.path.exists(args.data_path):
-        write_synthetic_iemocap(
-            args.data_path, n_train=args.synthetic_train, n_test=args.synthetic_test,
-            seed=args.seed,
-        )
-        print(f"wrote synthetic features to {args.data_path}")
-
-    gan_state = stage_a(args, device)
+    args, device = setup(parser, argv)
+    gan_state = stage_a(args, device, args.use_trained_GAN, args.continue_train_GAN_step)
 
     # ---- Stage B: GAN_FFN with the trained generators ----
     torch.manual_seed(args.seed)
-    model = GAN_FFN(n_classes=N_CLASSES, dropout=args.dropout, gen_num_layers=args.num_layers,
+    model = GAN_FFN(n_classes=IEMOCAP_N_CLASSES, dropout=args.dropout,
+                    gen_num_layers=args.num_layers,
                     generator=torch.Generator().manual_seed(args.seed), device=device)
-    gan_weights = {f"{name}.{k}": v for name in GENERATOR_GAN_KEYS
-                   for k, v in gan_state.modules[name].state_dict().items()}
-    model.load_state_dict(graft_generator_params(model.state_dict(), gan_weights))
+    graft_generators(model, gan_state)
     set_dropout_generator(model, torch.Generator().manual_seed(args.seed + 2))
     train_loader, valid_loader, test_loader = get_iemocap_loaders(
         args.data_path, batch_size=args.batch_size, valid=0.1, seed=args.seed,
         strict_parity=args.strict_parity,
     )
-    print("Number of parameter: %.2fM" % (sum(p.numel() for p in model.parameters()) / 1e6))
+    print("Number of parameter: %.2fM" % (param_count(model) / 1e6))
 
     loss_weights = torch.from_numpy(IEMOCAP_LOSS_WEIGHTS).to(device) if args.class_weight else None
     optimizer = torch_adam(model.parameters(), args.lr, weight_decay=args.l2)
-    train_step, eval_step = make_classifier_steps(model, optimizer, N_CLASSES, loss_weights)
+    train_step, eval_step = make_classifier_steps(model, optimizer, IEMOCAP_N_CLASSES, loss_weights)
 
     print("=" * 15, "data loaded", "=" * 15)
     best = None  # (loss, labels, preds, masks)

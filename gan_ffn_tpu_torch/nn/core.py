@@ -51,14 +51,15 @@ def uniform_parameter(
 
 class Linear(nn.Module):
     """``torch.nn.Linear`` with its default init drawn from ``generator``:
-    ``weight (out, in)``, ``bias (out,)``, y = x W^T + b."""
+    ``weight (out, in)``, ``bias (out,)`` (None with ``bias=False``),
+    y = x W^T + b."""
 
-    def __init__(self, in_features: int, out_features: int, *,
+    def __init__(self, in_features: int, out_features: int, bias: bool = True, *,
                  generator: Optional[torch.Generator] = None, device="cuda"):
         super().__init__()
         bound = 1.0 / math.sqrt(in_features)
         self.weight = uniform_parameter((out_features, in_features), bound, generator, device)
-        self.bias = uniform_parameter((out_features,), bound, generator, device)
+        self.bias = uniform_parameter((out_features,), bound, generator, device) if bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.linear(x, self.weight, self.bias)

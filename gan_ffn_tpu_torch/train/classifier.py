@@ -15,6 +15,13 @@ scale of the "decay" schedule instead; it sets each group's lr to
 ``initial_lr * lr_scale`` before the update, which scales the final update
 as the JAX step does.
 
+The steps serve both classifier families: a model's ``INPUTS`` names the
+batch entries it takes (``audio``, ``visual``, ``text`` for ``GAN_FFN``;
+with ``qmask`` and ``umask`` for ``GAN_FFN_DialogueRNN``), and its
+``ATTENTIONS`` the attention weights that follow the log-probabilities in
+its output, which the eval step returns (the reference accumulates them on
+eval epochs, train_IEMOCAP_DialogueRNN.py:173-176).
+
 ``graft_generator_params`` moves adversarially trained generators into a
 classifier's ``state_dict``, by key prefix.
 """
@@ -73,18 +80,22 @@ def make_classifier_steps(
 
     ``train_step(batch, lr_scale=1.0) -> (loss, preds)`` updates ``model``
     in place; it runs the model in training mode (every dropout on) unless
-    ``deterministic``.  ``eval_step(batch) -> (loss, preds)`` runs it in
-    eval mode without gradients.
+    ``deterministic``.  ``eval_step(batch)`` runs it in eval mode without
+    gradients and returns ``(loss, preds)``, or ``(loss, preds, attentions)``
+    for a model with ``ATTENTIONS``: a dict of its attention weights.
     """
     for group in optimizer.param_groups:
         group.setdefault("initial_lr", group["lr"])
 
     def forward(batch):
-        return model(batch["audio"], batch["visual"], batch["text"], valid_len=batch["valid_len"])
+        """The model's log-probabilities and its attention weights (a tuple,
+        empty for ``GAN_FFN``)."""
+        out = model(*(batch[k] for k in model.INPUTS), valid_len=batch["valid_len"])
+        return (out[0], out[1:]) if model.ATTENTIONS else (out, ())
 
     def train_step(batch, lr_scale: float = 1.0):
         model.train(not deterministic)
-        loss, preds = loss_and_preds(forward(batch), batch, n_classes, loss_weights)
+        loss, preds = loss_and_preds(forward(batch)[0], batch, n_classes, loss_weights)
         optimizer.zero_grad(set_to_none=True)
         loss.backward()
         for group in optimizer.param_groups:
@@ -95,6 +106,10 @@ def make_classifier_steps(
     @torch.no_grad()
     def eval_step(batch):
         model.eval()
-        return loss_and_preds(forward(batch), batch, n_classes, loss_weights)
+        log_prob, attentions = forward(batch)
+        loss, preds = loss_and_preds(log_prob, batch, n_classes, loss_weights)
+        if not model.ATTENTIONS:
+            return loss, preds
+        return loss, preds, dict(zip(model.ATTENTIONS, attentions))
 
     return train_step, eval_step

@@ -1,13 +1,19 @@
-"""Weight bridge: JAX params -> the port's ``state_dict``s, for ``GAN_FFN``
-and for the six networks of stage A.
+"""Weight bridge: JAX params -> the port's ``state_dict``s, for ``GAN_FFN``,
+``GAN_FFN_DialogueRNN`` and the six networks of stage A.
 
 A JAX tree (nested dicts of arrays) maps onto the port's module tree name
-for name, with four rewrites:
+for name, with these rewrites:
 
-- TorchLinear ``kernel (in, out)`` -> ``weight (out, in)``;
+- TorchLinear ``kernel (in, out)`` -> ``weight (out, in)`` (the attentions'
+  ``transform``, ``scalar`` and ``vector_prod`` among them);
 - ``in_proj_kernel (E, 3E)`` -> ``in_proj_weight (3E, E)``;
+- GRU ``w_ih (D_in, 3H)`` -> ``weight_ih (3H, D_in)``, ``w_hh`` ->
+  ``weight_hh``, ``b_ih`` / ``b_hh`` -> ``bias_ih`` / ``bias_hh``;
 - LayerNorm ``scale`` -> ``weight``;
 - ``layers_i`` -> ``layers.i``.
+
+``load_state_dict`` (strict, the default) then refuses missing, extra and
+misshapen keys.
 
 A checkpoint written under ``--scan-layers`` (one ``layers`` subtree whose
 leaves carry a stacked leading axis) is unstacked first, with a numpy copy
@@ -25,7 +31,9 @@ import torch
 from ..train.gan import DISC_NAMES, GEN_NAMES
 
 _LAYER = re.compile(r"layers_(\d+)")
-_TRANSPOSED = {"kernel": "weight", "in_proj_kernel": "in_proj_weight"}
+_TRANSPOSED = {"kernel": "weight", "in_proj_kernel": "in_proj_weight",
+               "w_ih": "weight_ih", "w_hh": "weight_hh"}
+_RENAMED = {"scale": "weight", "b_ih": "bias_ih", "b_hh": "bias_hh"}
 
 
 def _is_scanned_encoder(node) -> bool:
@@ -79,8 +87,8 @@ def state_dict_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
             arr = np.asarray(value, dtype=np.float32)
             if key in _TRANSPOSED:
                 key, arr = _TRANSPOSED[key], arr.T
-            elif key == "scale":
-                key = "weight"
+            else:
+                key = _RENAMED.get(key, key)
             out[".".join(path + [key])] = torch.tensor(arr)  # a contiguous copy
 
     walk(unstack_layer_params(params), [])

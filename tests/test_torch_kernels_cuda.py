@@ -70,6 +70,25 @@ def test_attention_kernel_matches_plain(cuda, H, Dh, L, rate):
         assert err <= 1e-5, f"valid_len={vl}: max |diff| {err}"
 
 
+@pytest.mark.parametrize("H,Dh", [(10, 10), (8, 64)])
+@pytest.mark.parametrize("L", [32, 64, 96, 112])
+def test_attention_kernels_at_the_dialoguernn_batch(cuda, H, Dh, L):
+    """Both kernels at the GAN_FFN_DialogueRNN trainer's shapes, B = 30 and
+    the buckets it fills, at the path's rate 0.1 with a valid_len short of
+    L, and at rate 0 (eval)."""
+    rng = np.random.default_rng(L + Dh + 30)
+    q, k, v, dout = (_randn(rng, (30, H, L, Dh), 1.0, cuda) for _ in range(4))
+    for rate, vl in ((0.1, L - 5), (0.0, L)):
+        got = A.fused_attention(q, k, v, valid_len=vl, dropout_rate=rate, dropout_seed=L)
+        grads = A.fused_attention_backward(q, k, v, dout, vl, rate, L)
+        torch.cuda.synchronize()
+        err = (got - A.attention_plain(q, k, v, vl, rate, L)).abs().max().item()
+        assert err <= 1e-5, f"rate={rate}: forward max |diff| {err}"
+        want = A.attention_backward_plain(q, k, v, dout, vl, rate, L)
+        for name, g, w in zip(("dq", "dk", "dv"), grads, want):
+            _close(g, w, f"{name} rate={rate}")
+
+
 def test_attention_kernel_refuses_what_it_does_not_take(cuda):
     q = torch.zeros(1, 2, 129, 8, device=cuda)
     with pytest.raises(ValueError, match="L <= 128"):
@@ -93,7 +112,8 @@ def test_attention_kernel_refuses_what_it_does_not_take(cuda):
         (4096, 256, 64, HEAD),  # K past 896: 128 k-slices to one z1 tile
     ],
 )
-@pytest.mark.parametrize("rows", [1, 77, 3584])
+# 3584 and 3360 rows: L = 112 at B = 32 (GAN_FFN) and at B = 30 (GAN_FFN_DialogueRNN)
+@pytest.mark.parametrize("rows", [1, 77, 3584, 3360])
 def test_mlp_kernel_matches_plain(cuda, K, H, N, cfg, rows):
     rng = np.random.default_rng(K + H + N + rows)
     x = _randn(rng, (rows, K), 1.0, cuda)
@@ -120,7 +140,7 @@ def test_mlp_fwd_workspace_mirrors_the_kernel(cuda):
 
     query = _build.function("mlp_fwd", "gan_mlp_fwd_workspace_floats", [ctypes.c_int] * 4,
                             ctypes.c_longlong)
-    for rows in (1, 77, 1000, 3584, 3585, 20000):
+    for rows in (1, 77, 1000, 3360, 3584, 3585, 20000):
         for K, H, N in ((100, 2048, 100), (512, 2048, 512), (100, 512, 100), (512, 1024, 100),
                         (37, 100, 33), (64, 130, 260), (100, 300, 200), (100, 2048, 1024),
                         (4096, 256, 64)):
@@ -208,8 +228,9 @@ FFN_DROP = dict(mid=("relu", "act_first", 0.1))
         (4096, 256, 64, HEAD_DROP),  # K past 896
     ],
 )
-# 1000 and 3585 rows make the last chunk of the split reductions over M ragged
-@pytest.mark.parametrize("rows", [1, 77, 1000, 3584, 3585])
+# 1000 and 3585 rows make the last chunk of the split reductions over M ragged;
+# 3360 is B = 30 at L = 112 (GAN_FFN_DialogueRNN), with other chunks than 3584
+@pytest.mark.parametrize("rows", [1, 77, 1000, 3584, 3585, 3360])
 def test_mlp_backward_kernel_matches_plain(cuda, K, H, N, cfg, rows):
     rng = np.random.default_rng(K + H + N + rows + 1)
     x = _randn(rng, (rows, K), 1.0, cuda)
@@ -241,7 +262,7 @@ def test_mlp_bwd_workspace_mirrors_the_kernel(cuda):
 
     query = _build.function("mlp_bwd", "gan_mlp_bwd_workspace_floats", [ctypes.c_int] * 4,
                             ctypes.c_longlong)
-    for rows in (1, 77, 1000, 3584, 3585):
+    for rows in (1, 77, 1000, 3360, 3584, 3585):
         for K, H, N in ((100, 2048, 100), (512, 2048, 512), (100, 512, 100), (512, 1024, 100),
                         (37, 100, 33), (36, 204, 60), (100, 2048, 1024), (4096, 256, 64)):
             assert query(rows, K, H, N) == M.bwd_workspace_floats(rows, K, H, N), (rows, K, H, N)

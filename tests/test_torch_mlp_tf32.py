@@ -11,8 +11,10 @@ A.  The forward computes z1 as the backward does, keeps a1 on chip, and
 multiplies it by W2 in the d_ff chunks of ``ops.mlp.fwd_split``, whose
 partial products a second kernel sums in ascending order before b2 and
 post.  Here the same algorithms, with the same Philox masks
-(``keep_scale``), run at M = 3584 for the four MLP geometries of the
-training path at rate 0 and at the path's dropout rates (FFN mid 0.1; head
+(``keep_scale``), run at M = 3584 (B = 32, the flagship's batch) for the
+four MLP geometries of the training path, and the backward's, whose
+chunks differ, also at M = 3360 (B = 30, the DialogueRNN trainer's), at
+rate 0 and at the path's dropout rates (FFN mid 0.1; head
 pre, mid and post 0.2), and each output is held to ``mlp_plain`` or
 ``mlp_backward_plain`` within 1e-4 * max(1, max |ref|), the card tests'
 limit.  Products of two TF32 values are exact in f32 and the sums are f32,
@@ -158,11 +160,15 @@ def _error(mm, rows, K, H, N, site, rate):
 
 PATH = [(100, 2048, 100, "ffn", 0.1), (512, 2048, 512, "ffn", 0.1),
         (100, 512, 100, "head", 0.2), (512, 1024, 100, "head", 0.2)]
+# the path's rows at L = 112: B = 32 (GAN_FFN), ids as PATH's, and B = 30
+# (GAN_FFN_DialogueRNN), a partial last row tile, ids led by 3360
+PATH_ROWS = [pytest.param(rows, *g, id="-".join(map(str, g if rows == ROWS else (rows, *g))))
+             for rows in (ROWS, 3360) for g in PATH]
 
 
-@pytest.mark.parametrize("K,H,N,site,rate", PATH)
-def test_3xtf32_split_reductions_meet_the_limit(K, H, N, site, rate):
-    err = _error(mm_3x_fast, ROWS, K, H, N, site, rate)
+@pytest.mark.parametrize("rows,K,H,N,site,rate", PATH_ROWS)
+def test_3xtf32_split_reductions_meet_the_limit(rows, K, H, N, site, rate):
+    err = _error(mm_3x_fast, rows, K, H, N, site, rate)
     assert err <= GRAD_TOL, f"max |diff| / max(1, max |ref|) {err}"
 
 
@@ -175,17 +181,18 @@ def test_a_ragged_last_chunk_meets_the_limit(rows):
     assert err <= GRAD_TOL, f"max |diff| / max(1, max |ref|) {err}"
 
 
-@pytest.mark.parametrize("K,H,N,site,rate", PATH)
-def test_every_long_reduction_fills_the_card(K, H, N, site, rate):
-    """At M = 3584 dx, dW1 and dW2 each run >= 256 blocks (tiles x chunks)
-    and at most one wave, in chunks of whole k-slices that cover the
-    reduction; the workspace stays under 10 MB."""
-    for l in M.bwd_launches(ROWS, K, H, N):
+@pytest.mark.parametrize("rows,K,H,N,site,rate", PATH_ROWS)
+def test_every_long_reduction_fills_the_card(rows, K, H, N, site, rate):
+    """At M = 3584 and 3360 (a partial last row tile) dx, dW1 and dW2 each
+    run >= 256 blocks (tiles x chunks) and at most one wave, in chunks of
+    whole k-slices that cover the reduction; the workspace stays under 10
+    MB."""
+    for l in M.bwd_launches(rows, K, H, N):
         S, chunk, depth, tiles = l["chunks"], l["chunk"], l["depth"], l["tiles"]
         assert 256 <= l["blocks"] == tiles * S, l
         assert S == 1 or l["blocks"] <= M.WAVE_BLOCKS, l
         assert chunk % 32 == 0 and (S - 1) * chunk < depth <= S * chunk, l
-    assert M.bwd_workspace_floats(ROWS, K, H, N) * 4 <= 10**7
+    assert M.bwd_workspace_floats(rows, K, H, N) * 4 <= 10**7
 
 
 def test_split_reduction_edges():
@@ -211,18 +218,18 @@ def test_forward_3xtf32_chunks_meet_the_limit(K, H, N, site, rate, at_rate):
     assert err <= GRAD_TOL, f"max |diff| / max(1, max |ref|) {err}"
 
 
-@pytest.mark.parametrize("K,H,N,site,rate", PATH)
-def test_the_forward_fills_the_card(K, H, N, site, rate):
-    """At M = 3584 the forward runs >= half a wave of blocks (row tiles x
-    d_ff chunks), in chunks of whole 64-column tiles of at most
+@pytest.mark.parametrize("rows,K,H,N,site,rate", PATH_ROWS)
+def test_the_forward_fills_the_card(rows, K, H, N, site, rate):
+    """At M = 3584 and 3360 the forward runs >= half a wave of blocks (row
+    tiles x d_ff chunks), in chunks of whole 64-column tiles of at most
     FWD_CHUNK_TILES that cover d_ff; the workspace stays under 60 MB."""
-    l = M.fwd_launch(ROWS, K, H, N)
+    l = M.fwd_launch(rows, K, H, N)
     S, chunk = l["chunks"], l["chunk"]
     assert 2 * l["blocks"] >= M.WAVE_BLOCKS and l["blocks"] == l["row_tiles"] * S, l
     assert chunk % 64 == 0 and chunk <= 64 * M.FWD_CHUNK_TILES, l
     assert (S - 1) * chunk < H <= S * chunk, l
-    assert M.fwd_workspace_floats(ROWS, K, H, N) == (S * ROWS * N if S > 1 else 0)
-    assert M.fwd_workspace_floats(ROWS, K, H, N) * 4 <= 6e7
+    assert M.fwd_workspace_floats(rows, K, H, N) == (S * rows * N if S > 1 else 0)
+    assert M.fwd_workspace_floats(rows, K, H, N) * 4 <= 6e7
 
 
 def test_fwd_split_edges():
