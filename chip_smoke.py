@@ -96,10 +96,46 @@ Phases, each printing JSON lines; any failure exits non-zero:
                would be O(1); relu' branch flips move a relu FFN's W1 and b1
                gradients by a few percent), and print the worst gradient's
                max |ref|.
+7. graphs   -- the epoch-fused path (--epoch-fused): one CUDA graph per batch
+               shape (train/graphs.py).  Both trainers with --epoch-fused at
+               full width on a fixture whose batches are of L = 96 and 112 in
+               every train epoch, every dropout on: the flagship 1 stage-A
+               epoch and 2 stage-B epochs, the DialogueRNN 2 epochs with the
+               0.98**e lr decay, loading the six networks; the checks of
+               phases 5 and 6, and one graph per length in each train
+               dispatcher, replayed.  Each run is traced by torch.profiler
+               (device only) with the counts set to 0 just before it and
+               read just after: every batch is its shape's eager first batch
+               or a replay, the wrappers count the eager ones (a call that a
+               graph records launches nothing), and the profiler's kernels
+               by name count (eager first batches + replays) x 240 / 192 /
+               252 / 198 per stage-A step, x 24 / 24 / 27 / 27 per train
+               step and x 24 / 27 forward calls per eval forward.  Then
+               attention and MLP calls, forward and backward, with dropout,
+               captured once at valid_len 112 and replayed at valid_len 90,
+               1 and 0 and three seed bases, each replay held to its plain
+               version at that valid_len and seed under phase 3's limits.
+               Then each step (stage A and stage B at B=32, the DialogueRNN
+               at B=30, L=112, depth 8) with every dropout on, eager and
+               graphed: the profiler's launches per replay (kernels by name;
+               a replay is traced up to 3 times, since the tracer can lose
+               records of a replay's burst but never adds one) equal to the
+               eager step's and to the wrappers' counts, host
+               ms per step (eager against graphed; the graphed stage A and
+               DialogueRNN must be faster), the device's busy ms in one
+               replay, the capture seconds and the graph pool's bytes.
+               Last, each step deterministic for 3 steps from the same
+               weights and batches, the lr scaled by 1, 0.5, 0.25 between
+               them, eager and graphed: with the same capturable Adams at
+               eps 1e-8 the same bits; against the per-batch path's plain
+               Adams at eps 1e-3, losses and every parameter within 1e-6 *
+               max(1, max |ref|).
 
-The kernel counts are set to 0 just before the serving, the training and
-the DialogueRNN paths run and are read just after; the comparisons of phase
-3 do not count.  The line before the last is the ``kernels`` summary (times
+The kernel counts are set to 0 just before the serving, the training, the
+DialogueRNN and the two epoch-fused paths run and are read just after; the comparisons of phase
+3 do not count.  The kernels read ``valid_len`` and their dropout seed from
+device memory; phase 3 times them so, with both made once beforehand.  A
+``graphs`` line sums up phase 7.  The line before the last is the ``kernels`` summary (times
 per stage-B train step at B=32, L=112, at the path's dropout rates, the same
 sums at the DialogueRNN step's B=30 shapes, and each kernel's launches per
 stage-A step and per DialogueRNN train step); the last line is ``{"ok":
@@ -114,6 +150,7 @@ import itertools
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -313,8 +350,11 @@ def phase_kernels_attention(torch, rows: Rows):
                 if vl != L:
                     emit({"name": "attention", **line})
                     continue
+                # the timed calls read valid_len and the seed from device memory, as the path does
+                dvl = torch.full((), vl, dtype=torch.int32, device="cuda")
+                dseed = A.device_seed(seed, q.device)
                 fwd = {
-                    "ms": device_time_ms(torch, lambda: A.fused_attention(q, k, v, vl, rate, seed)),
+                    "ms": device_time_ms(torch, lambda: A.fused_attention(q, k, v, dvl, rate, dseed)),
                     "plain_ms": device_time_ms(torch, lambda: A.attention_plain(q, k, v, vl, rate, seed)),
                     "library_ms": device_time_ms(torch, lambda: F.scaled_dot_product_attention(
                         q, k, v, dropout_p=rate)),
@@ -324,7 +364,7 @@ def phase_kernels_attention(torch, rows: Rows):
                 lib_out = F.scaled_dot_product_attention(*leaves, dropout_p=rate)
                 bwd = {
                     "ms": device_time_ms(torch, lambda: A.fused_attention_backward(
-                        q, k, v, dout, vl, rate, seed)),
+                        q, k, v, dout, dvl, rate, dseed)),
                     "plain_ms": device_time_ms(torch, lambda: A.attention_backward_plain(
                         q, k, v, dout, vl, rate, seed)),
                     "library_ms": device_time_ms(torch, lambda: torch.autograd.grad(
@@ -382,24 +422,31 @@ def _mlp_bytes_flops(M, K, H, N, post, backward):
     return 4 * (M * K + weights + M * N), 2 * M * (K * H + H * N)
 
 
+def mlp_inputs(torch, gen, M, K, Hd, N, site):
+    """``(x, w1, b1, w2, b2)`` and ``dout`` of an MLP comparison at ``M``
+    rows, drawn from ``gen`` with torch's default init scales; for the relu
+    FFN, no z1 within RELU_KINK of relu's kink (see RELU_KINK)."""
+    x = torch.randn(M, K, device="cuda", generator=gen)
+    w1 = (torch.rand(K, Hd, device="cuda", generator=gen) * 2 - 1) * K ** -0.5
+    b1 = (torch.rand(Hd, device="cuda", generator=gen) * 2 - 1) * K ** -0.5
+    w2 = (torch.rand(Hd, N, device="cuda", generator=gen) * 2 - 1) * Hd ** -0.5
+    b2 = (torch.rand(N, device="cuda", generator=gen) * 2 - 1) * Hd ** -0.5
+    dout = torch.randn(M, N, device="cuda", generator=gen)
+    while site == "ffn":
+        near = ((x.double() @ w1.double() + b1.double()).abs() < RELU_KINK).any(1)
+        if not near.any():
+            break
+        x[near] = torch.randn(int(near.sum().item()), K, device="cuda", generator=gen)
+    return (x, w1, b1, w2, b2), dout
+
+
 def phase_kernels_mlp(torch, rows: Rows):
     from gan_ffn_tpu_torch.ops import mlp as Mo
 
     gen = torch.Generator(device="cuda").manual_seed(1)
     for M, ((K, Hd, N, site), count) in itertools.product((MLP_ROWS, DRNN_MLP_ROWS),
                                                           MLP_SHAPES.items()):
-        x = torch.randn(M, K, device="cuda", generator=gen)
-        w1 = (torch.rand(K, Hd, device="cuda", generator=gen) * 2 - 1) * K ** -0.5
-        b1 = (torch.rand(Hd, device="cuda", generator=gen) * 2 - 1) * K ** -0.5
-        w2 = (torch.rand(Hd, N, device="cuda", generator=gen) * 2 - 1) * Hd ** -0.5
-        b2 = (torch.rand(N, device="cuda", generator=gen) * 2 - 1) * Hd ** -0.5
-        dout = torch.randn(M, N, device="cuda", generator=gen)
-        while site == "ffn":  # no z1 within RELU_KINK of relu's kink (see RELU_KINK)
-            near = ((x.double() @ w1.double() + b1.double()).abs() < RELU_KINK).any(1)
-            if not near.any():
-                break
-            x[near] = torch.randn(int(near.sum().item()), K, device="cuda", generator=gen)
-        args = (x, w1, b1, w2, b2)
+        args, dout = mlp_inputs(torch, gen, M, K, Hd, N, site)
         for rate in (0.0, SITE_RATE[site]):
             cfg, seed = site_cfg(site, rate), 2000 + K + N
             got = Mo.fused_mlp(*args, **cfg, dropout_seed=seed)
@@ -425,8 +472,9 @@ def phase_kernels_mlp(torch, rows: Rows):
                 fail(f"mlp_bwd {K}->{Hd}->{N} ({site}) rate={rate}: two calls differ")
             rows.err["mlp_fwd"] = max(rows.err["mlp_fwd"], err)
             rows.err["mlp_bwd"] = max(rows.err["mlp_bwd"], gabs)
+            dseed = Mo.device_seed(seed, args[0].device)  # the timed calls read the seed on the device
             fwd = {
-                "ms": device_time_ms(torch, lambda: Mo.fused_mlp(*args, **cfg, dropout_seed=seed)),
+                "ms": device_time_ms(torch, lambda: Mo.fused_mlp(*args, **cfg, dropout_seed=dseed)),
                 "plain_ms": device_time_ms(torch, lambda: Mo.mlp_plain(*args, **cfg, dropout_seed=seed)),
                 "library_ms": None,
                 "workspace_bytes": 4 * Mo.fwd_workspace_floats(M, K, Hd, N),
@@ -435,7 +483,7 @@ def phase_kernels_mlp(torch, rows: Rows):
             fwd["bound_ms"], fwd["bound_by"] = bound_ms(*_mlp_bytes_flops(M, K, Hd, N, site == "head", False))
             bwd = {
                 "ms": device_time_ms(torch, lambda: Mo.fused_mlp_backward(
-                    *args, dout, **cfg, dropout_seed=seed), reps=11, group=5),
+                    *args, dout, **cfg, dropout_seed=dseed), reps=11, group=5),
                 "plain_ms": device_time_ms(torch, lambda: Mo.mlp_backward_plain(
                     *args, dout, **cfg, dropout_seed=seed), reps=11, group=5),
                 "library_ms": None,
@@ -697,12 +745,8 @@ def phase_training(torch, tmp: str):
     missing = [f for f in gan_files if not os.path.isfile(f)]
     batch = batch_to_tensors(next(iter(train)), "cuda")
     log = out.getvalue().splitlines()
-    lines = [l for l in log if l.startswith("epoch ")]
-    losses = [float(w) for l in lines for k, w in zip(l.split()[::2], l.split()[1::2])
-              if k.endswith("_loss")]
-    if len(lines) != epochs or len(losses) != 3 * epochs or not all(map(math.isfinite, losses)):
-        fail(f"training epochs: {lines}")
-    if not (report_ok and ckpt_ok and math.isfinite(result["best_loss"])):
+    lines = _check_trainer_run(result, log, epochs, "training")
+    if not (report_ok and ckpt_ok):
         fail(f"training wrote no report or checkpoint: {result}")
     if (len(gan_history) != gan_epochs
             or not all(math.isfinite(v) for row in gan_history for v in row.values())):
@@ -739,7 +783,7 @@ def phase_training(torch, tmp: str):
                                sleep_ms=3 * enqueue + 20)
     host = statistics.median(host_ms)
     utterances = int(batch["umask"].sum().item())
-    step = {"phase": "train_step", "B": 32, "L": 112, "valid_len": batch["valid_len"],
+    step = {"phase": "train_step", "B": 32, "L": 112, "valid_len": batch["host_valid_len"],
             "utterances": utterances, "launches_per_step": step_counts[0],
             "device_ms": device_ms, "host_ms": host, "enqueue_ms": enqueue,
             "utterances_per_s": utterances / (host / 1e3),
@@ -828,10 +872,11 @@ def _step_vs_cpu(torch, cls, kwargs: dict, host_batch: dict, valid_len: int, see
 
 def _gan_state(torch, device, seed, deterministic=False, eps=None):
     from gan_ffn_tpu_torch.nn.core import set_dropout_generator
+    from gan_ffn_tpu_torch.ops.dropout import StepSeeds
     from gan_ffn_tpu_torch.train.gan import GANConfig, init_gan_state, make_gan_train_step
 
     state = init_gan_state(GANConfig(num_layers=8, seed=seed), device=device)
-    dropout_seeds = torch.Generator().manual_seed(seed + 1)
+    dropout_seeds = StepSeeds(torch.Generator().manual_seed(seed + 1))  # one for all six
     for module in state.modules.values():
         set_dropout_generator(module, dropout_seeds)
     if eps is not None:
@@ -859,8 +904,8 @@ def phase_gan_step(torch, batch):
     host_ms, enqueue_ms = _host_ms(torch, lambda: gan_step(gan_batch), 5)
     host = statistics.median(host_ms)
     utterances = int(batch["umask"].sum().item())
-    line = {"phase": "gan_step", "B": 32, "L": 112, "valid_len": batch["valid_len"],
-            "n_real": batch["n_real"], "utterances": utterances, "duels": len(DUEL_SCHEDULE),
+    line = {"phase": "gan_step", "B": 32, "L": 112, "valid_len": batch["host_valid_len"],
+            "n_real": batch["host_n_real"], "utterances": utterances, "duels": len(DUEL_SCHEDULE),
             "launches_per_step": step_counts[0], "host_ms": host,
             "enqueue_ms": statistics.median(enqueue_ms), "host_ms_all": host_ms,
             "duel_utterances_per_s": len(DUEL_SCHEDULE) * utterances / (host / 1e3),
@@ -925,11 +970,7 @@ def phase_dialoguernn(torch, tmp: str) -> dict:
     counts = _read_counts()
     seconds = time.perf_counter() - t0
     log = out.getvalue().splitlines()
-    lines = [l for l in log if l.startswith("epoch ")]
-    losses = [float(w) for l in lines for k, w in zip(l.split()[::2], l.split()[1::2])
-              if k.endswith("_loss")]
-    if len(lines) != epochs or len(losses) != 3 * epochs or not all(map(math.isfinite, losses)):
-        fail(f"DialogueRNN epochs: {lines}")
+    lines = _check_trainer_run(result, log, epochs, "DialogueRNN")
     if not any("loaded trained GAN" in l for l in log):
         fail("the DialogueRNN trainer did not load the flagship trainer's GAN networks")
     if not (math.isfinite(result["best_loss"])
@@ -968,8 +1009,8 @@ def phase_dialoguernn(torch, tmp: str) -> dict:
     host_ms, enqueue_ms = _host_ms(torch, lambda: train_step(batch), 5)
     host = statistics.median(host_ms)
     utterances = int(batch["umask"].sum().item())
-    step = {"phase": "dialoguernn_step", "B": B, "L": 112, "valid_len": batch["valid_len"],
-            "n_real": batch["n_real"], "utterances": utterances,
+    step = {"phase": "dialoguernn_step", "B": B, "L": 112, "valid_len": batch["host_valid_len"],
+            "n_real": batch["host_n_real"], "utterances": utterances,
             "launches_per_step": step_counts[0], "host_ms": host,
             "enqueue_ms": statistics.median(enqueue_ms), "host_ms_all": host_ms,
             "utterances_per_s": utterances / (host / 1e3),
@@ -995,6 +1036,408 @@ def phase_dialoguernn(torch, tmp: str) -> dict:
     return counts, step
 
 
+# Phase 7: a fixture whose batches span two buckets, L = 96 and L = 112, in
+# every train loader's epochs (B = 32 and 30, loader seed 0)
+GRAPH_FIXTURE = dict(n_train=120, n_test=31, min_len=40, max_len=98, seed=0)
+GRAPH_LENGTHS = {96, 112}
+GRAPH_TOL = 1e-6  # graphed against eager, relative to max(1, max |ref|)
+GRAPH_SEEDS = (11, 2**62 + 5, 123456789)  # seed bases a captured graph replays with
+
+
+def _check_trainer_run(result, log, epochs, what):
+    """A trainer's epoch lines in ``log``: ``epochs`` of them, each with three
+    finite losses, and a finite best loss."""
+    lines = [l for l in log if l.startswith("epoch ")]
+    losses = [float(w) for l in lines for k, w in zip(l.split()[::2], l.split()[1::2])
+              if k.endswith("_loss")]
+    if len(lines) != epochs or len(losses) != 3 * epochs or not all(map(math.isfinite, losses)):
+        fail(f"{what} epochs: {lines}")
+    if not math.isfinite(result["best_loss"]):
+        fail(f"{what}: best loss {result['best_loss']}")
+    return lines
+
+
+def _graphs_cli(torch, tmp: str) -> dict:
+    """Both trainers with --epoch-fused at full width on the two-bucket
+    fixture, every dropout on: the artifacts of phases 5 and 6, and one
+    graph per shape in every dispatcher, replayed."""
+    from gan_ffn_tpu_torch.cli import train_iemocap as FLAGSHIP
+    from gan_ffn_tpu_torch.cli import train_iemocap_dialoguernn as DRNN
+    from gan_ffn_tpu_torch.data import get_iemocap_loaders, write_synthetic_iemocap
+    from gan_ffn_tpu_torch.train import graphs as G
+    from gan_ffn_tpu_torch.train.gan import DISC_NAMES, GEN_NAMES
+    from gan_ffn_tpu_torch.utils.artifacts import load_gan_loss_csv
+
+    data = write_synthetic_iemocap(os.path.join(tmp, "iemocap_two_buckets.pkl"), **GRAPH_FIXTURE)
+    for B in (32, 30):
+        loaders = get_iemocap_loaders(data, batch_size=B, valid=0.1, seed=0)
+        lengths = [[b.seq_len for b in loader] for loader in loaders]
+        if set(lengths[0]) != GRAPH_LENGTHS or not set(sum(lengths, [])) <= GRAPH_LENGTHS:
+            fail(f"the two-bucket fixture's batches at B={B} have lengths {lengths}")
+    save_dir, out_dir = os.path.join(tmp, "GAN_save_graphs"), os.path.join(tmp, "output_graphs")
+    common = ["--epoch-fused", "--num-layers", "8", "--seed", "0", "--device", "cuda",
+              "--data-path", data, "--output-dir", out_dir, "--model-save-path", save_dir]
+    gan_train = get_iemocap_loaders(data, batch_size=32, valid=0.1, seed=0)[0]
+    made = []
+    init = G.ShapeGraphs.__init__
+
+    def recording_init(self, *args, **kw):
+        init(self, *args, **kw)
+        made.append(self)
+
+    G.ShapeGraphs.__init__ = recording_init
+    runs = {}
+    try:
+        for name, cli, argv, epochs, B in (
+                ("flagship", FLAGSHIP, ["--GAN-epochs", "1", "--epochs", "2"], 2, 32),
+                ("dialoguernn", DRNN, ["--epochs", "2", "--lr-schedule", "decay"], 2, 30)):
+            made.clear()
+            out = io.StringIO()
+            result = {}
+            t0 = time.perf_counter()
+            _reset_counts()
+            with contextlib.redirect_stdout(out):
+                port, n_kernels, busy_ms = _profile_one(
+                    torch, lambda: result.update(cli.main(common + argv)))
+            counts = _read_counts()
+            seconds = time.perf_counter() - t0
+            log = out.getvalue().splitlines()
+            lines = _check_trainer_run(result, log, epochs, f"{name} --epoch-fused")
+            graphs = {g.mode: g.stats() for g in made}
+            want_modes = {"stage_a", "train", "eval"} if name == "flagship" else {"train", "eval"}
+            if set(graphs) != want_modes:
+                fail(f"{name} --epoch-fused made dispatchers {sorted(graphs)}, expected "
+                     f"{sorted(want_modes)}")
+            # every batch is its shape's eager first batch or a replay; the
+            # wrappers count the eager ones, the profiler every kernel run
+            train, valid, test = get_iemocap_loaders(data, batch_size=B, valid=0.1, seed=0)
+            batches = {"stage_a": len(gan_train), "train": epochs * len(train),
+                       "eval": epochs * (len(valid) + len(test))}
+            eager = {mode: len(st) for mode, st in graphs.items()}
+            replays = {mode: sum(g["replays"] for g in st) for mode, st in graphs.items()}
+            if any(eager[m] + replays[m] != batches[m] for m in want_modes):
+                fail(f"{name} --epoch-fused ran {eager} eager first batches and {replays} "
+                     f"replays, expected {batches} batches in all")
+            per = {"stage_a": GAN_STEP_LAUNCHES, "train": STEP_LAUNCHES,
+                   "eval": {k: n * k.endswith("fwd") for k, n in STEP_LAUNCHES.items()}}
+            want_counts = {k: sum(per[m][k] * eager[m] for m in want_modes) for k in STEP_LAUNCHES}
+            want_port = {k: sum(per[m][k] * batches[m] for m in want_modes) for k in STEP_LAUNCHES}
+            profiled = _port_calls(port)
+            runs[name] = {"epochs": lines, "best_loss": result["best_loss"], "f1": result["f1"],
+                          "seconds_profiled": seconds, "graphs": graphs,
+                          "eager_first_batches": eager, "replays": replays,
+                          "wrapper_launches": counts, "profiled_calls": profiled,
+                          "device_kernels": n_kernels, "device_busy_ms": busy_ms}
+            if counts != want_counts or profiled != want_port:
+                fail(f"{name} --epoch-fused: the wrappers counted {counts} (expected {want_counts},"
+                     f" the eager first batches') and the profiler {profiled} calls (expected "
+                     f"{want_port}, every batch's)")
+            for mode in want_modes & {"stage_a", "train"}:
+                lengths = {st["key"][1][1][0] for st in graphs[mode]}
+                if lengths != GRAPH_LENGTHS or sum(st["replays"] for st in graphs[mode]) < 1:
+                    fail(f"{name} --epoch-fused {mode}: graphs {graphs[mode]}, expected one per "
+                         f"length {sorted(GRAPH_LENGTHS)}, replayed")
+            if name == "flagship":
+                history = load_gan_loss_csv(os.path.join(out_dir, "GAN_loss.csv"))
+                missing = [f for n in GEN_NAMES + DISC_NAMES for f in (
+                    os.path.join(save_dir, f"{n}.pt"), os.path.join(save_dir, "opt", f"{n}.pt"))
+                    if not os.path.isfile(f)]
+                if (len(history) != 1 or missing
+                        or not all(math.isfinite(v) for row in history for v in row.values())
+                        or not os.path.isfile(result["report_path"])):
+                    fail(f"flagship --epoch-fused artifacts: history {history}, missing {missing}")
+                runs[name]["gan_loss_csv"] = history
+            else:
+                if not any("loaded trained GAN" in l for l in log):
+                    fail("the DialogueRNN trainer did not load the six networks")
+                attn = result["attentions"]
+                test = get_iemocap_loaders(data, batch_size=30, valid=0.1, seed=0)[2]
+                want = [(b.seq_len, b.n_real, b.seq_len) for b in test]
+                for key in ("alpha", "alpha_f", "alpha_b"):
+                    if ([a.shape for a in attn[key]] != want
+                            or not all(np.isfinite(a).all() for a in attn[key])):
+                        fail(f"DialogueRNN --epoch-fused attentions {key}: "
+                             f"{[a.shape for a in attn[key]]}, expected {want}")
+            emit({"phase": "graphs_cli", "cli": cli.__name__, "argv": argv,
+                  **{k: v for k, v in runs[name].items() if k != "graphs"}})
+    finally:
+        G.ShapeGraphs.__init__ = init
+    return runs
+
+
+def _step_losses(out):
+    """A step's losses as floats: stage A's 12 duels, or a classifier's loss."""
+    if isinstance(out, dict):
+        return [out[f"duel_{i}"].item() for i in range(12)]
+    return [out[0].item()]
+
+
+GRAPH_LR_SCALES = (1.0, 0.5, 0.25)  # set_lr_scale before each of the 3 compared steps
+
+
+def _run_steps(torch, name: str, graphed: bool, batches, **kw):
+    """Losses and parameters after ``build_step(name, graphed, **kw)``,
+    deterministic, over ``batches``, the lr scaled by GRAPH_LR_SCALES."""
+    from gan_ffn_tpu_torch.cli.step_profile import build_step
+    from gan_ffn_tpu_torch.train.optim import set_lr_scale
+
+    step, params, opts = build_step(name, graphed, deterministic=True, **kw)
+    losses = []
+    for scale, batch in zip(GRAPH_LR_SCALES, batches):
+        for opt in opts:
+            set_lr_scale(opt, scale)
+        losses.append(_step_losses(step(batch)))
+    torch.cuda.synchronize()
+    if graphed and sum(st["replays"] for st in step.graphs.stats()) != len(batches) - 1:
+        fail(f"{name}: the graphed steps did not replay: {step.graphs.stats()}")
+    out = losses, {k: p.detach().cpu() for k, p in params.items()}
+    del step, params, opts
+    torch.cuda.empty_cache()
+    return out
+
+
+def _graphs_vs_eager(torch) -> dict:
+    """Each of the three steps at depth 8, rate 0 (deterministic), 3 steps
+    from the same weights and batches with the lr scaled by 1, 0.5 and 0.25
+    between them (so between replays), graphed against eager: with the same
+    capturable Adams at the trainers' eps 1e-8, so the graph is the only
+    difference, identical bits; against the per-batch path's plain Adams,
+    at eps 1e-3 (where a gradient that is 0 in exact arithmetic, but noise
+    of either sign in either Adam's arithmetic, moves a parameter by far
+    less than lr), the losses and every parameter within GRAPH_TOL *
+    max(1, max |ref|)."""
+    from gan_ffn_tpu_torch.cli.step_profile import STEPS, step_batch
+
+    out = {}
+    for name, B in STEPS.items():
+        rng = np.random.default_rng(7)
+        batches = [step_batch(name, rng) for _ in GRAPH_LR_SCALES]
+        for against, kw in (("capturable_adam", dict(capturable=True)),
+                            ("plain_adam", dict(eps=1e-3))):
+            ref_losses, ref = _run_steps(torch, name, False, batches, **kw)
+            got_losses, got = _run_steps(torch, name, True, batches, eps=kw.get("eps", 1e-8))
+            errs = {k: (got[k] - v).abs().max().item() / max(1.0, v.abs().max().item())
+                    for k, v in ref.items()}
+            worst = max(errs, key=errs.get)
+            loss_err = max(abs(a - b) / max(1.0, abs(b))
+                           for la, lb in zip(got_losses, ref_losses) for a, b in zip(la, lb))
+            identical = got_losses == ref_losses and all(torch.equal(got[k], v)
+                                                         for k, v in ref.items())
+            line = {"steps": len(batches), "B": B, "lr_scales": GRAPH_LR_SCALES,
+                    "eps": kw.get("eps", 1e-8), "max_loss_rel_err": loss_err,
+                    "max_param_rel_err": errs[worst], "worst_param": worst,
+                    "identical_bits": identical, "parameters": len(ref)}
+            out.setdefault(name, {})[against] = line
+            emit({"phase": "graphs_vs_eager", "step": name, "against": against, **line})
+            if against == "capturable_adam" and not identical:
+                fail(f"{name} graphed against eager with the same capturable Adams: not the "
+                     f"same bits (losses {loss_err}, parameter {worst} {errs[worst]})")
+            if not (loss_err <= GRAPH_TOL and errs[worst] <= GRAPH_TOL):
+                fail(f"{name} graphed against eager ({against}): losses {loss_err}, parameter "
+                     f"{worst} {errs[worst]} (limit {GRAPH_TOL} of max(1, max |ref|))")
+    return out
+
+
+def _graphs_replay_inputs(torch) -> dict:
+    """Attention and MLP calls, forward and backward, with dropout on,
+    captured once at valid_len 112 and replayed at valid_len 90, 1 and 0
+    with three seed bases: each replay against its plain version at that
+    valid_len and seed, under phase 3's limits (a mask element drawn
+    otherwise moves an output by ~1e-2, far past them)."""
+    from gan_ffn_tpu_torch.ops import attention as A
+    from gan_ffn_tpu_torch.ops import dropout as D
+    from gan_ffn_tpu_torch.ops import mlp as Mo
+
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    vl = torch.full((), 112, dtype=torch.int32, device="cuda")
+    base = torch.zeros((), dtype=torch.int64, device="cuda")
+    attn = [tuple(torch.randn(*shape, device="cuda", generator=gen) for _ in range(4))
+            for shape in ((32, 10, 112, 10), (32, 8, 112, 64))]
+    mlps = [(mlp_inputs(torch, gen, MLP_ROWS, K, Hd, N, site), site_cfg(site, SITE_RATE[site]))
+            for K, Hd, N, site in ((512, 2048, 512, "ffn"), (100, 512, 100, "head"))]
+
+    def calls():
+        outs = []
+        for i, (q, k, v, dout) in enumerate(attn):
+            seed = D.SeedRef(base, i)
+            outs.append((A.fused_attention(q, k, v, vl, ATTN_RATE, seed),
+                         A.fused_attention_backward(q, k, v, dout, vl, ATTN_RATE, seed)))
+        for i, ((args, dout), cfg) in enumerate(mlps):
+            seed = D.SeedRef(base, len(attn) + i)
+            outs.append((Mo.fused_mlp(*args, **cfg, dropout_seed=seed),
+                         Mo.fused_mlp_backward(*args, dout, **cfg, dropout_seed=seed)))
+        return outs
+
+    calls()  # builds and configures the kernels outside the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = calls()
+    worst = {"attention_fwd": 0.0, "attention_bwd": 0.0, "mlp_fwd": 0.0, "mlp_bwd": 0.0}
+    replays = []
+    for valid_len in (90, 1, 0):
+        for seed_base in GRAPH_SEEDS:
+            vl.fill_(valid_len)
+            base.fill_(seed_base)
+            graph.replay()
+            torch.cuda.synchronize()
+            for i, ((q, k, v, dout), (fwd, bwd)) in enumerate(zip(attn, outs)):
+                seed = D.derive_seed(seed_base, i)
+                err = (fwd - A.attention_plain(q, k, v, valid_len, ATTN_RATE, seed)).abs().max().item()
+                gerr = max(max_rel_err(g, w) for g, w in zip(bwd, A.attention_backward_plain(
+                    q, k, v, dout, valid_len, ATTN_RATE, seed)))
+                worst["attention_fwd"] = max(worst["attention_fwd"], err)
+                worst["attention_bwd"] = max(worst["attention_bwd"], gerr)
+                if not (err <= ATTN_TOL and gerr <= GRAD_TOL):
+                    fail(f"replayed attention {tuple(q.shape)} at valid_len {valid_len}, seed base "
+                         f"{seed_base}: forward {err} (limit {ATTN_TOL}), backward {gerr} "
+                         f"(limit {GRAD_TOL} relative)")
+            for i, (((args, dout), cfg), (fwd, bwd)) in enumerate(zip(mlps, outs[len(attn):])):
+                seed = D.derive_seed(seed_base, len(attn) + i)
+                rel = max_rel_err(fwd, Mo.mlp_plain(*args, **cfg, dropout_seed=seed))
+                gerr = max(max_rel_err(g, w) for g, w in zip(bwd, Mo.mlp_backward_plain(
+                    *args, dout, **cfg, dropout_seed=seed)))
+                worst["mlp_fwd"] = max(worst["mlp_fwd"], rel)
+                worst["mlp_bwd"] = max(worst["mlp_bwd"], gerr)
+                if not (rel <= MLP_TOL and gerr <= GRAD_TOL):
+                    fail(f"replayed MLP {tuple(args[1].shape)} at seed base {seed_base}: forward "
+                         f"{rel} (limit {MLP_TOL} relative), backward {gerr} (limit {GRAD_TOL})")
+            replays.append([valid_len, seed_base])
+    line = {"phase": "graphs_replay_inputs", "captured_at": {"valid_len": 112, "seed_base": 0},
+            "replays": replays, "worst": worst}
+    emit(line)
+    return line
+
+
+def _port_calls(names) -> dict:
+    """Calls of each kernel wrapper in a Counter of kernel names: one launch
+    of its main kernel per call (the MLP backward's dx product)."""
+    calls = dict.fromkeys(SOURCES, 0)
+    for name, n in names.items():
+        flat = re.sub(r"\(anonymous namespace\)::|<unnamed>::|mlp::|\(Epi\)|Epi\)|\(|\s", "", name)
+        if "attention_fwd_kernel" in flat:
+            calls["attention_fwd"] += n
+        elif "attention_bwd_kernel" in flat:
+            calls["attention_bwd"] += n
+        elif "mlp_fwd_kernel" in flat:
+            calls["mlp_fwd"] += n
+        elif "gemm_kernel<false,true,3>" in flat or "gemm_kernel<false,true,kEpiDx>" in flat:
+            calls["mlp_bwd"] += n
+    return calls
+
+
+REPLAY_TRACES = 3  # traces of one replay at most, until one counts every kernel
+PORT_KERNELS = ("attention_fwd_kernel", "attention_bwd_kernel", "mlp_fwd_kernel",
+                "mlp_fwd_reduce_kernel", "gemm_kernel", "reduce_kernel", "pre_kernel")
+
+
+def _profile_one(torch, fn):
+    """One ``fn()`` under torch.profiler, tracing the device: a Counter of
+    the port's kernels by full name, all device kernels, and the device's
+    busy ms (the union of the kernels' intervals)."""
+    import collections
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
+    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
+    busy, end = 0.0, float("-inf")
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    port = collections.Counter(e.name for e in kernels if "at::" not in e.name
+                               and any(k in e.name for k in PORT_KERNELS))
+    return port, len(kernels), busy / 1e3
+
+
+def _graphs_steps(torch) -> dict:
+    """Each of the three steps at full width, every dropout on: eager (the
+    wrappers' counts, one profiled step, host ms) and graphed (capture
+    seconds, pool bytes, one profiled replay, host ms per replay): the
+    replay launches what the eager step launches."""
+    from gan_ffn_tpu_torch.cli.step_profile import STEPS, build_step, step_batch
+
+    out = {}
+    for name, B in STEPS.items():
+        batch = step_batch(name, np.random.default_rng(9))
+        want = GAN_STEP_LAUNCHES if name == "stage_a" else STEP_LAUNCHES
+        step = build_step(name, False)[0]
+        counts = _launches_per_step(torch, lambda: step(batch), n=1)[0]
+        eager_names, eager_kernels, eager_busy = _profile_one(torch, lambda: step(batch))
+        eager_ms, eager_enqueue = _host_ms(torch, lambda: step(batch), 5)
+        del step
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        step = build_step(name, True)[0]
+        # the first batch of the shape runs eagerly, then is captured
+        # (recorded, not launched), and the second replays
+        graph_counts = _launches_per_step(torch, lambda: step(batch), n=2)
+        # the tracer may lose records of a replay's burst of kernels (one
+        # stage-A replay traced 581 of its ~15,960 short, NVIDIA H100 80GB
+        # HBM3, 700 W) but never adds one: a traced replay that counts
+        # each kernel's eager calls exactly is the replay's count
+        attempts = []
+        for _ in range(REPLAY_TRACES):
+            replay_names, replay_kernels, replay_busy = _profile_one(torch, lambda: step(batch))
+            attempts.append({"calls": _port_calls(replay_names), "device_kernels": replay_kernels})
+            if attempts[-1]["calls"] == want:
+                break
+        graph_ms, graph_enqueue = _host_ms(torch, lambda: step(batch), 10)
+        stats = step.graphs.stats()
+        line = {
+            "phase": "graphs_step", "step": name, "B": B, "L": 112,
+            "valid_len": batch["valid_len"].item(), "wrapper_launches": counts,
+            "graphed_wrapper_launches": graph_counts,
+            "profiled_eager_calls": _port_calls(eager_names),
+            "profiled_replay_calls": _port_calls(replay_names), "replay_traces": attempts,
+            "port_kernel_names": {k: v for k, v in replay_names.items()},
+            "eager_device_kernels": eager_kernels, "replay_device_kernels": replay_kernels,
+            "eager_host_ms": statistics.median(eager_ms), "eager_host_ms_all": eager_ms,
+            "eager_enqueue_ms": statistics.median(eager_enqueue),
+            "graphed_host_ms": statistics.median(graph_ms), "graphed_host_ms_all": graph_ms,
+            "graphed_enqueue_ms": statistics.median(graph_enqueue),
+            "eager_device_busy_ms": eager_busy, "replay_device_busy_ms": replay_busy,
+            "capture_seconds": stats[0]["capture_seconds"], "pool_bytes": stats[0]["pool_bytes"],
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+        }
+        emit(line)
+        del step
+        torch.cuda.empty_cache()
+        if counts != want:
+            fail(f"{name} eager step launched {counts}, expected {want}")
+        if graph_counts != [want, dict.fromkeys(want, 0)]:
+            fail(f"{name}: the wrappers counted {graph_counts} in the graphed step's first call "
+                 f"and first replay, expected {want} (the eager call) and none")
+        if line["profiled_eager_calls"] != want or line["profiled_replay_calls"] != want:
+            fail(f"{name}: the profiler counts {line['profiled_eager_calls']} calls in the eager "
+                 f"step and {line['profiled_replay_calls']} in a replay, expected {want}")
+        if replay_names != eager_names:
+            fail(f"{name}: a replay launches other port kernels than the eager step")
+        out[name] = line
+    for name in ("stage_a", "dialoguernn"):
+        if not out[name]["graphed_host_ms"] < out[name]["eager_host_ms"]:
+            fail(f"{name}: graphed host ms {out[name]['graphed_host_ms']} not below eager "
+                 f"{out[name]['eager_host_ms']}")
+    return out
+
+
+def phase_graphs(torch, tmp: str) -> dict:
+    """Phase 7: the epoch-fused trainers, graphed against eager, one graph
+    at other valid_len and seeds, launches per replay and the timings."""
+    summary = {"cli": _graphs_cli(torch, tmp)}
+    summary["replay_inputs"] = _graphs_replay_inputs(torch)
+    summary["steps"] = _graphs_steps(torch)
+    summary["vs_eager"] = _graphs_vs_eager(torch)
+    return summary
+
+
 def main() -> None:
     import torch
 
@@ -1015,7 +1458,20 @@ def main() -> None:
     with tempfile.TemporaryDirectory() as tmp:
         train_counts, step, gan_step = phase_training(torch, tmp)
         drnn_counts, drnn_step = phase_dialoguernn(torch, tmp)
+        graphs = phase_graphs(torch, tmp)
 
+    emit({"graphs": {
+        "card": info["nvidia_smi"][0],
+        "steps": {name: {k: line[k] for k in (
+            "B", "L", "eager_host_ms", "graphed_host_ms", "eager_enqueue_ms",
+            "graphed_enqueue_ms", "eager_device_busy_ms", "replay_device_busy_ms",
+            "capture_seconds", "pool_bytes", "profiled_replay_calls", "replay_device_kernels")}
+            for name, line in graphs["steps"].items()},
+        "vs_eager": graphs["vs_eager"], "replay_inputs": graphs["replay_inputs"]["worst"],
+        "epoch_fused_trainers": {name: {k: run[k] for k in (
+            "seconds_profiled", "eager_first_batches", "replays", "wrapper_launches",
+            "profiled_calls", "graphs")} for name, run in graphs["cli"].items()},
+    }})
     kernels = []
     for name, step_rows in rows.step.items():
         total = lambda key, rs=step_rows: sum(n * r[key] for n, r in rs)  # noqa: E731
@@ -1036,6 +1492,10 @@ def main() -> None:
             "gan_step_launches": gan_step["launches_per_step"][name],
             "dialoguernn_launches": drnn_counts[name],
             "dialoguernn_step_launches": drnn_step["launches_per_step"][name],
+            # the epoch-fused trainers' runs, eager first batches and replays
+            # (the profiler's count)
+            "epoch_fused_launches": sum(run["profiled_calls"][name]
+                                        for run in graphs["cli"].values()),
             # the same sums at the DialogueRNN step's shapes (B=30, M=3360)
             "dialoguernn_step_kernel_ms": sum(n * r["ms"] for n, r in drnn),
             "dialoguernn_step_plain_ms": sum(n * r["plain_ms"] for n, r in drnn),
@@ -1057,6 +1517,8 @@ def main() -> None:
             fail(f"{entry['name']} was not launched in the stage-A step")
         if entry["dialoguernn_step_launches"] < 1:
             fail(f"{entry['name']} was not launched in the DialogueRNN train step")
+        if entry["epoch_fused_launches"] < 1:
+            fail(f"{entry['name']} was not launched in the epoch-fused trainers' runs")
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": info["name"], "count": info["count"]}})
 

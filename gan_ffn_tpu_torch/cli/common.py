@@ -1,9 +1,12 @@
 """Shared wiring of the training entry points (counterpart of
 ``gan_ffn_tpu/cli/common.py``): stage A's epoch loop and its run as both
-IEMOCAP trainers drive it, the class weights and the parameter count.
+IEMOCAP trainers drive it, the ``--epoch-fused`` AUTO policy, the class
+weights and the parameter count.
 
-The JAX package's epoch-fused branch (one program per epoch) is not ported:
-its GPU counterpart is CUDA-graph capture (ROADMAP module note 12).
+The JAX package's epoch-fused branch (one program per same-shape batch
+group) is here one CUDA graph per batch shape, replayed for every batch of
+that shape (``train/graphs.py``); on the CPU the same grouped epoch runs
+eagerly.
 """
 
 from __future__ import annotations
@@ -18,11 +21,13 @@ import torch
 from torch import nn
 
 from ..data import get_iemocap_loaders, write_synthetic_iemocap
-from ..data.loaders import Batch
+from ..data.loaders import Batch, BucketedLoader, _bucket_for
 from ..nn.core import set_dropout_generator
+from ..ops.dropout import StepSeeds
 from ..train.classifier import GENERATOR_GAN_KEYS, graft_generator_params
-from ..train.gan import LOGGED_LOSS_KEYS, GANConfig, GANState, init_gan_state, make_gan_train_step
-from ..train.loop import batch_to_tensors
+from ..train.gan import (LOGGED_LOSS_KEYS, GANConfig, GANState, init_gan_state,
+                         make_gan_epoch_step, make_gan_train_step)
+from ..train.loop import batch_to_tensors, fused_order
 from ..utils.artifacts import (LossHistory, append_loss_row, draw_gan_loss, load_gan_loss_csv,
                                save_gan_loss_csv)
 from ..utils.checkpoint import load_gan_state, save_gan_state
@@ -35,7 +40,6 @@ IEMOCAP_N_CLASSES = 6
 
 # a trainer's flag -> the ROADMAP item that brings it
 LATER_FLAGS = {
-    "epoch_fused": "module note 12 (epoch-fused stages)",
     "dp": "module note 13 (parallel and sweeps)",
     "scan_layers": "module note 15 (the scanned layer layout)",
     "bf16": "Queue 1 item 4 (bf16 kernels)",
@@ -54,6 +58,9 @@ def setup(parser: argparse.ArgumentParser, argv=None) -> Tuple[argparse.Namespac
     for flag, item in LATER_FLAGS.items():
         if getattr(args, flag, False):
             parser.error(f"--{flag.replace('_', '-')} is not ported yet (ROADMAP {item})")
+    if getattr(args, "epoch_fused", False) and getattr(args, "gan_schedule", None) == "stepwise":
+        parser.error("--epoch-fused runs the fused 12-duel step; it cannot honour "
+                     "--gan-schedule stepwise's fast-compile promise: drop one of the two flags")
     print(args)
     device = torch.device("cpu" if args.no_cuda else args.device)
     if device.type == "cuda":
@@ -87,7 +94,27 @@ def graft_generators(model: nn.Module, gan_state: GANState) -> None:
 
 def gan_batch_from(tensors: Mapping) -> Dict[str, object]:
     """The part of a ``train.loop.batch_to_tensors`` batch that stage A reads."""
-    return {k: tensors[k] for k in ("text", "visual", "audio", "valid_len", "n_real")}
+    keys = ("text", "visual", "audio", "valid_len", "n_real", "seed")
+    return {k: tensors[k] for k in keys if k in tensors}
+
+
+def resolve_epoch_fused_auto(loader: BucketedLoader) -> bool:
+    """AUTO policy for ``--epoch-fused`` (counterpart of
+    ``gan_ffn_tpu/cli/common.py::resolve_epoch_fused_auto``): fuse exactly
+    when every dialogue's length maps to one bucket, so that every batch of
+    every epoch has one shape and the fused epoch is the per-batch loop.
+    Where lengths span several buckets, grouping would reorder updates
+    across shapes, so AUTO keeps the per-batch loop.  A dialogue longer
+    than the largest bucket raises, as the loader does (the JAX policy
+    clamps it into the largest bucket instead)."""
+    buckets = {_bucket_for(loader.dataset[int(i)].length, loader.buckets)
+               for i in loader.indices}
+    fused = len(buckets) <= 1
+    print(f"--epoch-fused AUTO: dialogue lengths span bucket(s) {sorted(buckets)} -> "
+          + ("fused (one shape: the per-batch loop's results, one graph per shape)" if fused
+             else "per-batch (several shapes would reorder updates across shape groups; "
+                  "pass --epoch-fused to force fusion)"))
+    return fused
 
 
 def train_gan(
@@ -100,6 +127,8 @@ def train_gan(
     device="cuda",
     log: Callable[[str], None] = print,
     log_every_batch: bool = True,
+    epoch_fused: bool = False,
+    step: Optional[Callable] = None,
 ) -> Tuple[GANState, LossHistory]:
     """Adversarial pre-training (reference train_GAN, train_IEMOCAP.py:255-393):
     ``epochs`` epochs of the 12-duel step over ``train_loader``, numbered from
@@ -109,30 +138,47 @@ def train_gan(
     The kernels' dropout seeds come from a CPU generator seeded with
     ``cfg.seed + 1``, set on all six networks.  The losses stay on the
     device until the epoch ends and come back in one copy; one row per epoch,
-    the last batch's losses, is appended to ``history`` (the reference's CSV
-    cadence)."""
+    the last batch's losses in loader order, is appended to ``history`` (the
+    reference's CSV cadence).  ``step`` (built once for training in
+    segments) defaults to :func:`train.gan.make_gan_train_step`, or with
+    ``epoch_fused`` to :func:`train.gan.make_gan_epoch_step`.
+
+    ``epoch_fused`` (``--epoch-fused``) runs each epoch as the JAX package
+    does: batches grouped by shape, groups in order of first appearance,
+    each in loader order; every batch gets the seed base the per-batch loop
+    would have drawn for it (all drawn first, in loader order); the loss
+    rows are logged in loader order.  On a card each shape is one CUDA
+    graph, captured at its first batch and replayed for the others.  A
+    single-shape epoch is the per-batch loop; where an epoch spans several
+    shapes, updates reorder across the groups."""
     if state is None:
         state = init_gan_state(cfg, device)
     if history is None:
         history = []
-    dropout_seeds = torch.Generator().manual_seed(cfg.seed + 1)
-    for module in state.modules.values():
-        set_dropout_generator(module, dropout_seeds)
-    step = make_gan_train_step(state.modules, state.opts)
+    if step is None:
+        seeds = StepSeeds(torch.Generator().manual_seed(cfg.seed + 1))
+        for module in state.modules.values():
+            set_dropout_generator(module, seeds)
+        make = make_gan_epoch_step if epoch_fused else make_gan_train_step
+        step = make(state.modules, state.opts)
 
     log("=" * 15 + " start training GAN " + "=" * 15)
     for epoch in range(start_epoch, start_epoch + epochs):
         t0 = time.time()
-        utterances = 0
-        epoch_losses = []
-        for batch in train_loader:
-            losses = step(gan_batch_from(batch_to_tensors(batch, device)))
-            utterances += batch.n_utterances
-            epoch_losses.append(torch.stack([losses[k] for k in LOGGED_LOSS_KEYS]))
-        if not epoch_losses:
+        batches = list(train_loader)
+        if not batches:
             continue
-        fetched = torch.stack(epoch_losses).cpu().tolist()  # one copy for the epoch
+        rows: list = [None] * len(batches)
+        if epoch_fused:
+            order, bases = fused_order(batches, step.seeds)
+        else:
+            order, bases = range(len(batches)), [None] * len(batches)
+        for i in order:
+            losses = step(gan_batch_from(batch_to_tensors(batches[i], device, seed=bases[i])))
+            rows[i] = torch.stack([losses[k] for k in LOGGED_LOSS_KEYS])
+        fetched = torch.stack(rows).cpu().tolist()  # one copy for the epoch
         dt = time.time() - t0
+        utterances = sum(b.n_utterances for b in batches)
         if log_every_batch:
             for row in fetched:
                 vals = " ".join(f"{k}={v:.4f}" for k, v in zip(LOGGED_LOSS_KEYS, row))
@@ -153,8 +199,9 @@ def stage_a(args, device, load: bool, continue_epochs: int) -> GANState:
     train them ``continue_epochs`` more, numbered on from the loss CSV's
     last.  Whatever was trained is saved with its loss history
     (``{output_dir}/GAN_loss.{csv,png}``); loaded networks that train no
-    more are returned as they are.  torch's RNG is seeded with
-    ``args.seed + 1`` for stage A's dropouts outside the kernels."""
+    more are returned as they are.  ``args.epoch_fused`` runs the epochs
+    fused (:func:`train_gan`).  torch's RNG is seeded with ``args.seed + 1``
+    for stage A's dropouts outside the kernels."""
     gan_cfg = GANConfig(num_layers=args.num_layers, seed=args.seed)  # lr 1e-4, betas (0.5, 0.6)
     gan_train_loader, _, _ = get_iemocap_loaders(
         args.data_path, batch_size=32, valid=0.1, seed=args.seed,
@@ -173,10 +220,11 @@ def stage_a(args, device, load: bool, continue_epochs: int) -> GANState:
         gan_state, history = train_gan(
             gan_cfg, gan_train_loader, continue_epochs, state=gan_state,
             history=history, start_epoch=(history[-1]["epoch"] + 1) if history else 0,
-            device=device,
+            device=device, epoch_fused=args.epoch_fused,
         )
     else:
-        gan_state, history = train_gan(gan_cfg, gan_train_loader, args.GAN_epochs, device=device)
+        gan_state, history = train_gan(gan_cfg, gan_train_loader, args.GAN_epochs, device=device,
+                                       epoch_fused=args.epoch_fused)
     save_gan_loss_csv(history, loss_csv)
     draw_gan_loss(history, os.path.join(args.output_dir, "GAN_loss.png"))
     save_gan_state(args.model_save_path, gan_state)

@@ -108,6 +108,8 @@ def main(argv=None) -> None:
         dout = torch.randn(ROWS, N, device="cuda", generator=gen)
         for rate in (0.0, SITE_RATE[site]):
             cfg, seed = site_cfg(site, rate), 2000 + K + N
+            if hasattr(M, "device_seed"):  # the seed in device memory, as the kernels read it
+                seed = M.device_seed(seed, x.device)
             for kernel in ("fwd", "bwd"):
                 if kernel == "fwd":
                     fn = lambda: M.fused_mlp(  # noqa: E731

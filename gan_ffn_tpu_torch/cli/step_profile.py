@@ -15,7 +15,11 @@ the end of a synchronize), the device's busy ms per step (the union of its
 kernels' intervals) and idle share, the port's four kernels' ms per step and
 share of the busy time, and device ms per step by kernel, largest first
 (the port's kernels under their library's name, cuBLAS's and PyTorch's
-under their own).  The first line names the card and its power limit.
+under their own).  Then the same three steps graphed, as ``--epoch-fused``
+runs them (``train/graphs.py``): the first call runs eagerly and captures
+the step's CUDA graph, and the profiled calls replay it; their lines add
+the capture seconds and the graph pool's bytes.  The first line names the
+card and its power limit.
 
 Like ``cli/mlp_profile.py``, it imports the ``gan_ffn_tpu_torch`` first
 on ``sys.path``, so it can time another checkout (see there).
@@ -34,10 +38,12 @@ import numpy as np
 import torch
 
 B, L = 32, 112
-DIALOGUERNN_B = 30
+STEPS = {"stage_b": B, "dialoguernn": 30, "stage_a": B}  # each step's batch size
 
 
 def _batch(rng: np.random.Generator, B: int = B) -> dict:
+    """A random batch on the card as ``train.loop.batch_to_tensors`` gives
+    it: dialogues of 97-110 utterances at L = 112, two speakers."""
     lengths = rng.integers(97, 111, B)
     umask = (np.arange(L)[None, :] < lengths[:, None]).astype(np.float32)
     host = {
@@ -49,8 +55,63 @@ def _batch(rng: np.random.Generator, B: int = B) -> dict:
     speakers = np.eye(2, dtype=np.float32)[rng.integers(0, 2, (L, B))]
     host["qmask"] = speakers * umask.T[:, :, None]
     batch = {k: torch.from_numpy(v).cuda() for k, v in host.items()}
-    batch["valid_len"], batch["n_real"] = int(lengths.max()), B
+    batch["host_valid_len"], batch["host_n_real"] = int(lengths.max()), B
+    batch["valid_len"] = torch.tensor(int(lengths.max()), dtype=torch.int32).cuda()
+    batch["n_real"] = torch.tensor(B, dtype=torch.int32).cuda()
     return batch
+
+
+def step_batch(name: str, rng: np.random.Generator) -> dict:
+    """A batch of :func:`_batch` for step ``name`` (stage A's part of it)."""
+    from gan_ffn_tpu_torch.cli.common import gan_batch_from
+
+    batch = _batch(rng, STEPS[name])
+    return gan_batch_from(batch) if name == "stage_a" else batch
+
+
+def build_step(name: str, graphed: bool, deterministic: bool = False, capturable: bool = False,
+               eps: float = 1e-8):
+    """``(step, named parameters, optimizers)`` of a full-width step from
+    fixed weights: ``stage_b`` (``GAN_FFN``), ``dialoguernn``
+    (``GAN_FFN_DialogueRNN``) or ``stage_a`` (the 12 duels), per batch or
+    ``graphed`` (the epoch-fused step, whose Adams are capturable).
+    ``capturable`` gives a per-batch step the capturable Adams too, so that
+    it differs from the graphed step by the graph alone; ``eps`` is Adam's."""
+    from gan_ffn_tpu_torch.cli.common import IEMOCAP_LOSS_WEIGHTS, IEMOCAP_N_CLASSES
+    from gan_ffn_tpu_torch.models import GAN_FFN, GAN_FFN_DialogueRNN
+    from gan_ffn_tpu_torch.nn.core import set_dropout_generator
+    from gan_ffn_tpu_torch.ops.dropout import StepSeeds
+    from gan_ffn_tpu_torch.train.classifier import make_classifier_epoch_steps, make_classifier_steps
+    from gan_ffn_tpu_torch.train.gan import (GANConfig, init_gan_state, make_gan_epoch_step,
+                                             make_gan_train_step)
+    from gan_ffn_tpu_torch.train.optim import make_capturable, torch_adam
+
+    if name == "stage_a":
+        state = init_gan_state(GANConfig(num_layers=8, seed=3), device="cuda")
+        seeds = StepSeeds(torch.Generator().manual_seed(4))
+        for module in state.modules.values():
+            set_dropout_generator(module, seeds)
+        opts = list(state.opts.values())
+        for opt in opts:
+            for group in opt.param_groups:
+                group["eps"] = eps
+        make = make_gan_epoch_step if graphed else make_gan_train_step
+        step = make(state.modules, state.opts, deterministic=deterministic)
+        params = {f"{n}.{k}": p for n, m in state.modules.items() for k, p in m.named_parameters()}
+    else:
+        cls, l2 = {"stage_b": (GAN_FFN, 0.008), "dialoguernn": (GAN_FFN_DialogueRNN, 1e-5)}[name]
+        model = cls(n_classes=IEMOCAP_N_CLASSES, gen_num_layers=8,
+                    generator=torch.Generator().manual_seed(1), device="cuda")
+        set_dropout_generator(model, torch.Generator().manual_seed(2))
+        opts = [torch_adam(model.parameters(), 1e-4, eps=eps, weight_decay=l2)]
+        make = make_classifier_epoch_steps if graphed else make_classifier_steps
+        step = make(model, opts[0], IEMOCAP_N_CLASSES,
+                    torch.from_numpy(IEMOCAP_LOSS_WEIGHTS).cuda(), deterministic=deterministic)[0]
+        params = dict(model.named_parameters())
+    if capturable:
+        for opt in opts:
+            make_capturable(opt)
+    return step, params, opts
 
 
 def _busy_us(intervals) -> float:
@@ -124,53 +185,23 @@ def main(argv=None) -> None:
     if not torch.cuda.is_available():
         sys.exit("step_profile: no CUDA card")
 
-    from gan_ffn_tpu_torch.cli.common import gan_batch_from
-    from gan_ffn_tpu_torch.cli.common import IEMOCAP_LOSS_WEIGHTS, IEMOCAP_N_CLASSES as N_CLASSES
-    from gan_ffn_tpu_torch.models import GAN_FFN, GAN_FFN_DialogueRNN
-    from gan_ffn_tpu_torch.nn.core import set_dropout_generator
-    from gan_ffn_tpu_torch.train.classifier import make_classifier_steps
-    from gan_ffn_tpu_torch.train.gan import GANConfig, init_gan_state, make_gan_train_step
-    from gan_ffn_tpu_torch.train.optim import torch_adam
-
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip()
     print(json.dumps({"label": args.label, "card": smi}), flush=True)
-    batch = _batch(np.random.default_rng(0))
-    head = {"label": args.label, "B": B, "L": L, "valid_len": batch["valid_len"]}
-
-    model = GAN_FFN(n_classes=N_CLASSES, gen_num_layers=8,
-                    generator=torch.Generator().manual_seed(1), device="cuda")
-    set_dropout_generator(model, torch.Generator().manual_seed(2))
-    opt = torch_adam(model.parameters(), 1e-4, weight_decay=0.008)
-    train_step, _ = make_classifier_steps(model, opt, N_CLASSES,
-                                          torch.from_numpy(IEMOCAP_LOSS_WEIGHTS).cuda())
-    print(json.dumps({**head, "step": "stage_b", **_profile(lambda: train_step(batch), args.steps)}),
-          flush=True)
-    del model, opt, train_step
-
-    d_batch = _batch(np.random.default_rng(0), DIALOGUERNN_B)
-    model = GAN_FFN_DialogueRNN(n_classes=N_CLASSES, gen_num_layers=8,
-                                generator=torch.Generator().manual_seed(1), device="cuda")
-    set_dropout_generator(model, torch.Generator().manual_seed(2))
-    opt = torch_adam(model.parameters(), 1e-4, weight_decay=1e-5)
-    train_step, _ = make_classifier_steps(model, opt, N_CLASSES,
-                                          torch.from_numpy(IEMOCAP_LOSS_WEIGHTS).cuda())
-    print(json.dumps({**head, "B": DIALOGUERNN_B, "valid_len": d_batch["valid_len"],
-                      "step": "dialoguernn",
-                      **_profile(lambda: train_step(d_batch), args.steps)}), flush=True)
-    del model, opt, train_step
-
-    state = init_gan_state(GANConfig(num_layers=8, seed=3), device="cuda")
-    dropout_seeds = torch.Generator().manual_seed(4)
-    for module in state.modules.values():
-        set_dropout_generator(module, dropout_seeds)
-    gan_step = make_gan_train_step(state.modules, state.opts)
-    gan_batch = gan_batch_from(batch)
-    print(json.dumps({**head, "step": "stage_a", **_profile(lambda: gan_step(gan_batch),
-                                                             args.steps)}), flush=True)
-
+    for graphed in (False, True):
+        for name in STEPS:
+            batch = step_batch(name, np.random.default_rng(0))
+            step = build_step(name, graphed)[0]
+            line = {"label": args.label, "B": STEPS[name], "L": L,
+                    "valid_len": int(batch["valid_len"].item()), "step": name,
+                    "graphed": graphed, **_profile(lambda: step(batch), args.steps)}
+            if graphed:
+                line["graphs"] = step.graphs.stats()
+            print(json.dumps(line), flush=True)
+            del step
+            torch.cuda.empty_cache()
 
 if __name__ == "__main__":
     main()

@@ -22,8 +22,11 @@ Pipeline, as the reference's:
 The msgpack checkpoints of the JAX package are not read or written here
 (ROADMAP module note 8).  The flags of the JAX trainer are accepted by name;
 those that need a later slice are refused with the ROADMAP item that brings
-them.  ``--gan-schedule`` is accepted, and both values run the same eager
-loop.  ``--device`` (default ``cuda``) picks the device; ``--no-cuda`` is the
+them.  ``--gan-schedule`` is accepted, and both values run the same step
+(``stepwise`` is refused with ``--epoch-fused``, as the JAX trainer refuses
+it).  ``--epoch-fused`` runs both stages' epochs fused: batches grouped by
+shape, one CUDA graph per shape on a card (eager on the CPU), as
+``cli/common.train_gan`` and ``train/loop.run_epoch_fused`` say.  ``--device`` (default ``cuda``) picks the device; ``--no-cuda`` is the
 reference's way to ask for the CPU.
 
 Seeds: ``--seed`` draws the weights of both stages (CPU ``torch.Generator``s)
@@ -50,8 +53,8 @@ from ..evaluation.metrics import f1_score
 from ..evaluation.reports import format_test_report, write_test_report
 from ..models import GAN_FFN
 from ..nn.core import set_dropout_generator
-from ..train.classifier import make_classifier_steps
-from ..train.loop import run_epoch
+from ..train.classifier import make_classifier_epoch_steps, make_classifier_steps
+from ..train.loop import run_epoch, run_epoch_fused
 from ..train.optim import torch_adam
 from .common import (IEMOCAP_LOSS_WEIGHTS, IEMOCAP_N_CLASSES, graft_generators, param_count,
                      setup, stage_a)
@@ -89,7 +92,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--scan-layers", action="store_true", default=False, help="refused for now")
     p.add_argument("--gan-schedule", choices=("fused", "stepwise"), default="fused",
                    help="compat: both run stage A's one eager loop")
-    p.add_argument("--epoch-fused", action="store_true", default=False, help="refused for now")
+    p.add_argument("--epoch-fused", action="store_true", default=False,
+                   help="run both stages' epochs fused: batches grouped by shape, one CUDA "
+                        "graph per shape replayed for its batches (eager on the CPU); each "
+                        "batch keeps the per-batch loop's dropout draws, and where an epoch "
+                        "spans several shapes, updates reorder across the groups")
     p.add_argument("--dp", action="store_true", default=False, help="refused for now")
     p.add_argument("--lr-schedule", choices=("reference", "decay"), default="reference",
                    help="reference: constant lr (the reference's LambdaLR re-creation "
@@ -125,7 +132,9 @@ def main(argv=None) -> dict:
 
     loss_weights = torch.from_numpy(IEMOCAP_LOSS_WEIGHTS).to(device) if args.class_weight else None
     optimizer = torch_adam(model.parameters(), args.lr, weight_decay=args.l2)
-    train_step, eval_step = make_classifier_steps(model, optimizer, IEMOCAP_N_CLASSES, loss_weights)
+    make_steps = make_classifier_epoch_steps if args.epoch_fused else make_classifier_steps
+    train_step, eval_step = make_steps(model, optimizer, IEMOCAP_N_CLASSES, loss_weights)
+    run = run_epoch_fused if args.epoch_fused else run_epoch
 
     print("=" * 15, "data loaded", "=" * 15)
     best = None  # (loss, labels, preds, masks)
@@ -133,9 +142,9 @@ def main(argv=None) -> dict:
     for e in range(args.epochs):
         start_time = time.time()
         lr_scale = float(0.98**e) if args.lr_schedule == "decay" else None
-        train_res = run_epoch(train_loader, train_step, device, lr_scale=lr_scale)
-        valid_res = run_epoch(valid_loader, eval_step, device)
-        test_res = run_epoch(test_loader, eval_step, device)
+        train_res = run(train_loader, train_step, device, lr_scale=lr_scale)
+        valid_res = run(valid_loader, eval_step, device)
+        test_res = run(test_loader, eval_step, device)
         if best is None or best[0] > test_res.avg_loss:
             best = (test_res.avg_loss, test_res.labels, test_res.preds, test_res.masks)
             best_state = copy.deepcopy(model.state_dict())

@@ -22,8 +22,9 @@ Pipeline, as the reference's:
 Reference defaults that differ from the flagship trainer: batch 30, 100
 epochs, ``--l2 1e-5``, ``--rec-dropout 0.1``, ``--dropout 0.6``,
 ``--attention general`` (the context attention), ``--active-listener``
-off.  ``--epoch-fused``, ``--dp``, ``--bf16``, ``--scan-layers`` and
-``--tensorboard`` are refused with the ROADMAP item that brings them.
+off.  ``--dp``, ``--bf16``, ``--scan-layers`` and ``--tensorboard`` are
+refused with the ROADMAP item that brings them.  ``--epoch-fused`` runs
+both stages' epochs fused, as the flagship trainer's does.
 ``--device`` (default ``cuda``) picks the device; ``--no-cuda`` asks for
 the CPU.
 
@@ -53,8 +54,8 @@ from ..data import get_iemocap_loaders
 from ..evaluation.metrics import classification_report, confusion_matrix, f1_score
 from ..models import GAN_FFN_DialogueRNN
 from ..nn.core import set_dropout_generator
-from ..train.classifier import make_classifier_steps
-from ..train.loop import run_epoch
+from ..train.classifier import make_classifier_epoch_steps, make_classifier_steps
+from ..train.loop import run_epoch, run_epoch_fused
 from ..train.optim import torch_adam
 from .common import (IEMOCAP_LOSS_WEIGHTS, IEMOCAP_N_CLASSES, graft_generators, param_count,
                      setup, stage_a)
@@ -92,7 +93,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--model-save-path", default="./GAN_save/")
     p.add_argument("--num-layers", type=int, default=8, help="transformer encoder depth")
     p.add_argument("--scan-layers", action="store_true", default=False, help="refused for now")
-    p.add_argument("--epoch-fused", action="store_true", default=False, help="refused for now")
+    p.add_argument("--epoch-fused", action="store_true", default=False,
+                   help="run both stages' epochs fused: batches grouped by shape, one CUDA "
+                        "graph per shape replayed for its batches (eager on the CPU); each "
+                        "batch keeps the per-batch loop's dropout draws, and where an epoch "
+                        "spans several shapes, updates reorder across the groups")
     p.add_argument("--lr-schedule", choices=("reference", "decay"), default="reference",
                    help="reference: constant lr (the reference's LambdaLR re-creation "
                         "quirk); decay: 0.98^epoch")
@@ -131,16 +136,18 @@ def main(argv=None) -> dict:
 
     loss_weights = torch.from_numpy(IEMOCAP_LOSS_WEIGHTS).to(device) if args.class_weight else None
     optimizer = torch_adam(model.parameters(), args.lr, weight_decay=args.l2)
-    train_step, eval_step = make_classifier_steps(model, optimizer, IEMOCAP_N_CLASSES, loss_weights)
+    make_steps = make_classifier_epoch_steps if args.epoch_fused else make_classifier_steps
+    train_step, eval_step = make_steps(model, optimizer, IEMOCAP_N_CLASSES, loss_weights)
+    run = run_epoch_fused if args.epoch_fused else run_epoch
 
     best = None  # (loss, labels, preds, masks, attentions)
     best_state = None
     for e in range(args.epochs):
         start_time = time.time()
         lr_scale = float(0.98**e) if args.lr_schedule == "decay" else None
-        train_res = run_epoch(train_loader, train_step, device, lr_scale=lr_scale)
-        valid_res = run_epoch(valid_loader, eval_step, device)
-        test_res = run_epoch(test_loader, eval_step, device)
+        train_res = run(train_loader, train_step, device, lr_scale=lr_scale)
+        valid_res = run(valid_loader, eval_step, device)
+        test_res = run(test_loader, eval_step, device)
         if best is None or best[0] > test_res.avg_loss:
             best = (test_res.avg_loss, test_res.labels, test_res.preds, test_res.masks,
                     test_res.attentions)

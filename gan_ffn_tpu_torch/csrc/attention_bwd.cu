@@ -96,7 +96,8 @@ __global__ void __launch_bounds__(kMaxLen / 16 * 32 * kParts, 1)
 attention_bwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, const float* __restrict__ dout,
                      float* __restrict__ dq, float* __restrict__ dk, float* __restrict__ dv,
-                     int L, int Dh, int valid_len, float scale, int vec, philox::Dropout drop) {
+                     int L, int Dh, const int* __restrict__ valid_len_at, float scale, int vec,
+                     philox::DropoutArg drop_at) {
   constexpr int ld = Dp + 4;
   constexpr int kDt = Dp / 8;
   constexpr int kPartTiles = (kMaxLen / 8 + kParts - 1) / kParts;  // key or query tiles of a warp
@@ -124,6 +125,7 @@ attention_bwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int warp = threadIdx.x >> 5, part = warp % kParts;
   const int r0 = (warp / kParts) * 16;  // the group's first row: query (pass 1), key (pass 2)
   const int ra = r0 + g, rb = ra + 8;
+  const int valid_len = __ldg(valid_len_at);
   const bool uniform = valid_len <= 0;
   const int keys = uniform ? L : min(valid_len, L);
   const unsigned long long bh = blockIdx.x;
@@ -133,6 +135,7 @@ attention_bwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   // tile loops carry no per-tile branch, so the compiler can overlap one
   // tile's loads and splits with another's mma.
   const auto tile_row = [Lp](int n) { return min(8 * n, Lp - 8); };
+  const philox::Dropout drop = kDrop ? philox::resolve(drop_at) : philox::Dropout{0ull, 0u, 1.f};
 
   // ---- pass 1: query rows ra, rb; this part's key tiles ----
   {
@@ -398,7 +401,7 @@ attention_bwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 using KernelFn = void (*)(const float*, const float*, const float*, const float*, float*,
-                          float*, float*, int, int, int, float, int, philox::Dropout);
+                          float*, float*, int, int, const int*, float, int, philox::DropoutArg);
 
 // [dropout][width_index]
 const KernelFn kKernels[2][3] = {
@@ -423,20 +426,24 @@ int gan_attention_bwd_smem_bytes(int L, int Dh) {
 }
 
 // q, k, v, dout, dq, dk, dv: (B, H, L, Dh) f32, contiguous, on the current
-// device.  dropout != 0: the forward applied the mask of (seed, threshold,
-// drop_scale).  Launches on `stream`; returns cudaGetLastError().
+// device; valid_len: one int on the device.  dropout != 0: the forward
+// applied the mask of the seed (seed_base, seed_index) refers to,
+// threshold and drop_scale (see gan_attention_fwd).  Launches on `stream`;
+// returns cudaGetLastError().
 int gan_attention_bwd(const float* q, const float* k, const float* v, const float* dout,
                       float* dq, float* dk, float* dv, int B, int H, int L, int Dh,
-                      int valid_len, float scale, int dropout, unsigned long long seed,
+                      const int* valid_len, float scale, int dropout,
+                      const unsigned long long* seed_base, int seed_index,
                       unsigned int threshold, float drop_scale, cudaStream_t stream) {
   const int smem = gan_attention_bwd_smem_bytes(L, Dh);
-  if (smem == 0 || B < 1 || H < 1) return (int)cudaErrorInvalidValue;
+  if (smem == 0 || B < 1 || H < 1 || valid_len == nullptr || (dropout && seed_base == nullptr))
+    return (int)cudaErrorInvalidValue;
   const KernelFn kernel = kKernels[dropout != 0][width_index(Dh)];
   const cudaError_t e = tf32::configure(kernel, smem);
   if (e != cudaSuccess) return (int)e;
   const void* const ptrs[] = {q, k, v, dout, dq, dk, dv};
   const int vec = tf32::stage_width(Dh, ptrs, 7);
-  const philox::Dropout drop{seed, threshold, drop_scale};
+  const philox::DropoutArg drop{{seed_base, seed_index}, threshold, drop_scale};
   kernel<<<B * H, round_up(L, 16) / 16 * 32 * kParts, smem, stream>>>(q, k, v, dout, dq, dk, dv, L, Dh,
                                                         valid_len, scale, vec, drop);
   return (int)cudaGetLastError();

@@ -13,7 +13,9 @@
 // philox.cuh's stream kAttention at flat index ((b * H + h) * L + i) * L + j
 // (ops/dropout.py is its plain twin; attention_bwd.cu draws the same mask).
 // The TPU kernel seeds its core PRNG with seed + program_id instead; that
-// stream exists only on the TPU.
+// stream exists only on the TPU.  valid_len and the seed are read from
+// device memory by every block (one int; philox.cuh SeedRef), never passed
+// by value, so one captured CUDA graph serves every batch of a shape.
 //
 // What bounds it on the H100: at the path's shapes (B = 32, L = 112,
 // (H, Dh) in {(10, 10), (8, 64)}) one launch moves 1.8-7.3 MB and does
@@ -66,7 +68,8 @@ template <int Dp, bool kDrop>
 __global__ void __launch_bounds__(kMaxLen * 2, 2)
 attention_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, float* __restrict__ out, int L, int Dh,
-                     int valid_len, float scale, int vec, philox::Dropout drop) {
+                     const int* __restrict__ valid_len_at, float scale, int vec,
+                     philox::DropoutArg drop_at) {
   constexpr int ld = Dp + 4;
   constexpr int kDt = Dp / 8;  // n tiles of O, k steps of S
   constexpr int kHalf = kMaxTiles / 2;
@@ -87,6 +90,7 @@ attention_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int r0 = (threadIdx.x >> 5) * 16;  // the warp's first query row
+  const int valid_len = __ldg(valid_len_at);
   const bool uniform = valid_len <= 0;
   const int keys = uniform ? L : min(valid_len, L);
   const int nkt = (keys + 7) / 8;  // key tiles that carry weight
@@ -99,6 +103,7 @@ attention_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const unsigned long long row_g = ((unsigned long long)blockIdx.x * L + r0 + g) * L;
   const unsigned long long row_g8 = row_g + 8ull * L;
   const bool aligned = (L & 3) == 0;
+  const philox::Dropout drop = kDrop ? philox::resolve(drop_at) : philox::Dropout{0ull, 0u, 1.f};
 
   // The row in two halves of 8 key tiles (64 keys), the second rescaling
   // what the first summed: 32 score registers a thread instead of 64.
@@ -215,8 +220,8 @@ attention_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   GAN_PROBE(8);
 }
 
-using KernelFn = void (*)(const float*, const float*, const float*, float*, int, int, int, float,
-                          int, philox::Dropout);
+using KernelFn = void (*)(const float*, const float*, const float*, float*, int, int, const int*,
+                          float, int, philox::DropoutArg);
 
 // [dropout][width_index]
 const KernelFn kKernels[2][3] = {
@@ -236,22 +241,26 @@ int gan_attention_fwd_smem_bytes(int L, int Dh) {
   return 3 * round_up(L, 16) * (kWidths[width_index(Dh)] + 4) * (int)sizeof(float);
 }
 
-// q, k, v, out: (B, H, L, Dh) f32, contiguous, on the current device.
-// dropout != 0 applies the attention-weight mask of (seed, threshold,
-// drop_scale) (philox.cuh).  Launches on `stream`; returns
-// cudaGetLastError() after the launch.
+// q, k, v, out: (B, H, L, Dh) f32, contiguous, on the current device;
+// valid_len: one int on the device, read by every block.  dropout != 0
+// applies the attention-weight mask of the seed that (seed_base,
+// seed_index) refers to (philox.cuh SeedRef), threshold and drop_scale.
+// Nothing is read from the device on the host, so a graph that records the
+// launch replays it with whatever valid_len and seed base hold then.
+// Launches on `stream`; returns cudaGetLastError() after the launch.
 int gan_attention_fwd(const float* q, const float* k, const float* v, float* out,
-                      int B, int H, int L, int Dh, int valid_len, float scale,
-                      int dropout, unsigned long long seed, unsigned int threshold,
-                      float drop_scale, cudaStream_t stream) {
+                      int B, int H, int L, int Dh, const int* valid_len, float scale,
+                      int dropout, const unsigned long long* seed_base, int seed_index,
+                      unsigned int threshold, float drop_scale, cudaStream_t stream) {
   const int smem = gan_attention_fwd_smem_bytes(L, Dh);
-  if (smem == 0 || B < 1 || H < 1) return (int)cudaErrorInvalidValue;
+  if (smem == 0 || B < 1 || H < 1 || valid_len == nullptr || (dropout && seed_base == nullptr))
+    return (int)cudaErrorInvalidValue;
   const KernelFn kernel = kKernels[dropout != 0][width_index(Dh)];
   const cudaError_t e = tf32::configure(kernel, smem);
   if (e != cudaSuccess) return (int)e;
   const void* const ptrs[] = {q, k, v, out};
   const int vec = tf32::stage_width(Dh, ptrs, 4);
-  const philox::Dropout drop{seed, threshold, drop_scale};
+  const philox::DropoutArg drop{{seed_base, seed_index}, threshold, drop_scale};
   kernel<<<B * H, 2 * round_up(L, 16), smem, stream>>>(q, k, v, out, L, Dh, valid_len, scale,
                                                         vec, drop);
   return (int)cudaGetLastError();

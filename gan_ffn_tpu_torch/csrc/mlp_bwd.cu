@@ -98,18 +98,19 @@ __device__ __forceinline__ void epi_in(int r, int c, int kM, int kN, bool vec4, 
 // The epilogue of outputs (r, c .. c + 3) of a kM x kN output (c a multiple
 // of 4), where they exist: products v, the bias of those columns (z1, z2)
 // and `in` from epi_in; vec4: 16-byte accesses (kN % 4 == 0, pointers
-// aligned), and then one Philox call draws the four mask values.
+// aligned), and then one Philox call draws the four mask values from `seed`.
 template <int kEpi>
 __device__ __forceinline__ void epilogue4(int r, int c, const float (&v)[4], const float (&bias)[4],
                                           const float (&in)[4], int kM, int kN, bool vec4,
-                                          const Chain& chain, const EpiArgs& e) {
+                                          const Chain& chain, unsigned long long seed,
+                                          const EpiArgs& e) {
   if (r >= kM || c >= kN) return;
   const size_t o = (size_t)r * kN + c;
   const int n = min(4, kN - c);
   float ks[4] = {1.f, 1.f, 1.f, 1.f}, out0[4], out1[4];
-  if (kEpi == kEpiZ1 && chain.on[1]) philox::keep_scale4(chain.site[1], philox::kMid, o, ks);
-  if (kEpi == kEpiZ2 && chain.on[2]) philox::keep_scale4(chain.site[2], philox::kPost, o, ks);
-  if (kEpi == kEpiDx && chain.on[0]) philox::keep_scale4(chain.site[0], philox::kPre, o, ks);
+  if (kEpi == kEpiZ1 && chain.on[1]) philox::keep_scale4(site(chain, 1, seed), philox::kMid, o, ks);
+  if (kEpi == kEpiZ2 && chain.on[2]) philox::keep_scale4(site(chain, 2, seed), philox::kPost, o, ks);
+  if (kEpi == kEpiDx && chain.on[0]) philox::keep_scale4(site(chain, 0, seed), philox::kPre, o, ks);
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
     if (kEpi == kEpiZ1) {  // kN = H
@@ -178,6 +179,9 @@ gemm_kernel(const float* __restrict__ A, int lda, int vec_a, const float* __rest
     }
     return;
   }
+  // the masks' seed, read after the product: it holds no register in the main loop
+  const unsigned long long seed =
+      kEpi == kEpiZ1 || kEpi == kEpiZ2 || kEpi == kEpiDx ? call_seed(chain) : 0ull;
   float bias[4] = {};
   if ((kEpi == kEpiZ1 || kEpi == kEpiZ2) && c < kN) load4(e.bias, c, n, false, bias);
   if constexpr (kEpi == kEpiDz1 || kEpi == kEpiGrad) {  // short bodies: every load first
@@ -189,14 +193,15 @@ gemm_kernel(const float* __restrict__ A, int lda, int vec_a, const float* __rest
     }
 #pragma unroll
     for (int i = 0; i < kGroups; ++i)
-      epilogue4<kEpi>(m0 + rt + kRowsPer * i, c, v[i], bias, in[i], kM, kN, vec4, chain, e);
+      epilogue4<kEpi>(m0 + rt + kRowsPer * i, c, v[i], bias, in[i], kM, kN, vec4, chain, seed,
+                      e);
   } else {  // Philox and the activations make a long body: one copy of it
 #pragma unroll 1
     for (int i = 0; i < kGroups; ++i) {
       float v[4], in[4] = {};
       staged(i, v);
       epi_in<kEpi>(m0 + rt + kRowsPer * i, c, kM, kN, vec4, chain, e, in);
-      epilogue4<kEpi>(m0 + rt + kRowsPer * i, c, v, bias, in, kM, kN, vec4, chain, e);
+      epilogue4<kEpi>(m0 + rt + kRowsPer * i, c, v, bias, in, kM, kN, vec4, chain, seed, e);
     }
   }
 }
@@ -221,7 +226,7 @@ reduce_kernel(const float* __restrict__ part, int S, int kM, int kN, int vec4, C
     for (int j = 0; j < 4; ++j) v[j] += p[j];
   }
   const float bias[4] = {};
-  epilogue4<kEpi>(r, c, v, bias, in, kM, kN, vec4, chain, e);
+  epilogue4<kEpi>(r, c, v, bias, in, kM, kN, vec4, chain, call_seed(chain), e);
 }
 
 struct Split {
@@ -298,15 +303,16 @@ long long gan_mlp_bwd_workspace_floats(int M, int K, int H, int N) {
 // post), ws (gan_mlp_bwd_workspace_floats).  All f32, contiguous, on the
 // current device.  pre / mid / post: 0 none, 1 relu, 2 gelu; mid_act_first:
 // the mid order; thresholds[s], scales[s], drop_on[s]: the dropout of site s
-// (pre, mid, post) from `seed`, as gan_mlp_fwd took them.  Launches on
-// `stream`; returns the first cudaGetLastError() that is not cudaSuccess,
-// else cudaSuccess.
+// (pre, mid, post) from the seed (seed_base, seed_index) refers to, as
+// gan_mlp_fwd took them.  Launches on `stream`; returns the first
+// cudaGetLastError() that is not cudaSuccess, else cudaSuccess.
 int gan_mlp_bwd(const float* x, const float* w1, const float* b1, const float* w2,
                 const float* b2, const float* dout, float* dx, float* dw1, float* db1,
                 float* dw2, float* db2, float* t1, float* a1, float* d1, float* g, float* ws,
                 int M, int K, int H, int N, int pre, int mid, int post, int mid_act_first,
-                unsigned long long seed, const unsigned int* thresholds, const float* scales,
-                const int* drop_on, cudaStream_t stream) {
+                const unsigned long long* seed_base, int seed_index,
+                const unsigned int* thresholds, const float* scales, const int* drop_on,
+                cudaStream_t stream) {
   if (M < 1 || K < 1 || H < 1 || N < 1) return (int)cudaErrorInvalidValue;
   // int flat indices, and the grid's y extent (row tiles of M, K + 1, H + 1)
   if ((long long)M * (K > H ? (K > N ? K : N) : (H > N ? H : N)) >= (1ll << 31) ||
@@ -314,15 +320,10 @@ int gan_mlp_bwd(const float* x, const float* w1, const float* b1, const float* w
     return (int)cudaErrorInvalidValue;
   if ((long long)(M > H ? (M > K ? M : K) : (H > K ? H : K)) + 1 > 65535ll * kBM)
     return (int)cudaErrorInvalidValue;
-  Chain chain;
-  chain.pre = pre;
-  chain.mid = mid;
-  chain.post = post;
-  chain.mid_act_first = mid_act_first;
-  for (int s = 0; s < 3; ++s) {
-    chain.site[s] = philox::Dropout{seed, thresholds[s], scales[s]};
-    chain.on[s] = drop_on[s] != 0;
-  }
+  if ((drop_on[0] || drop_on[1] || drop_on[2]) && seed_base == nullptr)
+    return (int)cudaErrorInvalidValue;
+  const Chain chain = make_chain(pre, mid, post, mid_act_first, seed_base, seed_index,
+                                 thresholds, scales, drop_on);
   cudaError_t err;
 #define GAN_MLP_BWD_STEP(call)           \
   err = (call);                          \

@@ -72,14 +72,15 @@ constexpr int smem_bytes(int chunk) {
 }
 
 // out[r, c .. c + 3] = post(z2) where they exist: z2 = v + b2, post's mask at
-// the flat index (r, c).  bias: b2[c .. c + 3].
+// the flat index (r, c), drawn from `seed`.  bias: b2[c .. c + 3].
 __device__ __forceinline__ void out_epilogue4(int r, int c, const float (&v)[4],
                                               const float (&bias)[4], int M, int N, bool vec4,
-                                              const Chain& chain, float* out) {
+                                              const Chain& chain, unsigned long long seed,
+                                              float* out) {
   if (r >= M || c >= N) return;
   const size_t o = (size_t)r * N + c;
   float ks[4] = {1.f, 1.f, 1.f, 1.f}, y[4];
-  if (chain.on[2]) philox::keep_scale4(chain.site[2], philox::kPost, o, ks);
+  if (chain.on[2]) philox::keep_scale4(site(chain, 2, seed), philox::kPost, o, ks);
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
     const float z = v[j] + bias[j];
@@ -99,6 +100,7 @@ mlp_fwd_kernel(const float* __restrict__ t, int vec_t, const float* __restrict__
            const float* __restrict__ b1, const float* __restrict__ w2, int vec_w2,
            const float* __restrict__ b2, float* __restrict__ out, float* __restrict__ part,
            int vec4, int M, int K, int H, int N, int chunk, Chain chain) {
+  const unsigned long long seed = call_seed(chain);
   extern __shared__ __align__(16) float smem[];
   float* ring = smem;
   float* a1 = smem + ring_floats(kFwdStages);  // 64 x chunk, row stride lda1
@@ -121,7 +123,7 @@ mlp_fwd_kernel(const float* __restrict__ t, int vec_t, const float* __restrict__
       float v[4], ks[4] = {1.f, 1.f, 1.f, 1.f}, a[4], d;
       staged_row(ring, i, v);
       if (chain.on[1] && r < M && c < H)
-        philox::keep_scale4(chain.site[1], philox::kMid, (size_t)r * H + c, ks);
+        philox::keep_scale4(site(chain, 1, seed), philox::kMid, (size_t)r * H + c, ks);
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         mid_act(chain, v[e] + bias[e], ks[e], a[e], d);
@@ -154,7 +156,7 @@ mlp_fwd_kernel(const float* __restrict__ t, int vec_t, const float* __restrict__
       for (int i = 0; i < kGroups; ++i) {
         float v[4];
         staged_row(ring, i, v);
-        out_epilogue4(m0 + rt + kRowsPer * i, c, v, bias, M, N, vec4, chain, out);
+        out_epilogue4(m0 + rt + kRowsPer * i, c, v, bias, M, N, vec4, chain, seed, out);
       }
     }
     __syncthreads();  // the ring is free again
@@ -179,7 +181,7 @@ mlp_fwd_reduce_kernel(const float* __restrict__ part, int S, const float* __rest
     for (int j = 0; j < 4; ++j) v[j] += p[j];
   }
   load4(b2, c, n, false, bias);
-  out_epilogue4(r, c, v, bias, M, N, vec4, chain, out);
+  out_epilogue4(r, c, v, bias, M, N, vec4, chain, call_seed(chain), out);
 }
 
 struct Split {
@@ -219,13 +221,15 @@ long long gan_mlp_fwd_workspace_floats(int M, int K, int H, int N) {
 // t1 (M, K) (used only with pre), ws (gan_mlp_fwd_workspace_floats): f32,
 // contiguous, on the current device.  pre / mid / post: 0 none, 1 relu, 2
 // gelu; mid_act_first: the mid order (0 drop_first, 1 act_first).
-// thresholds[s] and scales[s] describe the dropout of site s (pre, mid,
-// post), drawn from `seed`; drop_on[s] != 0 where its rate is > 0.  Launches
-// on `stream`; returns the first cudaGetLastError() that is not cudaSuccess,
-// else cudaSuccess.
+// thresholds[s] and scales[s] (host arrays) describe the dropout of site
+// s (pre, mid, post), drawn from the seed that (seed_base, seed_index)
+// refers to in device memory (philox.cuh SeedRef); drop_on[s] != 0 where its
+// rate is > 0.  Launches on `stream`; returns the first cudaGetLastError()
+// that is not cudaSuccess, else cudaSuccess.
 int gan_mlp_fwd(const float* x, const float* w1, const float* b1, const float* w2,
                 const float* b2, float* out, float* t1, float* ws, int M, int K, int H, int N,
-                int pre, int mid, int post, int mid_act_first, unsigned long long seed,
+                int pre, int mid, int post, int mid_act_first,
+                const unsigned long long* seed_base, int seed_index,
                 const unsigned int* thresholds, const float* scales, const int* drop_on,
                 cudaStream_t stream) {
   if (M < 1 || K < 1 || H < 1 || N < 1) return (int)cudaErrorInvalidValue;
@@ -233,15 +237,10 @@ int gan_mlp_fwd(const float* x, const float* w1, const float* b1, const float* w
   if ((long long)M * (K > H ? (K > N ? K : N) : (H > N ? H : N)) >= (1ll << 31) ||
       (long long)M > 65535ll * kBM)
     return (int)cudaErrorInvalidValue;
-  Chain chain;
-  chain.pre = pre;
-  chain.mid = mid;
-  chain.post = post;
-  chain.mid_act_first = mid_act_first;
-  for (int s = 0; s < 3; ++s) {
-    chain.site[s] = philox::Dropout{seed, thresholds[s], scales[s]};
-    chain.on[s] = drop_on[s] != 0;
-  }
+  if ((drop_on[0] || drop_on[1] || drop_on[2]) && seed_base == nullptr)
+    return (int)cudaErrorInvalidValue;
+  const Chain chain = make_chain(pre, mid, post, mid_act_first, seed_base, seed_index,
+                                 thresholds, scales, drop_on);
   cudaError_t err;
   const float* t = x;
   if (pre != kNone) {

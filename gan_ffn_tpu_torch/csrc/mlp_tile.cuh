@@ -65,9 +65,40 @@ __device__ __forceinline__ float act_grad(int a, float z) {
 struct Chain {
   int pre, mid, post;       // Act codes (pre / post kNone: absent)
   int mid_act_first;        // 0 drop_first, 1 act_first
-  philox::Dropout site[3];  // pre, mid, post
+  philox::Dropout site[3];  // pre, mid, post: threshold and scale (the seed: call_seed)
   int on[3];                // rate > 0
+  philox::SeedRef seed;     // the call's one seed, in device memory
 };
+
+// The call's seed, read from device memory where a site draws (else 0).  A
+// kernel reads it where its masks are drawn, so that the chain stays in the
+// parameter bank and the seed holds two registers only from there on.
+__device__ __forceinline__ unsigned long long call_seed(const Chain& chain) {
+  return chain.on[0] | chain.on[1] | chain.on[2] ? philox::resolve(chain.seed) : 0ull;
+}
+
+// Dropout site s (0 pre, 1 mid, 2 post) of the chain, drawn from `seed`.
+__device__ __forceinline__ philox::Dropout site(const Chain& chain, int s,
+                                                unsigned long long seed) {
+  return philox::Dropout{seed, chain.site[s].threshold, chain.site[s].scale};
+}
+
+// The chain a C entry hands its kernels.
+inline Chain make_chain(int pre, int mid, int post, int mid_act_first,
+                        const unsigned long long* seed_base, int seed_index,
+                        const unsigned int* thresholds, const float* scales, const int* drop_on) {
+  Chain chain;
+  chain.pre = pre;
+  chain.mid = mid;
+  chain.post = post;
+  chain.mid_act_first = mid_act_first;
+  for (int s = 0; s < 3; ++s) {
+    chain.site[s] = philox::Dropout{0ull, thresholds[s], scales[s]};
+    chain.on[s] = drop_on[s] != 0;
+  }
+  chain.seed = philox::SeedRef{seed_base, seed_index};
+  return chain;
+}
 
 // a1 and d1 of z1 with the mid mask value ks.
 __device__ __forceinline__ void mid_act(const Chain& chain, float z, float ks, float& a, float& d) {
@@ -253,7 +284,8 @@ __global__ void pre_kernel(const float* __restrict__ x, float* __restrict__ t1, 
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   float t = act(chain.pre, x[i]);
-  if (chain.on[0]) t *= philox::keep_scale(chain.site[0], philox::kPre, (unsigned long long)i);
+  if (chain.on[0])
+    t *= philox::keep_scale(site(chain, 0, call_seed(chain)), philox::kPre, (unsigned long long)i);
   t1[i] = t;
 }
 

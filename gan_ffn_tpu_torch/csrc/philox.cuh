@@ -14,6 +14,16 @@
 // backward kernel regenerate it bit for bit.  Keep iff bits >= threshold,
 // threshold = min(floor(rate * 2^32), 2^32 - 1); a kept element is scaled by
 // `scale` = 1 / (1 - rate).  The host computes threshold and scale.
+//
+// A kernel reads its seed from device memory (SeedRef), so that one CUDA
+// graph replays with fresh masks: a 63-bit base per train step, and the
+// call's index k within the step, fixed when the call is recorded.  The
+// call's seed is
+//
+//   seed(base, k) = (y & 0x7fffffff) << 32 | x, where (x, y, ., .) =
+//       Philox4x32-10(counter = (k, 0, kDerive, 0), key = (base lo, base hi))
+//
+// and k < 0 takes the base itself as the seed (a caller's host seed).
 
 #pragma once
 
@@ -25,11 +35,25 @@ namespace philox {
 constexpr uint32_t kM0 = 0xD2511F53u, kM1 = 0xCD9E8D57u;  // multipliers
 constexpr uint32_t kW0 = 0x9E3779B9u, kW1 = 0xBB67AE85u;  // Weyl key increments
 
-enum Stream : uint32_t { kAttention = 0, kPre = 1, kMid = 2, kPost = 3 };
+enum Stream : uint32_t { kAttention = 0, kPre = 1, kMid = 2, kPost = 3, kDerive = 4 };
 
 // One dropout site: seed, threshold on the 32 bits, scale of a kept element.
 struct Dropout {
   unsigned long long seed;
+  uint32_t threshold;
+  float scale;
+};
+
+// Where a call's seed lives: the step's base in device memory and the
+// call's index k (k < 0: the base is the seed).
+struct SeedRef {
+  const unsigned long long* base;
+  int index;
+};
+
+// One dropout site as a kernel takes it: the seed still in device memory.
+struct DropoutArg {
+  SeedRef seed;
   uint32_t threshold;
   float scale;
 };
@@ -51,6 +75,19 @@ __device__ __forceinline__ uint4 bits4(unsigned long long seed, uint32_t stream,
                                        unsigned long long group) {
   return philox4x32_10(make_uint4((uint32_t)group, (uint32_t)(group >> 32), stream, 0u),
                        (uint32_t)seed, (uint32_t)(seed >> 32));
+}
+
+// The seed of the call `s` refers to (see the top of this file).
+__device__ __forceinline__ unsigned long long resolve(SeedRef s) {
+  const unsigned long long b = __ldg(s.base);
+  if (s.index < 0) return b;
+  const uint4 w = philox4x32_10(make_uint4((uint32_t)s.index, 0u, kDerive, 0u), (uint32_t)b,
+                                (uint32_t)(b >> 32));
+  return (unsigned long long)(w.y & 0x7fffffffu) << 32 | w.x;
+}
+
+__device__ __forceinline__ Dropout resolve(const DropoutArg& a) {
+  return Dropout{resolve(a.seed), a.threshold, a.scale};
 }
 
 __device__ __forceinline__ uint32_t word(const uint4& w, int i) {

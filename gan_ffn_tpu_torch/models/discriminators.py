@@ -49,7 +49,7 @@ class _TransformerDiscriminator(nn.Module):
         self.fc2 = Linear(64, 16, **kw)
         self.fc3 = Linear(16, 1, **kw)
 
-    def forward(self, x: torch.Tensor, valid_len: Optional[int] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, valid_len=None) -> torch.Tensor:
         x = self.position_encoding(x)
         x = gelu(self.transformer_encoder(x, valid_len=valid_len))
         x = gelu(F.dropout(self.fc1(x), self.dropout, self.training))
@@ -64,7 +64,7 @@ class _Discriminator(nn.Module):
         self.net = _TransformerDiscriminator(D_h, 10, num_layers, dropout,
                                              generator=generator, device=device)
 
-    def forward(self, fusion: torch.Tensor, valid_len: Optional[int] = None) -> torch.Tensor:
+    def forward(self, fusion: torch.Tensor, valid_len=None) -> torch.Tensor:
         return self.net(fusion, valid_len=valid_len)
 
 
@@ -81,7 +81,7 @@ class VisualDiscriminator(_Discriminator):
         super().__init__(D_h, dropout, num_layers, generator=generator, device=device)
         self.object = Linear(RAW_VISUAL_DIM, 100, generator=generator, device=device)
 
-    def forward(self, fusion: torch.Tensor, valid_len: Optional[int] = None) -> torch.Tensor:
+    def forward(self, fusion: torch.Tensor, valid_len=None) -> torch.Tensor:
         if fusion.shape[-1] == RAW_VISUAL_DIM:
             fusion = self.object(fusion)
         return self.net(fusion, valid_len=valid_len)

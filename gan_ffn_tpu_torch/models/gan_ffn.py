@@ -48,7 +48,7 @@ class GAN_FFN(nn.Module):
         self.fc = Linear(D_h, n_classes, **kw)
 
     def forward(self, acoustic: torch.Tensor, visual: torch.Tensor, text: torch.Tensor,
-                valid_len: Optional[int] = None) -> torch.Tensor:
+                valid_len=None) -> torch.Tensor:
         fusion = (
             self.acoustic_generator(acoustic, valid_len=valid_len)
             + self.visual_generator(visual, valid_len=valid_len)
@@ -82,7 +82,7 @@ class GAN_FFN_DialogueRNN(nn.Module):
                                 context_attention, D_a, dropout_rec, dropout, **kw)
 
     def forward(self, acoustic: torch.Tensor, visual: torch.Tensor, text: torch.Tensor,
-                qmask: torch.Tensor, umask: torch.Tensor, valid_len: Optional[int] = None):
+                qmask: torch.Tensor, umask: torch.Tensor, valid_len=None):
         fusion = (
             self.acoustic_generator(acoustic, valid_len=valid_len)
             + self.visual_generator(visual, valid_len=valid_len)

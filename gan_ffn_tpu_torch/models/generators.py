@@ -24,10 +24,10 @@ from typing import Optional
 import torch
 from torch import nn
 
-from ..nn.core import Linear, kernel_layout
+from ..nn.core import Linear, kernel_layout, kernel_seed
 from ..nn.positional import PositionalEncoding
 from ..nn.transformer import TransformerEncoder
-from ..ops.dropout import draw_seed
+from ..ops.dropout import StepSeeds
 from ..ops.mlp import fused_mlp
 
 # Bucket lengths may exceed the reference's 110-utterance PE table; padded
@@ -38,7 +38,7 @@ PE_MAX_LEN = 128
 class _TransformerGenerator(nn.Module):
     """Shared generator skeleton: PE -> encoder -> fused gelu MLP head."""
 
-    dropout_generator: Optional[torch.Generator] = None  # kernel seeds (nn.core)
+    dropout_seeds: Optional[StepSeeds] = None  # kernel seeds (nn.core)
 
     def __init__(self, d_model: int, nhead: int, d_hidden: int, d_out: int,
                  num_layers: int = 8, dropout: float = 0.2, *,
@@ -51,7 +51,7 @@ class _TransformerGenerator(nn.Module):
         self.fc1 = Linear(d_model, d_hidden, **kw)
         self.fc2 = Linear(d_hidden, d_out, **kw)
 
-    def forward(self, x: torch.Tensor, valid_len: Optional[int] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, valid_len=None) -> torch.Tensor:
         x = self.position_encoding(x)
         x = self.transformer_encoder(x, valid_len=valid_len)
         rate = self.dropout if self.training else 0.0
@@ -60,7 +60,7 @@ class _TransformerGenerator(nn.Module):
             pre=("gelu", rate),
             mid=("gelu", "drop_first", rate),
             post=("gelu", "drop_first", rate),
-            dropout_seed=draw_seed(self.dropout_generator) if rate > 0.0 else None,
+            dropout_seed=kernel_seed(self) if rate > 0.0 else None,
         )
 
 
@@ -75,7 +75,7 @@ class _Generator(nn.Module):
             generator=generator, device=device,
         )
 
-    def forward(self, x: torch.Tensor, valid_len: Optional[int] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, valid_len=None) -> torch.Tensor:
         return self.net(x, valid_len=valid_len)
 
 

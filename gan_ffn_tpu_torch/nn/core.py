@@ -7,29 +7,60 @@ on the CPU from an explicit ``torch.Generator`` and then moved to ``device``,
 so one seed gives the same weights on every device.  No bit match with the
 JAX init is sought: ``utils/weights.py`` carries JAX weights across.
 
-Modules that launch a kernel with dropout draw one seed per call from their
-``dropout_generator``, a CPU ``torch.Generator`` that the trainer owns
-(:func:`set_dropout_generator`), or from torch's default CPU generator when
-it is None.  The draw stays on the host, so it never waits on the card.
+Modules that launch a kernel with dropout take each call's seed from their
+``dropout_seeds``, an ``ops.dropout.StepSeeds`` that the trainer owns and
+sets on all of its modules (:func:`set_dropout_generator`): inside a train
+step the k-th call gets the step's device base and ``k``, outside one a
+fresh host seed from the trainer's CPU generator (torch's default CPU
+generator where none is set).  No draw waits on the card.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional, Sequence
+from typing import Iterable, Optional, Sequence, Union
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.dropout import Seed, StepSeeds
 
-def set_dropout_generator(module: nn.Module, generator: Optional[torch.Generator]) -> None:
-    """Point every kernel-launching submodule of ``module`` at ``generator``
-    for its kernel dropout seeds (the counterpart of the JAX modules'
-    ``make_rng("dropout")``)."""
+
+def set_dropout_generator(module: nn.Module,
+                          source: Union[StepSeeds, torch.Generator, None]) -> StepSeeds:
+    """Point every kernel-launching submodule of ``module`` at one seed
+    source for its kernel dropout seeds (the counterpart of the JAX modules'
+    ``make_rng("dropout")``): ``source`` itself where it is a
+    :class:`StepSeeds`, else a new one over the generator ``source``.
+    Returns it; hand it to the next module for one source across several."""
+    seeds = source if isinstance(source, StepSeeds) else StepSeeds(source)
     for m in module.modules():
-        if hasattr(m, "dropout_generator"):
-            m.dropout_generator = generator
+        if hasattr(m, "dropout_seeds"):
+            m.dropout_seeds = seeds
+    return seeds
+
+
+def kernel_seed(module: nn.Module) -> Seed:
+    """The seed of ``module``'s next kernel call that draws a mask."""
+    seeds = module.dropout_seeds
+    return seeds.next() if seeds is not None else StepSeeds().next()
+
+
+def dropout_seeds_of(modules: Iterable[nn.Module]) -> StepSeeds:
+    """The one seed source that ``modules`` share, set on all of them as a
+    new :class:`StepSeeds` over torch's default CPU generator where none of
+    them has one.  Raises where they hold two: a step numbers its calls in
+    one source."""
+    modules = list(modules)
+    found = {id(m.dropout_seeds): m.dropout_seeds for module in modules for m in module.modules()
+             if getattr(m, "dropout_seeds", None) is not None}
+    if len(found) > 1:
+        raise ValueError("the modules draw from several seed sources: set one StepSeeds on all")
+    seeds = next(iter(found.values())) if found else StepSeeds()
+    for module in modules:
+        set_dropout_generator(module, seeds)
+    return seeds
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:

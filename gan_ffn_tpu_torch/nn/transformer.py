@@ -7,15 +7,15 @@ Parameter names and layouts follow ``torch.nn.TransformerEncoderLayer``
 ``layers.{i}``), so ``tests/torch_mapping.py`` maps them to the JAX tree.
 Module boundaries are time-major ``(L, B, E)``; heads are ``(B, H, L, Dh)``.
 
-``valid_len`` (a host int) masks attention keys at positions ``>=`` it, the
-bucket-padding mask.  The ``in_proj``/``out_proj`` products are plain
+``valid_len`` (a host int or a 0-d int32 tensor on the device) masks
+attention keys at positions ``>=`` it, the bucket-padding mask.  The ``in_proj``/``out_proj`` products are plain
 ``F.linear``, as the JAX package leaves them to XLA; attention runs through
 ``ops.attention.fused_attention`` and the FFN through ``ops.mlp.fused_mlp``,
 which launch the hand-written kernels (forward and backward) on CUDA
 tensors.  In training mode the attention-weight and FFN dropouts run inside
-those kernels, each call with a fresh seed from the module's
-``dropout_generator`` (``nn.core``); the two residual dropouts are
-``F.dropout`` with torch's RNG.
+those kernels, each call with its seed from the module's ``dropout_seeds``
+(``nn.core.kernel_seed``); the two residual dropouts are ``F.dropout`` with
+torch's RNG.
 """
 
 from __future__ import annotations
@@ -28,9 +28,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.attention import fused_attention
-from ..ops.dropout import draw_seed
+from ..ops.dropout import StepSeeds
 from ..ops.mlp import fused_mlp
-from .core import LayerNorm, Linear, kernel_layout, uniform_parameter
+from .core import LayerNorm, Linear, kernel_layout, kernel_seed, uniform_parameter
 
 
 class MultiheadSelfAttention(nn.Module):
@@ -38,7 +38,7 @@ class MultiheadSelfAttention(nn.Module):
     packed xavier-uniform ``in_proj`` with a zero bias, masked softmax
     attention, output projection."""
 
-    dropout_generator: Optional[torch.Generator] = None  # kernel seeds (nn.core)
+    dropout_seeds: Optional[StepSeeds] = None  # kernel seeds (nn.core)
 
     def __init__(self, embed_dim: int, num_heads: int, dropout: float = 0.0, *,
                  generator: Optional[torch.Generator] = None, device="cuda"):
@@ -51,7 +51,7 @@ class MultiheadSelfAttention(nn.Module):
         self.in_proj_bias = nn.Parameter(torch.zeros(3 * embed_dim, device=device))
         self.out_proj = Linear(embed_dim, embed_dim, generator=generator, device=device)
 
-    def forward(self, x: torch.Tensor, valid_len: Optional[int] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, valid_len=None) -> torch.Tensor:
         L, B, E = x.shape
         H = self.num_heads
         Dh = E // H
@@ -62,7 +62,7 @@ class MultiheadSelfAttention(nn.Module):
 
         q, k, v = (heads(t) for t in qkv.chunk(3, dim=-1))
         rate = self.dropout if self.training else 0.0
-        seed = draw_seed(self.dropout_generator) if rate > 0.0 else None
+        seed = kernel_seed(self) if rate > 0.0 else None
         out = fused_attention(q, k, v, valid_len=valid_len, dropout_rate=rate,
                               dropout_seed=seed)
         out = out.permute(2, 0, 1, 3).reshape(L, B, E)
@@ -76,7 +76,7 @@ class TransformerEncoderLayer(nn.Module):
     with ff = linear2(dropout(relu(linear1(x)))) as one fused MLP.
     """
 
-    dropout_generator: Optional[torch.Generator] = None  # kernel seeds (nn.core)
+    dropout_seeds: Optional[StepSeeds] = None  # kernel seeds (nn.core)
 
     def __init__(self, d_model: int, nhead: int, dim_feedforward: int = 2048,
                  dropout: float = 0.1, *, generator: Optional[torch.Generator] = None,
@@ -90,7 +90,7 @@ class TransformerEncoderLayer(nn.Module):
         self.norm1 = LayerNorm(d_model, device=device)
         self.norm2 = LayerNorm(d_model, device=device)
 
-    def forward(self, x: torch.Tensor, valid_len: Optional[int] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, valid_len=None) -> torch.Tensor:
         attn = self.self_attn(x, valid_len=valid_len)
         x = self.norm1(x + F.dropout(attn, self.dropout, self.training))
         rate = self.dropout if self.training else 0.0
@@ -98,7 +98,7 @@ class TransformerEncoderLayer(nn.Module):
             x,
             *kernel_layout(self.linear1), *kernel_layout(self.linear2),
             mid=("relu", "act_first", rate),
-            dropout_seed=draw_seed(self.dropout_generator) if rate > 0.0 else None,
+            dropout_seed=kernel_seed(self) if rate > 0.0 else None,
         )
         return self.norm2(x + F.dropout(h, self.dropout, self.training))
 
@@ -117,7 +117,7 @@ class TransformerEncoder(nn.Module):
             for _ in range(num_layers)
         )
 
-    def forward(self, x: torch.Tensor, valid_len: Optional[int] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, valid_len=None) -> torch.Tensor:
         for layer in self.layers:
             x = layer(x, valid_len=valid_len)
         return x

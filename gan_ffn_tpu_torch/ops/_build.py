@@ -13,7 +13,7 @@ never loaded.  :func:`build` starts one
 Every C entry returns ``cudaGetLastError()`` after its launch; :func:`check`
 turns a non-zero code into a ``RuntimeError``.  A launch that CUDA refuses
 (too much shared memory, a bad grid) never runs, and nothing else would
-report it.
+report it.  :func:`count_launch` adds a wrapper's launch to its count.
 """
 
 from __future__ import annotations
@@ -29,6 +29,8 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Dict, Iterable, List, Optional, Sequence, Tuple
+
+import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -176,3 +178,11 @@ def check(code: int, name: str) -> None:
             name, f"gan_{name}_error_string", [ctypes.c_int], ctypes.c_char_p
         )
         raise RuntimeError(f"{name} launch failed: CUDA error {code} ({describe(code).decode()})")
+
+
+def count_launch(wrapper) -> None:
+    """One more launch on ``wrapper.launches``.  A call that a CUDA graph
+    records launches nothing, so it is not counted; the graph's replays
+    launch the kernel without calling the wrapper."""
+    if not torch.cuda.is_current_stream_capturing():
+        wrapper.launches += 1

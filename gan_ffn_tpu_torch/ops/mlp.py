@@ -13,10 +13,11 @@ with ``act`` in {"relu", "gelu"} (gelu is exact-erf) and ``order`` in
 Two configurations are on the path: the encoder FFN ``mid=("relu",
 "act_first", rate)`` and the generator head ``pre=("gelu", rate),
 mid=("gelu", "drop_first", rate), post=("gelu", "drop_first", rate)``.
-Dropout masks come from ``ops.dropout``: one ``dropout_seed`` per call,
-streams ``STREAM_PRE``, ``STREAM_MID`` and ``STREAM_POST``, addressed by the
-flat ``(row, col)`` index of the ``(M, K)``, ``(M, H)`` and ``(M, N)``
-tensors, rows counted over the input flattened to ``(M, K)``.
+Dropout masks come from ``ops.dropout``: one ``dropout_seed`` per call (a
+host int or an ``ops.dropout.SeedRef``, which the kernels read from device
+memory), streams ``STREAM_PRE``, ``STREAM_MID`` and ``STREAM_POST``,
+addressed by the flat ``(row, col)`` index of the ``(M, K)``, ``(M, H)`` and
+``(M, N)`` tensors, rows counted over the input flattened to ``(M, K)``.
 
 :func:`fused_mlp` dispatches on the device: CPU tensors go through
 :func:`mlp_plain`, and autograd of it is the backward.  CUDA tensors go
@@ -62,8 +63,9 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
-from .attention import _check_cuda_operands
-from .dropout import STREAM_MID, STREAM_POST, STREAM_PRE, keep_scale, threshold_and_scale
+from .attention import _check_cuda_operands, device_seed
+from .dropout import (STREAM_MID, STREAM_POST, STREAM_PRE, Seed, keep_scale,
+                      threshold_and_scale)
 
 ACTS = {None: 0, "relu": 1, "gelu": 2}  # the csrc Act codes
 ORDERS = ("drop_first", "act_first")
@@ -75,7 +77,8 @@ _TILE, _SLICE, WAVE_BLOCKS = 64, 32, 4 * 132
 # csrc/mlp_fwd.cu kMaxChunkTiles: the 64-column tiles of d_ff a forward block holds
 FWD_CHUNK_TILES = 4
 
-_CHAIN_ARGTYPES = [ctypes.c_int] * 4 + [ctypes.c_uint64] + [ctypes.c_void_p] * 3
+# acts and order, seed base pointer, seed index, thresholds, scales, drop_on
+_CHAIN_ARGTYPES = [ctypes.c_int] * 4 + [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 3
 _FWD_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + _CHAIN_ARGTYPES
                  + [ctypes.c_void_p])
 _BWD_ARGTYPES = ([ctypes.c_void_p] * 16 + [ctypes.c_int] * 4 + _CHAIN_ARGTYPES
@@ -198,7 +201,7 @@ def _parse_chain(pre, mid, post) -> Tuple[Tuple, Tuple[float, float, float]]:
 
 
 def mlp_plain(x, w1, b1, w2, b2, pre=None, mid=("relu", "act_first", 0.0), post=None,
-              dropout_seed: int = 0):
+              dropout_seed: Seed = 0):
     """The same function in plain PyTorch: the CPU path, and the reference
     the kernel is held against on the card.  Differentiable."""
     (a_pre, a_mid, order, a_post), (r_pre, r_mid, r_post) = _parse_chain(pre, mid, post)
@@ -226,7 +229,7 @@ def mlp_plain(x, w1, b1, w2, b2, pre=None, mid=("relu", "act_first", 0.0), post=
 
 
 def mlp_backward_plain(x, w1, b1, w2, b2, dout, pre=None, mid=("relu", "act_first", 0.0),
-                       post=None, dropout_seed: int = 0):
+                       post=None, dropout_seed: Seed = 0):
     """(dx, dw1, db1, dw2, db2): autograd of :func:`mlp_plain`."""
     with torch.enable_grad():
         leaves = [t.detach().requires_grad_(True) for t in (x, w1, b1, w2, b2)]
@@ -234,19 +237,27 @@ def mlp_backward_plain(x, w1, b1, w2, b2, dout, pre=None, mid=("relu", "act_firs
         return torch.autograd.grad(out, leaves, dout)
 
 
-def _chain_args(pre, mid, post, seed):
-    """The C entries' chain arguments and the host arrays they point into."""
+def _drop_on(pre, mid, post):
+    """Which of the sites (pre, mid, post) draw a mask."""
+    (a_pre, _, _, a_post), rates = _parse_chain(pre, mid, post)
+    return (int(a_pre is not None and rates[0] > 0.0), int(rates[1] > 0.0),
+            int(a_post is not None and rates[2] > 0.0))
+
+
+def _chain_args(pre, mid, post, seed, device):
+    """The C entries' chain arguments and what they point into: the host
+    arrays, and the seed on ``device`` where a site draws."""
     (a_pre, a_mid, order, a_post), rates = _parse_chain(pre, mid, post)
-    on = [int(r > 0.0) for r in rates]
-    on[0] &= a_pre is not None
-    on[2] &= a_post is not None
+    on = _drop_on(pre, mid, post)
     ts = [threshold_and_scale(r) if o else (0, 1.0) for r, o in zip(rates, on)]
     arrays = ((ctypes.c_uint32 * 3)(*(t for t, _ in ts)),
               (ctypes.c_float * 3)(*(s for _, s in ts)),
               (ctypes.c_int * 3)(*on))
+    ref = device_seed(seed, device) if any(on) else None
     args = (ACTS[a_pre], ACTS[a_mid], ACTS[a_post], int(order == "act_first"),
-            int(seed) if any(on) else 0, *(ctypes.addressof(a) for a in arrays))
-    return args, arrays
+            None if ref is None else ref.base.data_ptr(), 0 if ref is None else ref.index,
+            *(ctypes.addressof(a) for a in arrays))
+    return args, (arrays, ref)
 
 
 def _launch_fwd(x2, w1, b1, w2, b2, chain, seed) -> torch.Tensor:
@@ -260,7 +271,7 @@ def _launch_fwd(x2, w1, b1, w2, b2, chain, seed) -> torch.Tensor:
     ws = torch.empty(workspace(M, K, H, N), dtype=torch.float32, device=x2.device)
     t1 = torch.empty((M, K) if chain[0] is not None else 0, dtype=torch.float32, device=x2.device)
     fn = _build.function("mlp_fwd", "gan_mlp_fwd", _FWD_ARGTYPES)
-    args, _arrays = _chain_args(*chain, seed)
+    args, _keep = _chain_args(*chain, seed, x2.device)
     with torch.cuda.device(x2.device):
         code = fn(
             x2.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
@@ -268,7 +279,7 @@ def _launch_fwd(x2, w1, b1, w2, b2, chain, seed) -> torch.Tensor:
             torch.cuda.current_stream(x2.device).cuda_stream,
         )
     _build.check(code, "mlp_fwd")
-    fused_mlp.launches += 1
+    _build.count_launch(fused_mlp)
     return out
 
 
@@ -307,19 +318,20 @@ def fused_mlp(
     pre: Optional[Tuple] = None,
     mid: Tuple = ("relu", "act_first", 0.0),
     post: Optional[Tuple] = None,
-    dropout_seed: Optional[int] = None,
+    dropout_seed: Optional[Seed] = None,
 ) -> torch.Tensor:
     """Fused MLP over ``(..., K)`` inputs; returns ``(..., N)``.
 
     ``w1 (K, H)``, ``b1 (H,)``, ``w2 (H, N)``, ``b2 (N,)``.  ``dropout_seed``
-    (a host int, default 0) draws every mask of the call.  On CUDA tensors
+    (a host int or a :class:`~.dropout.SeedRef`, default 0) draws every mask
+    of the call.  On CUDA tensors
     the kernels take float32, contiguous operands in a geometry that
     :func:`fused_mlp_supported` accepts, and raise on anything else.
     Differentiable in every tensor argument.
     """
     _parse_chain(pre, mid, post)
     K, H, N = _check_geometry(x, w1, b1, w2, b2)
-    seed = 0 if dropout_seed is None else int(dropout_seed)
+    seed = 0 if dropout_seed is None else dropout_seed
     if x.device.type == "cpu":
         return mlp_plain(x, w1, b1, w2, b2, pre, mid, post, seed)
     _check_cuda_operands("fused_mlp", (x, w1, b1, w2, b2), x.device)
@@ -330,6 +342,8 @@ def fused_mlp(
             f"fused_mlp kernels do not take M={M} K={K} H={H} N={N} (flat indices < 2**31 "
             f"and at most {GRID_Y_LIMIT * _TILE} rows)"
         )
+    if any(_drop_on(pre, mid, post)):
+        seed = device_seed(seed, x.device)  # once, so that the backward reads the same
     out = _FusedMLP.apply(x.reshape(M, K), w1, b1, w2, b2, (pre, mid, post), seed)
     return out.reshape(*lead, N)
 
@@ -338,7 +352,7 @@ fused_mlp.launches = 0  # forward kernel launches since the caller last reset it
 
 
 def fused_mlp_backward(x, w1, b1, w2, b2, dout, pre=None, mid=("relu", "act_first", 0.0),
-                       post=None, dropout_seed: int = 0):
+                       post=None, dropout_seed: Seed = 0):
     """(dx, dw1, db1, dw2, db2) of :func:`fused_mlp` over ``(M, K)`` inputs
     for the upstream gradient ``dout (M, N)``, with the forward's chain and
     seed.  CPU tensors: :func:`mlp_backward_plain`; CUDA tensors:
@@ -361,7 +375,7 @@ def fused_mlp_backward(x, w1, b1, w2, b2, dout, pre=None, mid=("relu", "act_firs
         for t in (dw1, db1, dw2, db2):
             t.zero_()
         return dx, dw1, db1, dw2, db2
-    args, _arrays = _chain_args(pre, mid, post, dropout_seed)
+    args, _keep = _chain_args(pre, mid, post, dropout_seed, x.device)
     empty = lambda *shape: torch.empty(shape, dtype=torch.float32, device=x.device)  # noqa: E731
     t1 = empty(M, K) if pre is not None else empty(0)
     a1, d1 = empty(M, H), empty(M, H)
@@ -378,7 +392,7 @@ def fused_mlp_backward(x, w1, b1, w2, b2, dout, pre=None, mid=("relu", "act_firs
             ws.data_ptr(), M, K, H, N, *args, torch.cuda.current_stream(x.device).cuda_stream,
         )
     _build.check(code, "mlp_bwd")
-    fused_mlp_backward.launches += 1
+    _build.count_launch(fused_mlp_backward)
     return dx, dw1, db1, dw2, db2
 
 

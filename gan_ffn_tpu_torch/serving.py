@@ -252,8 +252,11 @@ class ServingClassifier:
             F.pad(torch.as_tensor(a).to(self.device), (0, 0, 0, Bq - B, 0, Lq - L))
             for a in arrs
         ]
+        # the key mask's length as the kernels read it: one int in device memory
+        valid = torch.full((), L if valid_len is None else int(valid_len), dtype=torch.int32,
+                           device=self.device)
         with torch.inference_mode():
-            out = self.model(*padded, valid_len=L if valid_len is None else int(valid_len))
+            out = self.model(*padded, valid_len=valid)
         return out[:L, :B].cpu().numpy()
 
     def predict(self, *tensors, valid_len: Optional[int] = None) -> np.ndarray:

@@ -24,11 +24,17 @@ duplicate-key overwrites: each logged key holds its last write
 (``LOGGED_LOSS_KEYS``).
 
 The JAX package compiles the schedule as one program or as twelve; in eager
-torch both are this one loop.
+torch both are this one loop.  :func:`make_gan_epoch_step` is the same step
+for the epoch-fused stage A (``--epoch-fused``): one CUDA graph per batch
+shape on a card (``train.graphs.ShapeGraphs``), eager on the CPU.  The six
+networks share one dropout seed source (``ops.dropout.StepSeeds``), from
+which a step draws one base per batch unless the batch carries it as
+``seed``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Callable, Dict, Mapping, NamedTuple, Optional
 
@@ -43,8 +49,10 @@ from ..models import (
     VisualDiscriminator,
     VisualGenerator,
 )
+from ..nn.core import dropout_seeds_of
 from ..nn.losses import bce_loss
-from .optim import torch_adam
+from .graphs import ShapeGraphs
+from .optim import make_capturable, torch_adam
 
 GEN_NAMES = ("acoustic_gen", "visual_gen", "text_gen")
 DISC_NAMES = ("acoustic_disc", "visual_disc", "text_disc")
@@ -136,7 +144,7 @@ def init_gan_state(cfg: GANConfig, device="cuda") -> GANState:
 def duel_mask(batch: Mapping) -> torch.Tensor:
     """(L, B, 1) float mask of the positions the reference's dynamically
     shaped BCE targets cover: ``t < valid_len`` and ``b < n_real`` (the
-    batch's host ints)."""
+    batch's 0-d tensors on the device, or host ints)."""
     L, B = batch["text"].shape[:2]
     device = batch["text"].device
     t = torch.arange(L, device=device)[:, None] < batch["valid_len"]
@@ -147,14 +155,36 @@ def duel_mask(batch: Mapping) -> torch.Tensor:
 def make_gan_train_step(modules: Mapping[str, nn.Module], opts: Mapping[str, torch.optim.Adam],
                         deterministic: bool = False) -> Callable[[Mapping], Dict[str, torch.Tensor]]:
     """``step(batch) -> losses`` over batches of ``train.loop.batch_to_tensors``
-    (``text``, ``visual``, ``audio``, ``valid_len``, ``n_real``): the 12
-    duels, updating ``modules`` in place.  ``losses`` maps ``duel_0`` ..
-    ``duel_11`` and the six ``LOGGED_LOSS_KEYS`` to 0-d device tensors.
+    (``text``, ``visual``, ``audio``, ``valid_len``, ``n_real``, and
+    optionally ``seed``): the 12 duels, updating ``modules`` in place.
+    ``losses`` maps ``duel_0`` .. ``duel_11`` and the six
+    ``LOGGED_LOSS_KEYS`` to 0-d device tensors.
 
     ``deterministic`` runs every net in eval mode (no dropout), with the
     same gradients and updates.  After a step each parameter's ``.grad``
-    holds the gradient of its net's last update."""
+    holds the gradient of its net's last update.  ``step.seeds`` is the
+    seed source the six networks share (None where ``deterministic``)."""
+    return _gan_step(modules, opts, deterministic, graphed=False)
+
+
+def make_gan_epoch_step(modules: Mapping[str, nn.Module], opts: Mapping[str, torch.optim.Adam],
+                        deterministic: bool = False) -> Callable[[Mapping], Dict[str, torch.Tensor]]:
+    """The step of :func:`make_gan_train_step` for the epoch-fused stage A
+    (counterpart of ``gan_ffn_tpu/train/gan.py::make_gan_epoch_step``),
+    dispatched through ``train.graphs.ShapeGraphs`` (mode ``stage_a``),
+    which ``step.graphs`` holds: on a card one graph per batch shape, the
+    12 duels, their ``torch.autograd.grad`` and the twelve updates of the
+    six Adams in it, made capturable in place (``train.optim.make_capturable``)."""
+    return _gan_step(modules, opts, deterministic, graphed=True)
+
+
+def _gan_step(modules, opts, deterministic, graphed):
     params = {name: list(m.parameters()) for name, m in modules.items()}
+    seeds = None if deterministic else dropout_seeds_of(modules.values())
+    if graphed:
+        for name, opt in opts.items():
+            if params[name][0].device.type == "cuda":
+                make_capturable(opt)
 
     def update(net: str, loss: torch.Tensor) -> None:
         grads = torch.autograd.grad(loss, params[net])
@@ -162,27 +192,37 @@ def make_gan_train_step(modules: Mapping[str, nn.Module], opts: Mapping[str, tor
             p.grad = g
         opts[net].step()
 
-    def step(batch: Mapping) -> Dict[str, torch.Tensor]:
+    def body(batch: Mapping) -> Dict[str, torch.Tensor]:
         mask = duel_mask(batch)
         valid_len = batch["valid_len"]
         losses: Dict[str, torch.Tensor] = {}
-        for i, (kind, net, net_mod, opp, opp_mod, log_key) in enumerate(DUEL_SCHEDULE):
-            trained, opponent = modules[net], modules[opp]
-            trained.train(not deterministic)
-            opponent.eval()
-            real = batch[REAL_INPUTS[net_mod]]
-            if kind == "disc":
-                real_prob = trained(real, valid_len=valid_len)
-                with torch.no_grad():
-                    fake = opponent(batch[REAL_INPUTS[opp_mod]], valid_len=valid_len)
-                fake_prob = trained(fake, valid_len=valid_len)
-                loss = (bce_loss(real_prob, torch.ones_like(real_prob), mask)
-                        + bce_loss(fake_prob, torch.zeros_like(fake_prob), mask)) / 2.0
-            else:
-                prob = opponent(trained(real, valid_len=valid_len), valid_len=valid_len)
-                loss = bce_loss(prob, torch.ones_like(prob), mask)
-            update(net, loss)
-            losses[f"duel_{i}"] = losses[log_key] = loss.detach()
+        with seeds.step(batch.get("seed")) if seeds is not None else contextlib.nullcontext():
+            for i, (kind, net, net_mod, opp, opp_mod, log_key) in enumerate(DUEL_SCHEDULE):
+                trained, opponent = modules[net], modules[opp]
+                trained.train(not deterministic)
+                opponent.eval()
+                real = batch[REAL_INPUTS[net_mod]]
+                if kind == "disc":
+                    real_prob = trained(real, valid_len=valid_len)
+                    with torch.no_grad():
+                        fake = opponent(batch[REAL_INPUTS[opp_mod]], valid_len=valid_len)
+                    fake_prob = trained(fake, valid_len=valid_len)
+                    loss = (bce_loss(real_prob, torch.ones_like(real_prob), mask)
+                            + bce_loss(fake_prob, torch.zeros_like(fake_prob), mask)) / 2.0
+                else:
+                    prob = opponent(trained(real, valid_len=valid_len), valid_len=valid_len)
+                    loss = bce_loss(prob, torch.ones_like(prob), mask)
+                update(net, loss)
+                losses[f"duel_{i}"] = losses[log_key] = loss.detach()
         return losses
 
+    run = ShapeGraphs(body, "stage_a") if graphed else body
+
+    def step(batch: Mapping) -> Dict[str, torch.Tensor]:
+        if seeds is not None and "seed" not in batch:
+            batch = {**batch, "seed": seeds.draw_tensor(batch["text"].device)}
+        return run(batch)
+
+    step.seeds = seeds
+    step.graphs = run if graphed else None
     return step

@@ -473,7 +473,6 @@ def test_cli_main_returns_the_best_epoch(tmp_path, monkeypatch, short_dialogues)
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--epoch-fused"], "module note 12"),
     (["--bf16"], "Queue 1 item 4"),
     (["--dp"], "module note 13"),
     (["--scan-layers"], "module note 15"),

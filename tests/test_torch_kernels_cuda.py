@@ -11,7 +11,10 @@ M not multiples of the kernels' tiles; for attention, L on both sides of the
 16-row warp tiles and of the 4-element Philox groups, Dh on both sides of
 the 16 / 32 / 64 head widths), at dropout rate 0 and above it: the
 kernels draw the same Philox masks as the plain versions, so the two are
-compared element by element at any rate.  Tolerances: attention forward max
+compared element by element at any rate.  The kernels read ``valid_len``
+and their seed from device memory: a host int is written there first, and
+``test_kernels_read_valid_len_and_seed_from_device_memory`` passes both as
+tensors, the seed derived from a step's base (``ops.dropout.SeedRef``).  Tolerances: attention forward max
 |diff| <= 1e-5 (one softmax over <= 128 keys in f32); attention backward
 and both MLP kernels max |diff| <= 1e-4 * max(1, max |ref|) (sums of f32
 products in another order, and erff against torch's erf).  The backward
@@ -24,6 +27,7 @@ import torch
 from tf32_emulation import away_from_relu_kink
 
 from gan_ffn_tpu_torch.ops import attention as A
+from gan_ffn_tpu_torch.ops import dropout as D
 from gan_ffn_tpu_torch.ops import mlp as M
 
 pytestmark = pytest.mark.cuda_hardware
@@ -350,3 +354,35 @@ def test_mlp_forward_and_backward_take_the_same_relu_branches(cuda, K, pre, rows
     want = (dout.double() * (out > 0)).sum(0)
     assert torch.equal(db1.double(), want), (
         f"{(db1.double() != want).sum().item()} columns take other branches")
+
+
+@pytest.mark.parametrize("index", [-1, 0, 7])
+def test_kernels_read_valid_len_and_seed_from_device_memory(cuda, index):
+    """valid_len as a 0-d int32 tensor and the seed as a ``SeedRef`` (index
+    k >= 0: the seed that csrc/philox.cuh derives from (base, k), held here
+    to ``ops.dropout.derive_seed``; k < 0: the base itself) against the
+    plain versions at the host ints, under the limits above."""
+    rng = np.random.default_rng(11)
+    base_value = 0x5DEECE66D + index
+    ref = D.SeedRef(torch.tensor(base_value, dtype=torch.int64, device=cuda), index)
+    seed = D.derive_seed(base_value, index)
+    q, k, v, do = (_randn(rng, (3, 2, 37, 16), 1.0, cuda) for _ in range(4))
+    for vl in (37, 20, 1, 0):
+        tvl = torch.tensor(vl, dtype=torch.int32, device=cuda)
+        got = A.fused_attention(q, k, v, valid_len=tvl, dropout_rate=0.1, dropout_seed=ref)
+        want = A.attention_plain(q, k, v, vl, 0.1, seed)
+        assert (got - want).abs().max().item() <= 1e-5, f"valid_len={vl}"
+        grads = A.fused_attention_backward(q, k, v, do, tvl, 0.1, ref)
+        for g, w in zip(grads, A.attention_backward_plain(q, k, v, do, vl, 0.1, seed)):
+            _close(g, w, f"attention backward valid_len={vl}")
+    K, H, N, rows = 37, 100, 33, 77
+    x, w1, b1 = _randn(rng, (rows, K), 1.0, cuda), _randn(rng, (K, H), K ** -0.5, cuda), \
+        _randn(rng, (H,), 0.05, cuda)
+    w2, b2 = _randn(rng, (H, N), H ** -0.5, cuda), _randn(rng, (N,), 0.05, cuda)
+    dout = _randn(rng, (rows, N), 1.0, cuda)
+    cfg = {k: (*v[:-1], 0.2) for k, v in HEAD.items()}
+    _close(M.fused_mlp(x, w1, b1, w2, b2, **cfg, dropout_seed=ref),
+           M.mlp_plain(x, w1, b1, w2, b2, **cfg, dropout_seed=seed), "mlp forward")
+    for g, w in zip(M.fused_mlp_backward(x, w1, b1, w2, b2, dout, **cfg, dropout_seed=ref),
+                    M.mlp_backward_plain(x, w1, b1, w2, b2, dout, **cfg, dropout_seed=seed)):
+        _close(g, w, "mlp backward")

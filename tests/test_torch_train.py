@@ -266,7 +266,8 @@ def test_cli_trains_on_the_cpu(tmp_path):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--GAN-epochs", "0", "--epoch-fused"], "module note 12"),
+    (["--GAN-epochs", "0", "--epoch-fused", "--gan-schedule", "stepwise"],
+     "--gan-schedule stepwise"),
     (["--GAN-epochs", "0", "--bf16"], "Queue 1 item 4"),
     (["--GAN-epochs", "0", "--dp"], "module note 13"),
 ])
