@@ -6,9 +6,10 @@
 Phases, each printing JSON lines; any failure exits non-zero:
 
 1. device   -- the card's name and power limit (nvidia-smi) and torch's view.
-2. build    -- nvcc builds every kernel under gan_ffn_tpu_torch/csrc (four
-               libraries: attention_fwd, attention_bwd, mlp_fwd, mlp_bwd),
-               one process each, all at once; prints each library's nvcc
+2. build    -- nvcc builds every kernel under gan_ffn_tpu_torch/csrc (six
+               libraries: attention_fwd, attention_bwd, mlp_fwd, mlp_bwd and
+               the bf16 forwards attention_fwd_bf16, mlp_fwd_bf16), one
+               process each, all at once; prints each library's nvcc
                seconds and each kernel's registers and spill bytes.
 3. kernels  -- each kernel against its plain PyTorch version on the card, at
                the training paths' shapes (L=112 bucket; B=32 on the
@@ -118,9 +119,9 @@ Phases, each printing JSON lines; any failure exits non-zero:
                Then each step (stage A and stage B at B=32, the DialogueRNN
                at B=30, L=112, depth 8) with every dropout on, eager and
                graphed: the profiler's launches per replay (kernels by name;
-               a replay is traced up to 3 times, since the tracer can lose
-               records of a replay's burst but never adds one) equal to the
-               eager step's and to the wrappers' counts, host
+               a replay, and the eager step, is traced up to 3 times, since
+               the tracer can lose records of a burst but never adds one)
+               equal to the eager step's and to the wrappers' counts, host
                ms per step (eager against graphed; the graphed stage A and
                DialogueRNN must be faster), the device's busy ms in one
                replay, the capture seconds and the graph pool's bytes.
@@ -131,15 +132,41 @@ Phases, each printing JSON lines; any failure exits non-zero:
                Adams at eps 1e-3, losses and every parameter within 1e-6 *
                max(1, max |ref|).
 
+8. bf16_serving -- the bf16 forward kernels and the serving variants.
+               Each bf16 kernel against its plain version (which rounds
+               where the JAX kernel does) at the serving shapes: attention
+               (32,10,112,10) and (32,8,112,64) at valid_len 112/90/1/0, MLP
+               at M=3584 for the four geometries (phase 3's inputs rounded
+               to bf16), each at rate 0 and the path's rate: max |diff| <=
+               2^-8 * max(1, max |ref|), at least 99% of the outputs
+               identical (+0 and -0 as one), two calls identical in bits.  Times as in phase 3
+               (rate 0 rows make the kernels line) beside the f32 kernel's
+               on the same values, the plain version's and, for attention,
+               SDPA's bf16 forward; bound_ms = max(bytes / 3.35 TB/s, flops
+               / 989 TFLOP/s), 2-byte elements, 989 the H100 SXM data
+               sheet's dense bf16 rate.  Then phase 4's 8-layer model
+               exported as f32, bf16 and bf16 with int8 weights (bytes of
+               each), each served on the card with 24 attention and 27 MLP
+               launches per forward by its own kernels (bf16 kernels for
+               both bf16 artifacts, no f32 one): the bf16 artifact within
+               5e-2 of the same artifact on the CPU (L=64, B=4), the int8
+               one within 1e-3 of the live bf16 model with its dequantized
+               weights (L=112, B=32); ms per request and utterances/s at
+               L=112, B=32 for the three, and argmax agreement against f32
+               (no limit: random weights).  Last, cli/predict.py on phase
+               5's checkpoint and test split: its F1 equals phase 5's
+               best-epoch test F1; then --bf16, its F1 beside.
+
 The kernel counts are set to 0 just before the serving, the training, the
-DialogueRNN and the two epoch-fused paths run and are read just after; the comparisons of phase
-3 do not count.  The kernels read ``valid_len`` and their dropout seed from
-device memory; phase 3 times them so, with both made once beforehand.  A
-``graphs`` line sums up phase 7.  The line before the last is the ``kernels`` summary (times
+DialogueRNN, the two epoch-fused and the bf16 serving paths run and are
+read just after; the comparisons of phases 3 and 8 do not count.  The
+kernels read ``valid_len`` and their dropout seed from device memory;
+phases 3 and 8 time them so, with both made once beforehand.  A ``graphs``
+line sums up phase 7.  The line before the last is the ``kernels`` summary (times
 per stage-B train step at B=32, L=112, at the path's dropout rates, the same
 sums at the DialogueRNN step's B=30 shapes, and each kernel's launches per
-stage-A step and per DialogueRNN train step); the last line is ``{"ok":
-true, "device": {...}}``.
+stage-A step and per DialogueRNN train step; the bf16 kernels' per bf16
+serving forward); the last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -211,6 +238,19 @@ SOURCES = {
     "mlp_fwd": ("gan_ffn_tpu_torch/csrc/mlp_fwd.cu", "gan_ffn_tpu/ops/mlp.py:134"),
     "mlp_bwd": ("gan_ffn_tpu_torch/csrc/mlp_bwd.cu", "gan_ffn_tpu/ops/mlp.py:162"),
 }
+# Phase 8: the bf16 forward kernels of the same TPU kernels at bf16 operands
+BF16_SOURCES = {
+    "attention_fwd_bf16": ("gan_ffn_tpu_torch/csrc/attention_fwd_bf16.cu",
+                           "gan_ffn_tpu/ops/attention.py:69"),
+    "mlp_fwd_bf16": ("gan_ffn_tpu_torch/csrc/mlp_fwd_bf16.cu", "gan_ffn_tpu/ops/mlp.py:134"),
+}
+PEAK_BF16_FLOPS = 989e12  # H100 SXM bf16 tensor cores, dense
+# a bf16 kernel against its plain version: max |diff| <= BF16_TOL * max(1, max |ref|)
+# (bf16's unit roundoff) with at least BF16_SAME of the outputs identical (+0 and -0
+# as one value: a dropped weight's zero products carry either sign)
+BF16_TOL, BF16_SAME = 2.0 ** -8, 0.99
+BF16_E2E_TOL = 5e-2  # bf16 artifact on the card against the CPU (gan_ffn_tpu/cli/export.py --verify)
+INT8_TOL = 1e-3  # int8 artifact against its dequantized live model
 
 
 def site_cfg(site: str, rate: float) -> dict:
@@ -282,8 +322,8 @@ def phase_build():
     t0 = time.perf_counter()
     libs = _build.build()
     secs = time.perf_counter() - t0
-    if set(libs) != set(SOURCES):
-        fail(f"expected the kernels {sorted(SOURCES)}, built {sorted(libs)}")
+    if set(libs) != set(SOURCES) | set(BF16_SOURCES):
+        fail(f"expected the kernels {sorted(SOURCES) + sorted(BF16_SOURCES)}, built {sorted(libs)}")
     emit({"phase": "build", "seconds": secs, "libraries": {k: str(v.relative_to(REPO)) for k, v in libs.items()},
           "nvcc_seconds": dict(_build.build_seconds),
           "kernels": {name: [{"kernel": r["kernel"], "registers": r.get("registers"),
@@ -1370,7 +1410,16 @@ def _graphs_steps(torch) -> dict:
         want = GAN_STEP_LAUNCHES if name == "stage_a" else STEP_LAUNCHES
         step = build_step(name, False)[0]
         counts = _launches_per_step(torch, lambda: step(batch), n=1)[0]
-        eager_names, eager_kernels, eager_busy = _profile_one(torch, lambda: step(batch))
+        # the tracer may lose records of the eager step too (a DialogueRNN
+        # step traced 23 of its 24 attention and 26 of its 27 MLP forward
+        # calls once, NVIDIA H100 80GB HBM3, 700 W): retraced as a replay is
+        eager_attempts = []
+        for _ in range(REPLAY_TRACES):
+            eager_names, eager_kernels, eager_busy = _profile_one(torch, lambda: step(batch))
+            eager_attempts.append({"calls": _port_calls(eager_names),
+                                   "device_kernels": eager_kernels})
+            if eager_attempts[-1]["calls"] == want:
+                break
         eager_ms, eager_enqueue = _host_ms(torch, lambda: step(batch), 5)
         del step
         torch.cuda.empty_cache()
@@ -1397,6 +1446,7 @@ def _graphs_steps(torch) -> dict:
             "graphed_wrapper_launches": graph_counts,
             "profiled_eager_calls": _port_calls(eager_names),
             "profiled_replay_calls": _port_calls(replay_names), "replay_traces": attempts,
+            "eager_traces": eager_attempts,
             "port_kernel_names": {k: v for k, v in replay_names.items()},
             "eager_device_kernels": eager_kernels, "replay_device_kernels": replay_kernels,
             "eager_host_ms": statistics.median(eager_ms), "eager_host_ms_all": eager_ms,
@@ -1438,6 +1488,230 @@ def phase_graphs(torch, tmp: str) -> dict:
     return summary
 
 
+# ------------------------------------------------------------ phase 8: bf16 --
+
+
+def _bf16_counters():
+    from gan_ffn_tpu_torch.ops import attention as A
+    from gan_ffn_tpu_torch.ops import mlp as M
+
+    return {"attention_fwd_bf16": A.attention_fwd_bf16, "mlp_fwd_bf16": M.mlp_fwd_bf16}
+
+
+def _all_counters():
+    return {**_counters(), **_bf16_counters()}
+
+
+def _bf16_check(torch, got, again, want, what: str) -> dict:
+    """A bf16 kernel's output against its plain version's (phase 8's limits)."""
+    ref = want.float().abs().max().item()
+    err = (got.float() - want.float()).abs().max().item()
+    same = (got == want).double().mean().item()  # +0 and -0 as one value
+    tol = BF16_TOL * max(1.0, ref)
+    if not (err <= tol and same >= BF16_SAME):
+        fail(f"{what}: max |diff| {err} (limit {tol}), {same} of the outputs identical "
+             f"(limit {BF16_SAME})")
+    if not torch.equal(got.view(torch.int16), again.view(torch.int16)):
+        fail(f"{what}: two calls differ")
+    return {"max_abs_err": err, "max_abs_ref": ref, "identical": same}
+
+
+def bf16_bound_ms(n_bytes: float, flops: float):
+    t_bytes, t_ops = n_bytes / PEAK_BYTES * 1e3, flops / PEAK_BF16_FLOPS * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def _bf16_kernels(torch) -> dict:
+    """Each bf16 kernel against its plain version at the serving shapes
+    (B=32, L=112; M=3584), at rate 0 and the path's rates, timed beside the
+    f32 kernel on the same values and (attention) SDPA's bf16 forward.
+    Returns {kernel: [(launches per serving forward, rate-0 timing row)]}
+    and the worst max |diff| of each."""
+    import torch.nn.functional as F
+
+    from gan_ffn_tpu_torch.ops import attention as A
+    from gan_ffn_tpu_torch.ops import mlp as Mo
+
+    rows = {name: [] for name in BF16_SOURCES}
+    err = dict.fromkeys(BF16_SOURCES, 0.0)
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    for (B, H, L, Dh), count in ATTN_SHAPES.items():
+        q, k, v = (torch.randn(B, H, L, Dh, device="cuda", generator=gen).bfloat16()
+                   for _ in range(3))
+        for rate in (0.0, ATTN_RATE):
+            for vl in (L, 90, 1, 0):
+                seed = 4000 + vl
+                got = A.fused_attention(q, k, v, valid_len=vl, dropout_rate=rate, dropout_seed=seed)
+                again = A.fused_attention(q, k, v, valid_len=vl, dropout_rate=rate, dropout_seed=seed)
+                torch.cuda.synchronize()
+                line = {"phase": "bf16_kernel", "name": "attention_fwd_bf16", "shape": [B, H, L, Dh],
+                        "rate": rate, "valid_len": vl,
+                        **_bf16_check(torch, got, again, A.attention_plain(q, k, v, vl, rate, seed),
+                                      f"attention_fwd_bf16 {(B, H, L, Dh)} rate={rate} valid_len={vl}")}
+                err["attention_fwd_bf16"] = max(err["attention_fwd_bf16"], line["max_abs_err"])
+                if vl == L:
+                    dvl = torch.full((), vl, dtype=torch.int32, device="cuda")
+                    dseed = A.device_seed(seed, q.device)
+                    q32, k32, v32 = q.float(), k.float(), v.float()
+                    n = B * H * L * Dh
+                    t = {"ms": device_time_ms(torch, lambda: A.fused_attention(q, k, v, dvl, rate, dseed)),
+                         "f32_kernel_ms": device_time_ms(
+                             torch, lambda: A.fused_attention(q32, k32, v32, dvl, rate, dseed)),
+                         "plain_ms": device_time_ms(torch, lambda: A.attention_plain(q, k, v, vl, rate, seed)),
+                         "library_ms": device_time_ms(torch, lambda: F.scaled_dot_product_attention(
+                             q, k, v, dropout_p=rate))}
+                    t["bound_ms"], t["bound_by"] = bf16_bound_ms(2 * 4 * n, 2 * 2 * B * H * L * L * Dh)
+                    line["timing"] = t
+                    if rate == 0.0:
+                        rows["attention_fwd_bf16"].append((count, t))
+                emit(line)
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    for (K, Hd, N, site), count in MLP_SHAPES.items():
+        args32, _ = mlp_inputs(torch, gen, MLP_ROWS, K, Hd, N, site)
+        args = [t.bfloat16() for t in args32]
+        for rate in (0.0, SITE_RATE[site]):
+            cfg, seed = site_cfg(site, rate), 5000 + K + N
+            got = Mo.fused_mlp(*args, **cfg, dropout_seed=seed)
+            again = Mo.fused_mlp(*args, **cfg, dropout_seed=seed)
+            torch.cuda.synchronize()
+            line = {"phase": "bf16_kernel", "name": "mlp_fwd_bf16", "shape": [MLP_ROWS, K, Hd, N],
+                    "site": site, "rate": rate,
+                    **_bf16_check(torch, got, again, Mo.mlp_plain(*args, **cfg, dropout_seed=seed),
+                                  f"mlp_fwd_bf16 {K}->{Hd}->{N} ({site}) rate={rate}")}
+            err["mlp_fwd_bf16"] = max(err["mlp_fwd_bf16"], line["max_abs_err"])
+            dseed = Mo.device_seed(seed, args[0].device)
+            t = {"ms": device_time_ms(torch, lambda: Mo.fused_mlp(*args, **cfg, dropout_seed=dseed)),
+                 "f32_kernel_ms": device_time_ms(
+                     torch, lambda: Mo.fused_mlp(*args32, **cfg, dropout_seed=dseed)),
+                 "plain_ms": device_time_ms(torch, lambda: Mo.mlp_plain(*args, **cfg, dropout_seed=seed)),
+                 "library_ms": None,
+                 "workspace_bytes": 4 * Mo.fwd_workspace_floats(MLP_ROWS, K, Hd, N)}
+            n_bytes, flops = _mlp_bytes_flops(MLP_ROWS, K, Hd, N, site == "head", False)
+            t["bound_ms"], t["bound_by"] = bf16_bound_ms(n_bytes / 2, flops)  # 2-byte elements
+            line["timing"] = t
+            if rate == 0.0:
+                rows["mlp_fwd_bf16"].append((count, t))
+            emit(line)
+    return rows, err
+
+
+def _bf16_artifacts(torch, tmp: str) -> dict:
+    """A full-width 8-layer GAN_FFN (phase 4's seed) exported as f32, bf16
+    and bf16 with int8 weights, each served on the card with the counts set
+    to 0 just before and read just after; the limits of phase 8."""
+    from gan_ffn_tpu_torch.models import GAN_FFN
+    from gan_ffn_tpu_torch.serving import (ServingClassifier, bf16_variant, dequantize_weights,
+                                           export_classifier, quantize_weights_int8)
+
+    model = GAN_FFN(n_classes=6, D_h=100, gen_num_layers=8,
+                    generator=torch.Generator().manual_seed(0), device="cpu").eval()
+    bf16 = bf16_variant(model)
+    paths, sizes = {}, {}
+    for name, m, int8 in (("f32", model, False), ("bf16", bf16, False), ("bf16+int8", bf16, True)):
+        paths[name] = os.path.join(tmp, f"gan_ffn_{name}.pt")
+        export_classifier(m, paths[name], weights_int8=int8)
+        sizes[name] = os.path.getsize(paths[name])
+    rng = np.random.default_rng(8)
+    xs = [rng.standard_normal((112, 32, d)).astype(np.float32) for d in (100, 512, 100)]
+    small = [x[:64, :4] for x in xs]
+    out = {"bytes": sizes, "variants": {}}
+    log_probs = {}
+    for name, path in paths.items():
+        clf = ServingClassifier.load(path, device="cuda", batch_grid=GRID)
+        clf.warmup(lengths=(64, 112), batches=(4, 32))
+        for fn in _all_counters().values():
+            fn.launches = 0
+        per_forward = []
+        for req in (xs, small):
+            before = {k: fn.launches for k, fn in _all_counters().items()}
+            lp = clf.log_probs(*req)
+            if lp.shape != req[0].shape[:2] + (6,) or not np.isfinite(lp).all():
+                fail(f"bf16_serving {name}: log-probs of shape {lp.shape}, finite={np.isfinite(lp).all()}")
+            per_forward.append({k: fn.launches - before[k] for k, fn in _all_counters().items()})
+        counts = {k: fn.launches for k, fn in _all_counters().items()}
+        kernels = ("attention_fwd", "mlp_fwd") if name == "f32" else tuple(BF16_SOURCES)
+        want = dict.fromkeys(_all_counters(), 0)
+        want.update(zip(kernels, (24, 27)))
+        if any(n != want for n in per_forward):
+            fail(f"bf16_serving {name}: launches per forward {per_forward}, expected {want}")
+        log_probs[name] = clf.log_probs(*xs)
+        req_ms = []
+        for _ in range(20):
+            t0 = time.perf_counter()
+            clf.log_probs(*xs)
+            req_ms.append((time.perf_counter() - t0) * 1e3)
+        dev = [torch.from_numpy(x).cuda() for x in xs]
+        with torch.inference_mode():
+            fwd_ms = device_time_ms(torch, lambda: clf.model(*dev, valid_len=112), reps=7, group=3)
+        ms = statistics.median(req_ms)
+        line = {"dtype": clf.dtype, "weights": clf.weights, "bytes": sizes[name],
+                "launches": counts, "launches_per_forward": per_forward,
+                "request_ms_L112_B32": ms, "request_ms_min": min(req_ms),
+                "utterances_per_s": 112 * 32 / (ms / 1e3), "forward_device_ms_L112_B32": fwd_ms}
+        if name == "bf16":  # the same artifact on the CPU through the plain versions
+            cpu = ServingClassifier.load(path, device="cpu", batch_grid=GRID).log_probs(*small)
+            line["card_vs_cpu_max_abs_err"] = float(np.abs(clf.log_probs(*small) - cpu).max())
+            if not line["card_vs_cpu_max_abs_err"] <= BF16_E2E_TOL:
+                fail(f"bf16 artifact, card against CPU at L=64, B=4: max |diff| "
+                     f"{line['card_vs_cpu_max_abs_err']} > {BF16_E2E_TOL}")
+        if name == "bf16+int8":  # the live bf16 model with the dequantized weights
+            live = bf16_variant(model).cuda().eval()
+            state = live.state_dict()
+            live.load_state_dict(dequantize_weights(quantize_weights_int8(state), state))
+            with torch.inference_mode():
+                want_lp = live(*dev, valid_len=112).cpu().numpy()
+            line["vs_dequantized_live_max_abs_err"] = float(np.abs(log_probs[name] - want_lp).max())
+            if not line["vs_dequantized_live_max_abs_err"] <= INT8_TOL:
+                fail(f"int8 artifact against its dequantized live model at L=112, B=32: max |diff| "
+                     f"{line['vs_dequantized_live_max_abs_err']} > {INT8_TOL}")
+        if name != "f32":
+            line["argmax_agreement_vs_f32"] = float(
+                (log_probs[name].argmax(-1) == log_probs["f32"].argmax(-1)).mean())
+            line["max_abs_diff_vs_f32"] = float(np.abs(log_probs[name] - log_probs["f32"]).max())
+        out["variants"][name] = line
+        emit({"phase": "bf16_serving", "artifact": name, **line})
+    if not sizes["bf16"] < 0.75 * sizes["f32"] or not sizes["bf16+int8"] < 0.45 * sizes["f32"]:
+        fail(f"artifact bytes {sizes}: bf16 must be under 0.75x and bf16+int8 under 0.45x f32")
+    return out
+
+
+def _bf16_predict(torch, tmp: str) -> dict:
+    """cli/predict.py on phase 5's checkpoint and test split: its F1 equals
+    phase 5's best-epoch test F1 (the same model on the same batches); then
+    --bf16, its F1 printed beside, with no limit."""
+    from gan_ffn_tpu_torch.cli import predict as PREDICT
+
+    reports = sorted(p for p in os.listdir(os.path.join(tmp, "output")) if p.startswith("test_out_"))
+    if len(reports) != 1:
+        fail(f"phase 5's report: {reports}")
+    best_f1 = float(reports[0].split("F1-score=")[1][: -len(".txt")])
+    argv = ["--data-path", os.path.join(tmp, "iemocap.pkl"), "--model-save-path",
+            os.path.join(tmp, "GAN_save"), "--num-layers", "8", "--batch-size", "32",
+            "--device", "cuda"]
+    out = {"trainer_best_f1": best_f1}
+    for name, extra in (("f32", []), ("bf16", ["--bf16"])):
+        for fn in _all_counters().values():
+            fn.launches = 0
+        log = io.StringIO()
+        with contextlib.redirect_stdout(log):
+            res = PREDICT.main(argv + extra)
+        out[name] = {"f1": res["f1"], "dialogues": res["n_dialogues"],
+                     "launches": {k: fn.launches for k, fn in _all_counters().items()}}
+    emit({"phase": "bf16_predict", **out})
+    if out["f32"]["f1"] != best_f1:
+        fail(f"cli/predict F1 {out['f32']['f1']} != the trainer's best-epoch test F1 {best_f1}")
+    if not out["f32"]["launches"]["mlp_fwd"] or not out["bf16"]["launches"]["mlp_fwd_bf16"]:
+        fail(f"cli/predict launched no MLP kernel: {out}")
+    return out
+
+
+def phase_bf16_serving(torch, tmp: str) -> dict:
+    rows, err = _bf16_kernels(torch)
+    serving = _bf16_artifacts(torch, tmp)
+    predict = _bf16_predict(torch, tmp)
+    return {"rows": rows, "err": err, "serving": serving, "predict": predict}
+
+
 def main() -> None:
     import torch
 
@@ -1459,6 +1733,7 @@ def main() -> None:
         train_counts, step, gan_step = phase_training(torch, tmp)
         drnn_counts, drnn_step = phase_dialoguernn(torch, tmp)
         graphs = phase_graphs(torch, tmp)
+        bf16 = phase_bf16_serving(torch, tmp)
 
     emit({"graphs": {
         "card": info["nvidia_smi"][0],
@@ -1510,7 +1785,29 @@ def main() -> None:
             entry["serving_forward_plain_ms"] = sum(n * r["plain_ms"] for n, r in serve)
             entry["share_of_serving_forward"] = entry["serving_forward_ms"] / fwd_ms
         kernels.append(entry)
+    for name, bf16_rows in bf16["rows"].items():
+        total = lambda key, rs=bf16_rows: sum(n * r[key] for n, r in rs)  # noqa: E731
+        variant = bf16["serving"]["variants"]["bf16"]
+        kernels.append({
+            "name": name, "route": "cuda", "source": BF16_SOURCES[name][0],
+            "replaces": BF16_SOURCES[name][1], "launches": variant["launches"][name],
+            "max_abs_err": bf16["err"][name], "ms": total("ms"), "kernel_ms": total("ms"),
+            "plain_ms": total("plain_ms"), "bound_ms": total("bound_ms"),
+            "bound_by": max(bf16_rows, key=lambda nr: nr[0] * nr[1]["bound_ms"])[1]["bound_by"],
+            "library_ms": None if name == "mlp_fwd_bf16" else total("library_ms"),
+            "per": "one bf16 serving forward at B=32, L=112 (rate 0): launches_per_forward calls "
+                   "at the shapes of the bf16_kernel lines",
+            "launches_per_forward": sum(n for n, _ in bf16_rows),
+            "f32_kernel_ms": total("f32_kernel_ms"),
+            "share_of_bf16_serving_forward": total("ms") / variant["forward_device_ms_L112_B32"],
+            "bf16_int8_serving_launches": bf16["serving"]["variants"]["bf16+int8"]["launches"][name],
+            "predict_bf16_launches": bf16["predict"]["bf16"]["launches"][name],
+        })
     for entry in kernels:
+        if entry["name"] in BF16_SOURCES:
+            if entry["launches"] < 1 or entry["predict_bf16_launches"] < 1:
+                fail(f"{entry['name']} was not launched on the bf16 serving path")
+            continue
         if entry["launches"] < 1:
             fail(f"{entry['name']} was not launched on the training path")
         if entry["gan_step_launches"] < 1:

@@ -42,7 +42,7 @@ IEMOCAP_N_CLASSES = 6
 LATER_FLAGS = {
     "dp": "module note 13 (parallel and sweeps)",
     "scan_layers": "module note 15 (the scanned layer layout)",
-    "bf16": "Queue 1 item 4 (bf16 kernels)",
+    "bf16": "Queue 1 item 3, bf16 training: the bf16 backward kernels",
     "tensorboard": "module note 15 (utilities)",
     "profile": "module note 15 (utilities)",
 }
@@ -52,7 +52,8 @@ def setup(parser: argparse.ArgumentParser, argv=None) -> Tuple[argparse.Namespac
     """A trainer's start: parse ``argv``, refuse the flags of
     :data:`LATER_FLAGS` that it has and that are set, pick the device
     (``--device``, or the CPU with ``--no-cuda``; a parser error where it
-    asks for a card that is not there), turn TF32 off in cuBLAS and cuDNN,
+    asks for a card that is not there), turn TF32 off in cuBLAS and cuDNN
+    and reduced precision off in cuBLAS's bf16 sums,
     and write the synthetic fixture where ``--synthetic`` asks for it."""
     args = parser.parse_args(argv)
     for flag, item in LATER_FLAGS.items():
@@ -68,6 +69,7 @@ def setup(parser: argparse.ArgumentParser, argv=None) -> Tuple[argparse.Namespac
             parser.error("no CUDA card: pass --device cpu to train on the CPU")
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     print(f"Running on {device}"
           + (f" ({torch.cuda.get_device_name(device)})" if device.type == "cuda" else ""))
     if args.synthetic and not os.path.exists(args.data_path):

@@ -15,6 +15,9 @@ API (JSON over HTTP):
 instead of the artifact's batch size, so small requests run small batches.
 ``--warmup`` runs one request per grid shape before accepting connections
 (it builds the CUDA kernels on first use).  ``--device`` defaults to cuda.
+The artifact may be any variant of ``cli/export.py`` (float32, bf16, either
+with int8 weights); its ``dtype`` and ``weights`` are printed at start and
+reported by ``/healthz``.
 """
 
 from __future__ import annotations
@@ -103,6 +106,7 @@ def main(argv=None):
     args = build_parser().parse_args(argv)
     grid = [int(b) for b in args.batch_grid.split(",")] if args.batch_grid else None
     clf = ServingClassifier.load(args.artifact, device=args.device, batch_grid=grid)
+    print(f"artifact {args.artifact}: dtype {clf.dtype}, weights {clf.weights}")
     if args.warmup:
         for L, B, secs in clf.warmup():
             print(f"warmup L={L} B={B}: {secs:.2f}s")

@@ -3,7 +3,8 @@ reference model.py:1405-1528).  Both sum the three generators' outputs into
 the fusion:
 
 - ``GAN_FFN`` classifies each utterance by one linear head and a float32
-  log-softmax;
+  log-softmax; its ``dtype`` (None: float32) is the generators' compute
+  dtype, and the head runs at the fusion's, as in the JAX module;
 - ``GAN_FFN_DialogueRNN`` runs the bidirectional DialogueRNN ``BiModel`` on
   the fusion.
 
@@ -37,14 +38,17 @@ class GAN_FFN(nn.Module):
 
     def __init__(self, n_classes: int = 6, dropout: float = 0.2, D_h: int = 100,
                  gen_dropout: float = 0.2, gen_num_layers: int = 8, *,
-                 generator: Optional[torch.Generator] = None, device="cuda"):
+                 generator: Optional[torch.Generator] = None, device="cuda",
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.n_classes, self.D_h, self.gen_num_layers = n_classes, D_h, gen_num_layers
         self.dropout = dropout  # unused in the forward, as in the reference
+        self.gen_dropout, self.dtype = gen_dropout, dtype
         kw = dict(generator=generator, device=device)
-        self.acoustic_generator = AcousticGenerator(D_h, gen_dropout, gen_num_layers, **kw)
-        self.visual_generator = VisualGenerator(D_h, gen_dropout, gen_num_layers, **kw)
-        self.text_generator = TextGenerator(D_h, gen_dropout, gen_num_layers, **kw)
+        gen = dict(kw, dtype=dtype)
+        self.acoustic_generator = AcousticGenerator(D_h, gen_dropout, gen_num_layers, **gen)
+        self.visual_generator = VisualGenerator(D_h, gen_dropout, gen_num_layers, **gen)
+        self.text_generator = TextGenerator(D_h, gen_dropout, gen_num_layers, **gen)
         self.fc = Linear(D_h, n_classes, **kw)
 
     def forward(self, acoustic: torch.Tensor, visual: torch.Tensor, text: torch.Tensor,

@@ -14,7 +14,9 @@ so the ``state_dict`` keys follow the JAX parameter tree.  The positional
 encoding keeps its module default rate of 0.2 whatever the generator's
 ``dropout``, as the JAX generator builds it without a rate
 (``gan_ffn_tpu/models/generators.py``); ``dropout`` sets the head's three
-in-kernel dropouts.
+in-kernel dropouts.  ``dtype`` is the compute dtype (None: float32), as the
+JAX field: the input is cast to it on entry and every product and kernel
+runs at it; the parameters stay as they are and are cast at each use.
 """
 
 from __future__ import annotations
@@ -42,21 +44,25 @@ class _TransformerGenerator(nn.Module):
 
     def __init__(self, d_model: int, nhead: int, d_hidden: int, d_out: int,
                  num_layers: int = 8, dropout: float = 0.2, *,
-                 generator: Optional[torch.Generator] = None, device="cuda"):
+                 generator: Optional[torch.Generator] = None, device="cuda",
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.dropout = dropout
-        kw = dict(generator=generator, device=device)
+        self.dtype = dtype
+        kw = dict(generator=generator, device=device, dtype=dtype)
         self.position_encoding = PositionalEncoding(d_model, max_len=PE_MAX_LEN, device=device)
         self.transformer_encoder = TransformerEncoder(d_model, nhead, num_layers=num_layers, **kw)
         self.fc1 = Linear(d_model, d_hidden, **kw)
         self.fc2 = Linear(d_hidden, d_out, **kw)
 
     def forward(self, x: torch.Tensor, valid_len=None) -> torch.Tensor:
+        if self.dtype is not None:
+            x = x.to(self.dtype)
         x = self.position_encoding(x)
         x = self.transformer_encoder(x, valid_len=valid_len)
         rate = self.dropout if self.training else 0.0
         return fused_mlp(
-            x, *kernel_layout(self.fc1), *kernel_layout(self.fc2),
+            x, *kernel_layout(self.fc1, x.dtype), *kernel_layout(self.fc2, x.dtype),
             pre=("gelu", rate),
             mid=("gelu", "drop_first", rate),
             post=("gelu", "drop_first", rate),
@@ -68,11 +74,12 @@ class _Generator(nn.Module):
     D_MODEL = NHEAD = D_HIDDEN = 0  # set by each modality
 
     def __init__(self, D_h: int, dropout: float = 0.2, num_layers: int = 8, *,
-                 generator: Optional[torch.Generator] = None, device="cuda"):
+                 generator: Optional[torch.Generator] = None, device="cuda",
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.net = _TransformerGenerator(
             self.D_MODEL, self.NHEAD, self.D_HIDDEN, D_h, num_layers, dropout,
-            generator=generator, device=device,
+            generator=generator, device=device, dtype=dtype,
         )
 
     def forward(self, x: torch.Tensor, valid_len=None) -> torch.Tensor:

@@ -80,39 +80,63 @@ def uniform_parameter(
     return nn.Parameter(t.to(device))
 
 
+def linear(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor],
+           dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """``x W^T + b`` at the compute ``dtype`` (default ``x``'s), as the JAX
+    package's ``TorchLinear`` computes it: x, W and b cast to the dtype at
+    use, the product (f32 sums) rounded to it, then the bias added at it.
+    In float32 one ``F.linear``, its bias fused into the product."""
+    dtype = dtype or x.dtype
+    if dtype == x.dtype == weight.dtype == torch.float32:
+        return F.linear(x, weight, bias)
+    y = F.linear(x.to(dtype), weight.to(dtype))
+    return y if bias is None else y + bias.to(dtype)
+
+
 class Linear(nn.Module):
     """``torch.nn.Linear`` with its default init drawn from ``generator``:
     ``weight (out, in)``, ``bias (out,)`` (None with ``bias=False``),
-    y = x W^T + b."""
+    y = x W^T + b at the compute ``dtype`` (None: the input's; see
+    :func:`linear`).  The parameters are float32 whatever the compute dtype,
+    as in the JAX package, unless the module is cast (``serving.bf16_variant``)."""
 
     def __init__(self, in_features: int, out_features: int, bias: bool = True, *,
-                 generator: Optional[torch.Generator] = None, device="cuda"):
+                 generator: Optional[torch.Generator] = None, device="cuda",
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         bound = 1.0 / math.sqrt(in_features)
+        self.dtype = dtype
         self.weight = uniform_parameter((out_features, in_features), bound, generator, device)
         self.bias = uniform_parameter((out_features,), bound, generator, device) if bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x, self.weight, self.bias)
+        return linear(x, self.weight, self.bias, self.dtype)
 
 
-def kernel_layout(linear: Linear):
-    """``(W^T, b)`` of a :class:`Linear`, with ``W^T (in, out)`` contiguous: the
-    layout ``ops.mlp.fused_mlp`` takes.  A copy per call (e.g. 1.6 MB for a
+def kernel_layout(layer: Linear, dtype: Optional[torch.dtype] = None):
+    """``(W^T, b)`` of a :class:`Linear` at the compute ``dtype`` (default
+    the parameters'), with ``W^T (in, out)`` contiguous: the layout
+    ``ops.mlp.fused_mlp`` takes.  A copy per call (e.g. 1.6 MB for a
     100->2048 layer), which keeps the weights in torch's layout in the
     ``state_dict``."""
-    return linear.weight.t().contiguous(), linear.bias
+    w, b = layer.weight, layer.bias
+    if dtype is not None:
+        w, b = w.to(dtype), b.to(dtype)
+    return w.t().contiguous(), b
 
 
 class LayerNorm(nn.Module):
-    """LayerNorm over the last axis, eps 1e-5, statistics in float32."""
+    """LayerNorm over the last axis, eps 1e-5, statistics, scale and bias in
+    float32, the result at the compute ``dtype`` (None: the input's)."""
 
-    def __init__(self, features: int, eps: float = 1e-5, *, device="cuda"):
+    def __init__(self, features: int, eps: float = 1e-5, *, device="cuda",
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.eps = eps
+        self.dtype = dtype
         self.weight = nn.Parameter(torch.ones(features, device=device))
         self.bias = nn.Parameter(torch.zeros(features, device=device))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = F.layer_norm(x.float(), x.shape[-1:], self.weight.float(), self.bias.float(), self.eps)
-        return y.to(x.dtype)
+        return y.to(self.dtype or x.dtype)

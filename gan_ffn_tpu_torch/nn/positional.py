@@ -23,7 +23,9 @@ def sinusoidal_table(max_len: int, d_model: int) -> np.ndarray:
 
 
 class PositionalEncoding(nn.Module):
-    """x (L, B, D) -> dropout(x + PE[:L]), with torch's dropout RNG."""
+    """x (L, B, D) -> dropout(x + PE[:L]), with torch's dropout RNG.  The
+    table is added at ``x``'s dtype (bf16 where the generator has cast its
+    input), as the JAX module adds it whatever its ``dtype`` field."""
 
     def __init__(self, d_model: int, dropout: float = 0.2, max_len: int = 110, *,
                  device="cuda"):

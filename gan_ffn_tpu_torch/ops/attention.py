@@ -34,6 +34,23 @@ cores as TF32 ``mma.sync`` in the 3xTF32 split (``csrc/mma_tf32.cuh``),
 which keeps them f32-accurate to ~2^-21 per product; one TF32 pass would
 miss both limits (``tests/test_torch_attention_tf32.py``).
 
+bfloat16 operands run the forward only, at the JAX kernel's rounding
+points (``gan_ffn_tpu/ops/attention.py:38-83``): scores from the bf16 q and
+k summed to f32, scale, mask, softmax and dropout in f32, the weights
+rounded to bf16 before the product with v (summed to f32), the output
+rounded to bf16.  :func:`attention_plain` rounds at the same points; on
+CUDA bf16 tensors :func:`attention_fwd_bf16` launches
+``csrc/attention_fwd_bf16.cu`` (bf16 ``mma.sync`` products, as the MXU
+does), held to the plain version within 2^-8 * max(1, max |ref|) with at
+least 99% of the elements identical.  At bf16 both sides take each sum
+(the two products, the softmax's row sum) exactly, rounded to f32 once
+(:func:`exact_matmul`; f64 in the kernel): summed in f32 in two orders, the
+two put 0.02-0.04% of the outputs a bf16 ulp apart, and one such ulp at the
+largest outputs is past that limit, which is half an ulp there.  A bf16
+call that would need a gradient raises ``NotImplementedError`` on any
+device (:data:`BF16_BACKWARD`): there is no bf16 backward kernel yet, and
+no fallback.
+
 The TPU kernel's padding (L to 128 lanes, Dh to the sublane tile) is a TPU
 layout and is not carried over.  At ``valid_len == 0`` the port follows the
 XLA chain and its plain version: dQ = dK = 0 (the Pallas backward does not
@@ -54,6 +71,9 @@ from .dropout import STREAM_ATTENTION, Seed, SeedRef, keep_scale, threshold_and_
 NEG_INF = -1e30
 MAX_LEN = 128  # keys a block holds in 16 mma tiles of 8, one block per (b, h) (csrc kMaxLen)
 MAX_HEAD_DIM = 64  # the widest of the kernels' head widths 16, 32, 64 (csrc kWidths)
+FORWARD_DTYPES = (torch.float32, torch.bfloat16)  # what the forward kernels take
+# where a bf16 backward comes from
+BF16_BACKWARD = "ROADMAP Queue 1 item 3, bf16 training: the bf16 backward kernels"
 
 # dropout on, seed base pointer, seed index, threshold, scale
 _DROP_ARGTYPES = [ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float]
@@ -75,16 +95,31 @@ def attention_plain(
     """The same function in plain PyTorch: the CPU path, and the reference the
     kernel is held against on the card.  ``valid_len`` an int or a 0-d
     tensor: keys at positions ``>=`` it are masked, so any value ``<= 0``
-    masks every key and any ``>= L`` none.  Differentiable."""
+    masks every key and any ``>= L`` none.  At bf16 it rounds where the JAX
+    kernel does (the module's docstring).  Differentiable."""
     B, H, L, Dh = q.shape
-    scores = torch.matmul(q.float(), k.float().transpose(-1, -2)) * (1.0 / math.sqrt(Dh))
     key_pos = torch.arange(L, device=q.device)
-    scores = scores.masked_fill(key_pos >= valid_len, NEG_INF)
-    attn = torch.softmax(scores, dim=-1)
+    if q.dtype == torch.float32:
+        scores = torch.matmul(q, k.transpose(-1, -2)) * (1.0 / math.sqrt(Dh))
+        attn = torch.softmax(scores.masked_fill(key_pos >= valid_len, NEG_INF), dim=-1)
+    else:  # bf16: each sum exact (f64), rounded to f32 once (see the module's docstring)
+        scores = exact_matmul(q, k.transpose(-1, -2)) * (1.0 / math.sqrt(Dh))
+        scores = scores.masked_fill(key_pos >= valid_len, NEG_INF)
+        e = torch.exp(scores - scores.amax(dim=-1, keepdim=True))
+        attn = e / e.double().sum(dim=-1, keepdim=True).float()
     if dropout_rate > 0.0:
         attn = attn * keep_scale(dropout_seed, STREAM_ATTENTION, attn.shape, dropout_rate,
                                  q.device)
-    return torch.matmul(attn, v.float()).to(q.dtype)
+    if q.dtype == torch.float32:
+        return torch.matmul(attn, v)
+    return exact_matmul(attn.to(v.dtype), v).to(q.dtype)  # the weights rounded to bf16
+
+
+def exact_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` of bf16 operands as float32: their products summed exactly
+    (float64: a bf16 product has 16 significant bits) and rounded to
+    float32 once, so the result does not depend on the order of the sum."""
+    return torch.matmul(a.double(), b.double()).float()
 
 
 def attention_backward_plain(q, k, v, dout, valid_len, dropout_rate=0.0, dropout_seed=0):
@@ -142,21 +177,36 @@ def _dropout_args(rate: float, seed: Optional[SeedRef]):
     return 1, seed.base.data_ptr(), seed.index, threshold, scale
 
 
-def _launch_fwd(q, k, v, valid_len, rate, seed) -> torch.Tensor:
+def _launch_fwd(q, k, v, valid_len, rate, seed, library: str = "attention_fwd") -> torch.Tensor:
+    """Launch the forward kernel of ``library`` (``attention_fwd``, f32, or
+    ``attention_fwd_bf16``) on checked CUDA operands; returns the output."""
     B, H, L, Dh = q.shape
     out = torch.empty_like(q)
     if q.numel() == 0:
         return out
-    fn = _build.function("attention_fwd", "gan_attention_fwd", _FWD_ARGTYPES)
+    fn = _build.function(library, f"gan_{library}", _FWD_ARGTYPES)
     with torch.cuda.device(q.device):
         code = fn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             B, H, L, Dh, valid_len.data_ptr(), 1.0 / math.sqrt(Dh), *_dropout_args(rate, seed),
             torch.cuda.current_stream(q.device).cuda_stream,
         )
-    _build.check(code, "attention_fwd")
-    _build.count_launch(fused_attention)
+    _build.check(code, library)
     return out
+
+
+def attention_fwd_bf16(q, k, v, valid_len: torch.Tensor, rate: float,
+                       seed: Optional[SeedRef]) -> torch.Tensor:
+    """Launch ``csrc/attention_fwd_bf16.cu`` on bf16 CUDA operands that
+    :func:`fused_attention` has checked (``valid_len`` a 0-d int32 tensor on
+    their device, ``seed`` a :class:`~.dropout.SeedRef` where ``rate > 0``);
+    returns the bf16 output.  Counts its launches."""
+    out = _launch_fwd(q, k, v, valid_len, rate, seed, "attention_fwd_bf16")
+    _build.count_launch(attention_fwd_bf16)
+    return out
+
+
+attention_fwd_bf16.launches = 0  # bf16 forward kernel launches since the caller last reset it
 
 
 class _FusedAttention(torch.autograd.Function):
@@ -166,7 +216,9 @@ class _FusedAttention(torch.autograd.Function):
     def forward(ctx, q, k, v, valid_len, rate, seed):
         ctx.save_for_backward(q, k, v)
         ctx.valid_len, ctx.rate, ctx.seed = valid_len, rate, seed
-        return _launch_fwd(q, k, v, valid_len, rate, seed)
+        out = _launch_fwd(q, k, v, valid_len, rate, seed)
+        _build.count_launch(fused_attention)
+        return out
 
     @staticmethod
     def backward(ctx, dout):
@@ -191,8 +243,9 @@ def fused_attention(
     default ``L``) masks the keys at positions ``>=`` it.  ``dropout_rate >
     0`` applies attention-weight dropout drawn from ``dropout_seed`` (a host
     int or a :class:`~.dropout.SeedRef`; default 0).  On a CUDA tensor the
-    kernels take float32, contiguous operands with ``L <= 128`` and ``Dh <=
-    64`` and raise on anything else.  Differentiable in q, k and v.
+    kernels take float32 or bfloat16, contiguous operands with ``L <= 128``
+    and ``Dh <= 64`` and raise on anything else.  Differentiable in q, k and
+    v at float32; at bfloat16 the forward only.
     """
     B, H, L, Dh = _check_shapes(q, k, v)
     valid_len = L if valid_len is None else valid_len
@@ -201,12 +254,16 @@ def fused_attention(
     rate = float(dropout_rate)
     seed = 0 if dropout_seed is None else dropout_seed
     threshold_and_scale(rate)  # refuses a rate outside [0, 1)
+    refuse_bf16_grad("fused_attention", (q, k, v))
     if q.device.type == "cpu":
         return attention_plain(q, k, v, valid_len, rate, seed)
-    _check_cuda_operands("fused_attention", (q, k, v), q.device)
+    _check_cuda_operands("fused_attention", (q, k, v), q.device, FORWARD_DTYPES)
     _check_kernel_geometry("fused_attention", L, Dh)
-    return _FusedAttention.apply(q, k, v, _device_valid_len(valid_len, q.device), rate,
-                                 device_seed(seed, q.device) if rate > 0.0 else None)
+    args = (_device_valid_len(valid_len, q.device), rate,
+            device_seed(seed, q.device) if rate > 0.0 else None)
+    if q.dtype == torch.bfloat16:
+        return attention_fwd_bf16(q, k, v, *args)
+    return _FusedAttention.apply(q, k, v, *args)
 
 
 fused_attention.launches = 0  # forward kernel launches since the caller last reset it
@@ -225,8 +282,11 @@ def fused_attention_backward(
     ``dout``, with the forward's ``valid_len``, rate and seed (each as
     :func:`fused_attention` takes it).  CPU tensors:
     :func:`attention_backward_plain`; CUDA tensors: ``attention_bwd.cu``.
-    ``dout`` is made contiguous here (autograd hands over a permuted view)."""
+    ``dout`` is made contiguous here (autograd hands over a permuted view).
+    float32 only: bf16 raises ``NotImplementedError`` (:data:`BF16_BACKWARD`)."""
     B, H, L, Dh = _check_shapes(q, k, v)
+    if torch.bfloat16 in (q.dtype, k.dtype, v.dtype, dout.dtype):
+        raise NotImplementedError(f"fused_attention_backward: no bf16 backward yet ({BF16_BACKWARD})")
     if dout.shape != q.shape:
         raise ValueError(f"dout {tuple(dout.shape)} does not match q {tuple(q.shape)}")
     if not isinstance(valid_len, torch.Tensor):
@@ -259,13 +319,26 @@ def fused_attention_backward(
 fused_attention_backward.launches = 0  # backward kernel launches since the last reset
 
 
-def _check_cuda_operands(op: str, tensors, device: torch.device) -> None:
+def refuse_bf16_grad(op: str, tensors) -> None:
+    """Raise ``NotImplementedError`` where a bf16 call would need a gradient:
+    the bf16 kernels are forward only (:data:`BF16_BACKWARD`)."""
+    if (torch.is_grad_enabled() and any(t.dtype == torch.bfloat16 for t in tensors)
+            and any(t.requires_grad for t in tensors)):
+        raise NotImplementedError(
+            f"{op}: bfloat16 runs the forward only; no bf16 backward yet ({BF16_BACKWARD})")
+
+
+def _check_cuda_operands(op: str, tensors, device: torch.device,
+                         dtypes=(torch.float32,)) -> None:
+    """Device, one dtype among ``dtypes`` for all, contiguity."""
     if device.type != "cuda":
         raise ValueError(f"{op}: tensors on {device}; the port runs on cpu or cuda")
     for t in tensors:
         if t.device != device:
             raise ValueError(f"{op}: operands on {t.device} and {device}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{op}: the CUDA kernel takes float32, got {t.dtype}")
+        if t.dtype not in dtypes or t.dtype != tensors[0].dtype:
+            names = " or ".join(str(d).replace("torch.", "") for d in dtypes)
+            raise TypeError(f"{op}: the CUDA kernel takes {names} operands of one dtype, "
+                            f"got {t.dtype} beside {tensors[0].dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{op}: the CUDA kernel takes contiguous operands")

@@ -52,6 +52,24 @@ to a workspace of :func:`bwd_workspace_floats` floats, and a second kernel
 sums the partials in ascending chunk order.
 All four geometries of the path pass both:
 100->2048->100, 512->2048->512, 100->512->100 and 512->1024->100.
+
+bfloat16 operands run the forward only, at the JAX kernel's rounding
+points (``gan_ffn_tpu/ops/mlp.py:107-146``): x, b1 and b2 read as f32, the
+pre chain in f32 and t1 rounded to bf16 for the first product, z1 with f32
+sums + b1 and the mid chain in f32, a1 rounded to bf16, z2 with f32 sums +
+b2 and the post chain in f32, the output rounded to bf16.  :func:`mlp_plain`
+rounds at the same points; on CUDA bf16 tensors :func:`mlp_fwd_bf16`
+launches ``csrc/mlp_fwd_bf16.cu`` (the same d_ff split as the f32 forward),
+held to the plain version within 2^-8 * max(1, max |ref|) with at least 99%
+of the elements identical.  Both take z1 and z2 as the exact sums of the
+bf16 products rounded to f32 once (``ops.attention.exact_matmul``; the
+kernel on the f64 tensor cores), so their roundings do not depend on the
+order of the sums.  The bf16 tensor cores truncate their sums, and a z1 one
+ulp off at a bf16 boundary changes an a1 that every output of its row
+reads (the kernel's notes have the measurements).  A bf16 call that would
+need a gradient raises ``NotImplementedError`` on any device
+(``ops.attention.BF16_BACKWARD``).  :func:`fused_mlp_supported` gives the
+same answer at both dtypes.
 """
 
 from __future__ import annotations
@@ -63,7 +81,8 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
-from .attention import _check_cuda_operands, device_seed
+from .attention import (BF16_BACKWARD, FORWARD_DTYPES, _check_cuda_operands, device_seed,
+                        exact_matmul, refuse_bf16_grad)
 from .dropout import (STREAM_MID, STREAM_POST, STREAM_PRE, Seed, keep_scale,
                       threshold_and_scale)
 
@@ -81,6 +100,8 @@ FWD_CHUNK_TILES = 4
 _CHAIN_ARGTYPES = [ctypes.c_int] * 4 + [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 3
 _FWD_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + _CHAIN_ARGTYPES
                  + [ctypes.c_void_p])
+_FWD_BF16_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + _CHAIN_ARGTYPES
+                      + [ctypes.c_void_p])
 _BWD_ARGTYPES = ([ctypes.c_void_p] * 16 + [ctypes.c_int] * 4 + _CHAIN_ARGTYPES
                  + [ctypes.c_void_p])
 
@@ -203,29 +224,36 @@ def _parse_chain(pre, mid, post) -> Tuple[Tuple, Tuple[float, float, float]]:
 def mlp_plain(x, w1, b1, w2, b2, pre=None, mid=("relu", "act_first", 0.0), post=None,
               dropout_seed: Seed = 0):
     """The same function in plain PyTorch: the CPU path, and the reference
-    the kernel is held against on the card.  Differentiable."""
+    the kernel is held against on the card.  The chains run in f32; at bf16
+    the products' operands t1 and a1 and the output are rounded to bf16,
+    where the JAX kernel rounds them, and the products' sums are exact,
+    rounded to f32 (the module's docstring).  Differentiable."""
     (a_pre, a_mid, order, a_post), (r_pre, r_mid, r_post) = _parse_chain(pre, mid, post)
     K, H, N = w1.shape[0], w1.shape[1], w2.shape[1]
     lead = x.shape[:-1]
-    t = x.reshape(-1, K)
+    dtype = x.dtype
+    t = x.reshape(-1, K).float()
     M = t.shape[0]
 
     def mask(stream, cols, rate):
         return keep_scale(dropout_seed, stream, (M, cols), rate, x.device)
 
+    def product(a, w):  # bf16: the operand rounded, the sum exact, then f32
+        return torch.matmul(a, w) if dtype == torch.float32 else exact_matmul(a.to(dtype), w)
+
     t = _act(a_pre, t)
     if a_pre is not None and r_pre > 0.0:
         t = t * mask(STREAM_PRE, K, r_pre)
-    z = torch.matmul(t, w1) + b1
+    z = product(t, w1) + b1.float()
     if r_mid > 0.0:
         m = mask(STREAM_MID, H, r_mid)
         h = _act(a_mid, z * m) if order == "drop_first" else _act(a_mid, z) * m
     else:
         h = _act(a_mid, z)
-    z = torch.matmul(h, w2) + b2
+    z = product(h, w2) + b2.float()
     if a_post is not None and r_post > 0.0:
         z = z * mask(STREAM_POST, N, r_post)
-    return _act(a_post, z).reshape(*lead, N)
+    return _act(a_post, z).to(dtype).reshape(*lead, N)
 
 
 def mlp_backward_plain(x, w1, b1, w2, b2, dout, pre=None, mid=("relu", "act_first", 0.0),
@@ -258,6 +286,35 @@ def _chain_args(pre, mid, post, seed, device):
             None if ref is None else ref.base.data_ptr(), 0 if ref is None else ref.index,
             *(ctypes.addressof(a) for a in arrays))
     return args, (arrays, ref)
+
+
+def mlp_fwd_bf16(x2, w1, b1, w2, b2, chain, seed) -> torch.Tensor:
+    """Launch ``csrc/mlp_fwd_bf16.cu`` on bf16 CUDA operands that
+    :func:`fused_mlp` has checked (``x2 (M, K)``, ``chain`` its ``(pre, mid,
+    post)``, ``seed`` a host int or a :class:`~.dropout.SeedRef`); returns
+    the bf16 ``(M, N)`` output.  Counts its launches."""
+    M, K = x2.shape
+    H, N = w2.shape
+    out = torch.empty((M, N), dtype=x2.dtype, device=x2.device)
+    if M == 0:
+        return out
+    workspace = _build.function("mlp_fwd_bf16", "gan_mlp_fwd_bf16_workspace_floats",
+                                [ctypes.c_int] * 4, ctypes.c_longlong)
+    ws = torch.empty(workspace(M, K, H, N), dtype=torch.float32, device=x2.device)
+    fn = _build.function("mlp_fwd_bf16", "gan_mlp_fwd_bf16", _FWD_BF16_ARGTYPES)
+    args, _keep = _chain_args(*chain, seed, x2.device)
+    with torch.cuda.device(x2.device):
+        code = fn(
+            x2.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
+            out.data_ptr(), ws.data_ptr(), M, K, H, N, *args,
+            torch.cuda.current_stream(x2.device).cuda_stream,
+        )
+    _build.check(code, "mlp_fwd_bf16")
+    _build.count_launch(mlp_fwd_bf16)
+    return out
+
+
+mlp_fwd_bf16.launches = 0  # bf16 forward kernel launches since the caller last reset it
 
 
 def _launch_fwd(x2, w1, b1, w2, b2, chain, seed) -> torch.Tensor:
@@ -325,16 +382,18 @@ def fused_mlp(
     ``w1 (K, H)``, ``b1 (H,)``, ``w2 (H, N)``, ``b2 (N,)``.  ``dropout_seed``
     (a host int or a :class:`~.dropout.SeedRef`, default 0) draws every mask
     of the call.  On CUDA tensors
-    the kernels take float32, contiguous operands in a geometry that
-    :func:`fused_mlp_supported` accepts, and raise on anything else.
-    Differentiable in every tensor argument.
+    the kernels take float32 or bfloat16, contiguous operands of one dtype
+    in a geometry that :func:`fused_mlp_supported` accepts, and raise on
+    anything else.  Differentiable in every tensor argument at float32; at
+    bfloat16 the forward only.
     """
     _parse_chain(pre, mid, post)
     K, H, N = _check_geometry(x, w1, b1, w2, b2)
     seed = 0 if dropout_seed is None else dropout_seed
+    refuse_bf16_grad("fused_mlp", (x, w1, b1, w2, b2))
     if x.device.type == "cpu":
         return mlp_plain(x, w1, b1, w2, b2, pre, mid, post, seed)
-    _check_cuda_operands("fused_mlp", (x, w1, b1, w2, b2), x.device)
+    _check_cuda_operands("fused_mlp", (x, w1, b1, w2, b2), x.device, FORWARD_DTYPES)
     lead = x.shape[:-1]
     M = x.numel() // K
     if not fused_mlp_supported(K, H, N, max(M, 1)):
@@ -344,7 +403,8 @@ def fused_mlp(
         )
     if any(_drop_on(pre, mid, post)):
         seed = device_seed(seed, x.device)  # once, so that the backward reads the same
-    out = _FusedMLP.apply(x.reshape(M, K), w1, b1, w2, b2, (pre, mid, post), seed)
+    launch = mlp_fwd_bf16 if x.dtype == torch.bfloat16 else _FusedMLP.apply
+    out = launch(x.reshape(M, K), w1, b1, w2, b2, (pre, mid, post), seed)
     return out.reshape(*lead, N)
 
 
@@ -357,8 +417,11 @@ def fused_mlp_backward(x, w1, b1, w2, b2, dout, pre=None, mid=("relu", "act_firs
     for the upstream gradient ``dout (M, N)``, with the forward's chain and
     seed.  CPU tensors: :func:`mlp_backward_plain`; CUDA tensors:
     ``mlp_bwd.cu`` (its launches, scratch buffers and workspace, one
-    call)."""
+    call).  float32 only: bf16 raises ``NotImplementedError``
+    (``ops.attention.BF16_BACKWARD``)."""
     K, H, N = _check_geometry(x, w1, b1, w2, b2)
+    if any(t.dtype == torch.bfloat16 for t in (x, w1, b1, w2, b2, dout)):
+        raise NotImplementedError(f"fused_mlp_backward: no bf16 backward yet ({BF16_BACKWARD})")
     if x.dim() != 2 or dout.shape != (x.shape[0], N):
         raise ValueError(f"fused_mlp_backward takes x (M, K) and dout (M, N), got "
                          f"{tuple(x.shape)} and {tuple(dout.shape)}")

@@ -10,12 +10,24 @@
   with the JAX class's policy: request shapes are padded up to the bucket
   grid (time) and the batch grid, padding is zeros, keys at and beyond
   ``valid_len`` are masked, and the result is sliced back.
+- Two deployment variants compose, as in the JAX package (``cli/export.py
+  --dtype bf16`` / ``--weights int8``).  :func:`bf16_variant` gives the
+  model at compute dtype bfloat16 with every parameter stored as bfloat16;
+  its forward runs the bf16 kernels.  :func:`quantize_weights_int8` stores
+  every float parameter with two or more axes as int8 with one float32
+  scale per output channel (per row of the port's ``(out, in)`` weights,
+  under ``"<name>:scale"``), which the loader dequantizes into the model's
+  dtype (:func:`dequantize_weights`).  The metadata's ``dtype`` (the
+  compute dtype, which the parameters are stored at) and ``weights``
+  (``dtype`` or ``"int8"``) say which; log-probs are float32 in every
+  variant.
 
 The JAX artifact pins the XLA paths so one StableHLO blob runs on every
 platform.  The port has no such blob to protect: its forward runs the
 hand-written kernels on the card at every attention and MLP site.  Entry
 points pin float32 matmuls to full precision (TF32 off for matmuls and
-cuDNN), which the card-vs-CPU agreement checks assume.
+cuDNN) and bf16 ones to float32 sums, which the card-vs-CPU agreement
+checks assume.
 """
 
 from __future__ import annotations
@@ -33,15 +45,123 @@ import torch.nn.functional as F
 from .models.gan_ffn import GAN_FFN
 
 ARTIFACT_VERSION = 1
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}  # meta["dtype"] -> torch
+SCALE = ":scale"  # suffix of an int8 tensor's scale in an artifact's state_dict
 DEFAULT_BUCKETS = (32, 64, 96, 112)  # gan_ffn_tpu/data/loaders.py
 # IEMOCAP emotion order (gan_ffn_tpu/data/datasets.py label_names)
 DEFAULT_LABEL_NAMES = ("happy", "sad", "neutral", "angry", "excited", "frustrated")
 
 
 def pin_full_f32() -> None:
-    """Turn TF32 off for float32 matmuls and convolutions, process-wide."""
+    """Turn TF32 off for float32 matmuls and convolutions, and reduced
+    precision off in bf16 matmuls' sums (the JAX package sums bf16 products
+    in float32), process-wide."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+
+
+def model_config(model: GAN_FFN) -> Dict[str, int]:
+    """The metadata's ``config``: what :func:`build_gan_ffn` rebuilds ``model`` from."""
+    return {"n_classes": int(model.n_classes), "D_h": int(model.D_h),
+            "gen_num_layers": int(model.gen_num_layers)}
+
+
+def dtype_name(model: GAN_FFN) -> str:
+    """The compute dtype of ``model`` as the metadata names it."""
+    return "float32" if model.dtype is None else str(model.dtype).replace("torch.", "")
+
+
+def build_gan_ffn(config: Mapping[str, Any], dtype: str, device, **kw) -> GAN_FFN:
+    """A ``GAN_FFN`` of ``config`` (the metadata's) and ``kw`` at compute
+    ``dtype`` (a :data:`DTYPES` name), its parameters stored at that dtype,
+    on ``device``; its weights are drawn anew."""
+    torch_dtype = DTYPES[dtype]
+    model = GAN_FFN(n_classes=config["n_classes"], D_h=config["D_h"],
+                    gen_num_layers=config["gen_num_layers"], device=device,
+                    dtype=None if torch_dtype == torch.float32 else torch_dtype, **kw)
+    return model.to(torch_dtype)
+
+
+def bf16_variant(model: GAN_FFN) -> GAN_FFN:
+    """The bfloat16 deployment variant of ``model`` (counterpart of
+    ``gan_ffn_tpu/serving.py::bf16_variant``): a ``GAN_FFN`` at compute
+    dtype bfloat16 whose parameters are ``model``'s rounded to bfloat16, on
+    its device and in its mode.  Against ``model`` at compute dtype bf16
+    with float32 parameters (``cli/predict.py --bf16``) it differs only in
+    the LayerNorm scales and biases, which the JAX package too keeps in
+    float32 there and rounds here."""
+    device = next(model.parameters()).device
+    variant = build_gan_ffn(model_config(model), "bfloat16", device, dropout=model.dropout,
+                            gen_dropout=model.gen_dropout)
+    variant.load_state_dict(model.state_dict())  # rounded to the bf16 parameters
+    return variant.train(model.training)
+
+
+def quantize_weights_int8(state_dict: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """Weight-only per-output-channel symmetric int8 quantization
+    (counterpart of ``gan_ffn_tpu/serving.py::quantize_weights_int8``).
+
+    Every float tensor with two or more axes becomes an int8 ``q`` under its
+    name and a float32 ``scale`` under ``name + ":scale"``, one per output
+    channel: ``scale = max |x| / 127`` over every axis but the first (the
+    port's weights are ``(out, in)``, the JAX kernels ``(in, out)``, so the
+    scale of a row is that of a JAX column), 1 where that max is 0, and ``q
+    = clip(round(x / scale), -127, 127)`` (round half to even), with ``x``
+    in float32.  Biases and LayerNorm parameters pass through unchanged."""
+    out: Dict[str, torch.Tensor] = {}
+    for name, x in state_dict.items():
+        if x.dim() >= 2 and x.is_floating_point():
+            xf = x.detach().float()
+            scale = xf.abs().amax(dim=tuple(range(1, x.dim())), keepdim=True) / 127.0
+            scale = torch.where(scale == 0, torch.ones_like(scale), scale)
+            out[name] = torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8)
+            out[name + SCALE] = scale
+        else:
+            out[name] = x
+    return out
+
+
+def dequantize_weights(quantized: Mapping[str, torch.Tensor],
+                       template: Optional[Mapping[str, torch.Tensor]] = None
+                       ) -> Dict[str, torch.Tensor]:
+    """The ``state_dict`` of :func:`quantize_weights_int8`'s output: each
+    int8 ``q`` as ``(q.float() * scale)`` cast to the dtype of the same key
+    in ``template`` (float32 without one); the rest as it is."""
+    out: Dict[str, torch.Tensor] = {}
+    for name, x in quantized.items():
+        if name.endswith(SCALE):
+            continue
+        if x.dtype == torch.int8:
+            dtype = torch.float32 if template is None else template[name].dtype
+            x = (x.float() * quantized[name + SCALE]).to(dtype)
+        out[name] = x
+    return out
+
+
+def check_state(meta: Mapping[str, Any], state: Mapping[str, torch.Tensor]) -> None:
+    """Raise ``ValueError`` unless ``state``'s tensors are what ``meta``
+    says: its ``dtype`` one of :data:`DTYPES`, its ``weights`` that dtype or
+    ``"int8"``; every float tensor at the dtype, but the int8 ones, each with
+    its float32 scale, and no scale without its int8 tensor."""
+    dtype, weights = meta.get("dtype"), meta.get("weights")
+    if dtype not in DTYPES:
+        raise ValueError(f"artifact dtype {dtype!r}: expected one of {sorted(DTYPES)}")
+    if weights not in (dtype, "int8"):
+        raise ValueError(f"artifact weights {weights!r}: expected {dtype!r} or 'int8'")
+    for name, t in state.items():
+        if name.endswith(SCALE):
+            q = state.get(name[: -len(SCALE)])
+            if weights != "int8" or q is None or q.dtype != torch.int8:
+                raise ValueError(f"artifact scale {name!r} without its int8 tensor")
+            if t.dtype != torch.float32:
+                raise ValueError(f"artifact scale {name!r} is {t.dtype}, expected float32")
+        elif t.dtype == torch.int8:
+            if weights != "int8" or name + SCALE not in state:
+                raise ValueError(f"artifact int8 tensor {name!r} without its scale")
+        elif t.dtype != DTYPES[dtype]:
+            raise ValueError(f"artifact tensor {name!r} is {t.dtype}; its weights are "
+                             f"{weights!r} at dtype {dtype!r}")
 
 
 def _default_inputs_gan_ffn(d_audio: int, d_visual: int, d_text: int):
@@ -60,9 +180,13 @@ def export_classifier(
     batch_size: int = 32,
     buckets: Sequence[int] = DEFAULT_BUCKETS,
     label_names: Sequence[str] = DEFAULT_LABEL_NAMES,
+    weights_int8: bool = False,
 ) -> Dict[str, Any]:
     """Write ``model`` (a ``GAN_FFN``) as a serving artifact to ``path`` (a
-    file path or a writable binary file); returns the metadata."""
+    file path or a writable binary file); returns the metadata.  The
+    parameters are stored at the model's compute dtype (so a bf16 model with
+    float32 parameters is stored as its :func:`bf16_variant`), and with
+    ``weights_int8`` quantized by :func:`quantize_weights_int8`."""
     if not isinstance(model, GAN_FFN):
         raise TypeError(f"export_classifier takes a GAN_FFN, got {type(model).__name__}")
     if buckets and max(buckets) > max_len:
@@ -81,15 +205,14 @@ def export_classifier(
         "dims": {s["name"]: s["dim"] for s in inputs},
         "n_classes": int(model.n_classes),
         "label_names": list(label_names),
-        "dtype": "float32",
-        "weights": "float32",
-        "config": {
-            "n_classes": int(model.n_classes),
-            "D_h": int(model.D_h),
-            "gen_num_layers": int(model.gen_num_layers),
-        },
+        "dtype": dtype_name(model),  # the compute dtype, which the parameters are stored at
+        "weights": "int8" if weights_int8 else dtype_name(model),
+        "config": model_config(model),
     }
-    state = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    storage = DTYPES[meta["dtype"]]
+    state = {k: v.detach().cpu().to(storage) for k, v in model.state_dict().items()}
+    if weights_int8:
+        state = quantize_weights_int8(state)
     torch.save({"meta": meta, "state_dict": state}, path)
     return meta
 
@@ -101,7 +224,10 @@ class ServingClassifier:
     bucket grid (time) and to the batch policy: multiples of the artifact's
     ``batch_size``, or with ``batch_grid`` (e.g. ``(1, 4, 8, 32)``) the next
     grid size, then ``batch_size`` multiples beyond the grid.
-    ``quantize=False`` runs exact request shapes.
+    ``quantize=False`` runs exact request shapes.  The model is built at the
+    artifact's ``dtype`` (its parameters too) before the weights are loaded,
+    int8 ones dequantized into it; ``log_probs`` are float32 in every
+    variant.
     """
 
     def __init__(self, meta: Mapping[str, Any], state_dict: Mapping[str, torch.Tensor], *,
@@ -135,11 +261,12 @@ class ServingClassifier:
         )
         self.device = torch.device(device)
         pin_full_f32()
-        cfg = meta["config"]
-        self.model = GAN_FFN(
-            n_classes=cfg["n_classes"], D_h=cfg["D_h"],
-            gen_num_layers=cfg["gen_num_layers"], device=self.device,
-        )
+        check_state(meta, state_dict)
+        # at the artifact's dtype first: load_state_dict copies into the
+        # parameters' dtype, so a float32 module would serve a bf16 artifact in float32
+        self.model = build_gan_ffn(meta["config"], self.dtype, self.device)
+        if self.weights == "int8":
+            state_dict = dequantize_weights(state_dict, self.model.state_dict())
         self.model.load_state_dict(state_dict)
         self.model.eval()
 

@@ -19,6 +19,15 @@ tensors, the seed derived from a step's base (``ops.dropout.SeedRef``).  Toleran
 and both MLP kernels max |diff| <= 1e-4 * max(1, max |ref|) (sums of f32
 products in another order, and erff against torch's erf).  The backward
 kernels sum in a fixed order, so two calls give identical bits.
+
+The bf16 forward kernels (``attention_fwd_bf16``, ``mlp_fwd_bf16``) are
+held to the plain versions at bf16, which round at the same points, within
+max |diff| <= 2^-8 * max(1, max |ref|) (bf16's unit roundoff at the
+largest output) with at least 99% of the elements identical (+0 and -0 as
+one value: a dropped weight's zero products carry either sign); both take
+each sum exactly and round it to f32 once, so a rounded value differs only
+where an intermediate lies within about an f32 ulp of a rounding boundary.
+Two calls give identical bits.
 """
 
 import numpy as np
@@ -386,3 +395,106 @@ def test_kernels_read_valid_len_and_seed_from_device_memory(cuda, index):
     for g, w in zip(M.fused_mlp_backward(x, w1, b1, w2, b2, dout, **cfg, dropout_seed=ref),
                     M.mlp_backward_plain(x, w1, b1, w2, b2, dout, **cfg, dropout_seed=seed)):
         _close(g, w, "mlp backward")
+
+
+BF16_TOL = 2.0 ** -8  # relative to max(1, max |ref|)
+BF16_SAME = 0.99  # least share of outputs identical
+
+
+def _bf16(rng, shape, scale, device):
+    return _randn(rng, shape, scale, device).to(torch.bfloat16)
+
+
+def _bf16_close(got, want, what):
+    assert got.dtype == want.dtype == torch.bfloat16 and got.shape == want.shape, what
+    tol = BF16_TOL * max(1.0, want.float().abs().max().item())
+    err = (got.float() - want.float()).abs().max().item()
+    same = (got == want).double().mean().item()  # +0 and -0 as one value
+    assert err <= tol and same >= BF16_SAME, (
+        f"{what}: max |diff| {err} (limit {tol}), {same:.5f} of the elements identical "
+        f"(limit {BF16_SAME})")
+
+
+@pytest.mark.parametrize("H,Dh", [(10, 10), (8, 64), (3, 7), (2, 16), (2, 33)])
+@pytest.mark.parametrize("L", [1, 17, 37, 112, 128])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_attention_bf16_kernel_matches_plain(cuda, H, Dh, L, rate):
+    rng = np.random.default_rng(L * 100 + Dh + 7)
+    q, k, v = (_bf16(rng, (3, H, L, Dh), 1.0, cuda) for _ in range(3))
+    for vl in _valid_lens(L):
+        before = (A.attention_fwd_bf16.launches, A.fused_attention.launches)
+        got = A.fused_attention(q, k, v, valid_len=vl, dropout_rate=rate, dropout_seed=vl + 3)
+        again = A.fused_attention(q, k, v, valid_len=vl, dropout_rate=rate, dropout_seed=vl + 3)
+        torch.cuda.synchronize()
+        assert (A.attention_fwd_bf16.launches, A.fused_attention.launches) == (
+            before[0] + 2, before[1])
+        _bf16_close(got, A.attention_plain(q, k, v, vl, rate, vl + 3), f"valid_len={vl}")
+        assert torch.equal(got, again), f"valid_len={vl}: two calls differ"
+
+
+@pytest.mark.parametrize(
+    "K,H,N,cfg",
+    [
+        (100, 2048, 100, FFN),
+        (512, 2048, 512, FFN),
+        (100, 512, 100, HEAD),
+        (512, 1024, 100, HEAD),
+        (37, 100, 33, HEAD),  # ragged everywhere: 2-byte copies and single stores
+        (100, 300, 200, HEAD),  # a partial d_ff chunk, 4 output pieces
+    ],
+)
+@pytest.mark.parametrize("rows", [1, 77, 3584])
+@pytest.mark.parametrize("rate", [0.0, 0.2])
+def test_mlp_bf16_kernel_matches_plain(cuda, K, H, N, cfg, rows, rate):
+    rng = np.random.default_rng(K + H + N + rows + 5)
+    x = _bf16(rng, (rows, K), 1.0, cuda)
+    w1, b1 = _bf16(rng, (K, H), K ** -0.5, cuda), _bf16(rng, (H,), 0.05, cuda)
+    w2, b2 = _bf16(rng, (H, N), H ** -0.5, cuda), _bf16(rng, (N,), 0.05, cuda)
+    cfg = {k: (*c[:-1], rate) for k, c in cfg.items()}
+    before = (M.mlp_fwd_bf16.launches, M.fused_mlp.launches)
+    got = M.fused_mlp(x, w1, b1, w2, b2, **cfg, dropout_seed=11)
+    again = M.fused_mlp(x, w1, b1, w2, b2, **cfg, dropout_seed=11)
+    torch.cuda.synchronize()
+    assert (M.mlp_fwd_bf16.launches, M.fused_mlp.launches) == (before[0] + 2, before[1])
+    _bf16_close(got, M.mlp_plain(x, w1, b1, w2, b2, **cfg, dropout_seed=11), "mlp forward")
+    assert torch.equal(got, again), "two calls differ"
+
+
+def test_mlp_bf16_workspace_mirrors_the_split(cuda):
+    from gan_ffn_tpu_torch.ops import _build
+    import ctypes
+
+    fn = _build.function("mlp_fwd_bf16", "gan_mlp_fwd_bf16_workspace_floats",
+                         [ctypes.c_int] * 4, ctypes.c_longlong)
+    for M_, K, H, N in ((3584, 100, 2048, 100), (3584, 512, 1024, 100), (77, 37, 100, 33),
+                        (1, 512, 2048, 512)):
+        assert fn(M_, K, H, N) == M.fwd_workspace_floats(M_, K, H, N)
+
+
+def test_bf16_kernels_read_valid_len_and_seed_from_device_memory(cuda):
+    rng = np.random.default_rng(12)
+    ref = D.SeedRef(torch.tensor(0x5DEECE66D, dtype=torch.int64, device=cuda), 3)
+    seed = D.derive_seed(0x5DEECE66D, 3)
+    q, k, v = (_bf16(rng, (3, 2, 37, 16), 1.0, cuda) for _ in range(3))
+    for vl in (37, 20, 1, 0):
+        tvl = torch.tensor(vl, dtype=torch.int32, device=cuda)
+        _bf16_close(A.fused_attention(q, k, v, valid_len=tvl, dropout_rate=0.1, dropout_seed=ref),
+                    A.attention_plain(q, k, v, vl, 0.1, seed), f"attention valid_len={vl}")
+    x, w1, b1 = _bf16(rng, (77, 100), 1.0, cuda), _bf16(rng, (100, 512), 0.1, cuda), \
+        _bf16(rng, (512,), 0.05, cuda)
+    w2, b2 = _bf16(rng, (512, 100), 512 ** -0.5, cuda), _bf16(rng, (100,), 0.05, cuda)
+    cfg = {k: (*c[:-1], 0.2) for k, c in HEAD.items()}
+    _bf16_close(M.fused_mlp(x, w1, b1, w2, b2, **cfg, dropout_seed=ref),
+                M.mlp_plain(x, w1, b1, w2, b2, **cfg, dropout_seed=seed), "mlp")
+
+
+def test_bf16_kernels_refuse_a_gradient_and_mixed_dtypes(cuda):
+    q = torch.zeros(1, 2, 8, 16, device=cuda, dtype=torch.bfloat16, requires_grad=True)
+    with pytest.raises(NotImplementedError, match="bf16 training"):
+        A.fused_attention(q, q, q)
+    with pytest.raises(TypeError, match="one dtype"):
+        A.fused_attention(q.detach(), q.detach().float(), q.detach())
+    x = torch.zeros(4, 8, device=cuda, dtype=torch.bfloat16)
+    w1, w2 = torch.zeros(8, 16, device=cuda), torch.zeros(16, 8, device=cuda)
+    with pytest.raises(TypeError, match="one dtype"):
+        M.fused_mlp(x, w1, torch.zeros(16, device=cuda), w2, torch.zeros(8, device=cuda))

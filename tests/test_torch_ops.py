@@ -271,4 +271,8 @@ def test_library_path_follows_the_included_headers(tmp_path):
     # every kernel of the port includes the Philox header
     assert all(any(h.name == "philox.cuh" for h in _build.local_headers(p))
                for p in _build.sources().values())
-    assert set(_build.sources()) == {"attention_fwd", "attention_bwd", "mlp_fwd", "mlp_bwd"}
+    assert set(_build.sources()) == {"attention_fwd", "attention_bwd", "mlp_fwd", "mlp_bwd",
+                                     "attention_fwd_bf16", "mlp_fwd_bf16"}
+    # the bf16 forwards follow their tensor-core header too
+    for name in ("attention_fwd_bf16", "mlp_fwd_bf16"):
+        assert "mma_bf16.cuh" in [h.name for h in _build.local_headers(_build.sources()[name])]
