@@ -6,11 +6,12 @@
 Phases, each printing JSON lines; any failure exits non-zero:
 
 1. device   -- the card's name and power limit (nvidia-smi) and torch's view.
-2. build    -- nvcc builds every kernel under gan_ffn_tpu_torch/csrc (six
+2. build    -- nvcc builds every kernel under gan_ffn_tpu_torch/csrc (eight
                libraries: attention_fwd, attention_bwd, mlp_fwd, mlp_bwd and
-               the bf16 forwards attention_fwd_bf16, mlp_fwd_bf16), one
-               process each, all at once; prints each library's nvcc
-               seconds and each kernel's registers and spill bytes.
+               their bf16 twins attention_fwd_bf16, attention_bwd_bf16,
+               mlp_fwd_bf16, mlp_bwd_bf16), one process each, all at once;
+               prints each library's nvcc seconds and each kernel's
+               registers and spill bytes.
 3. kernels  -- each kernel against its plain PyTorch version on the card, at
                the training paths' shapes (L=112 bucket; B=32 on the
                flagship path, B=30 on the DialogueRNN path): attention
@@ -157,16 +158,47 @@ Phases, each printing JSON lines; any failure exits non-zero:
                5's checkpoint and test split: its F1 equals phase 5's
                best-epoch test F1; then --bf16, its F1 beside.
 
+9. bf16_training -- the bf16 backward kernels and both trainers' --bf16.
+               Each bf16 backward kernel against its plain version (which
+               rounds where the JAX kernel does) at every path shape:
+               attention (B,10,112,10) and (B,8,112,64) at B=32 and 30,
+               valid_len 112/90/1/0; MLP at M=3584 and 3360 for the four
+               geometries; each at rate 0 and the path's rate, under phase
+               8's limits, every output of each call (two calls identical in
+               bits).  Times as in phase 3 at the path's rates (and rate 0
+               at B=32) beside the f32 kernel on the same values, the plain
+               version and, for attention, SDPA's bf16 backward; bound_ms
+               at 989 TFLOP/s and 2-byte elements.  The bf16 kernels take
+               the same relu branches (mlp_relu_branches_bf16: no column of
+               db1 may differ, over 786,432 z1 near the kink).  One stage-B and one
+               stage-A step at B=32, L=112, depth 8, every dropout on, bf16
+               and f32 in turns: the bf16 twins at 24 / 24 / 27 / 27 and 240
+               / 192 / 252 / 198 launches per step and no f32 kernel, host
+               ms and the device's busy ms (torch.profiler).  Then the
+               flagship trainer with --bf16 at full width on phase 5's
+               fixture (1 stage-A and 1 stage-B epoch), per batch and with
+               --epoch-fused (traced by torch.profiler: wrappers count the
+               eager first batches, the profiler every batch), and the
+               DialogueRNN trainer with --bf16 (B=30, 1 epoch, loading the
+               bf16 run's networks): the bf16 kernels at the f32 counts and
+               no f32 kernel in each run, f32 checkpoints.  Last, one
+               deterministic bf16 flagship step (depth 8, L=64, B=4) on the
+               card against the CPU's: loss within 1e-2 relative and every
+               gradient within 5e-2 * max(1, max |ref|) (the CPU tests'
+               limits against JAX) and 0.25 of its own max |ref|.
+
 The kernel counts are set to 0 just before the serving, the training, the
-DialogueRNN, the two epoch-fused and the bf16 serving paths run and are
-read just after; the comparisons of phases 3 and 8 do not count.  The
+DialogueRNN, the two epoch-fused, the bf16 serving and the bf16 trainers'
+paths run and are read just after; the comparisons of phases 3, 8 and 9 do
+not count.  The
 kernels read ``valid_len`` and their dropout seed from device memory;
 phases 3 and 8 time them so, with both made once beforehand.  A ``graphs``
 line sums up phase 7.  The line before the last is the ``kernels`` summary (times
 per stage-B train step at B=32, L=112, at the path's dropout rates, the same
 sums at the DialogueRNN step's B=30 shapes, and each kernel's launches per
-stage-A step and per DialogueRNN train step; the bf16 kernels' per bf16
-serving forward); the last line is ``{"ok": true, "device": {...}}``.
+stage-A step and per DialogueRNN train step; the bf16 forwards' per bf16
+serving forward, the bf16 backwards' per bf16 stage-B train step); the last
+line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -244,6 +276,18 @@ BF16_SOURCES = {
                            "gan_ffn_tpu/ops/attention.py:69"),
     "mlp_fwd_bf16": ("gan_ffn_tpu_torch/csrc/mlp_fwd_bf16.cu", "gan_ffn_tpu/ops/mlp.py:134"),
 }
+# Phase 9: the bf16 backward kernels of the same TPU kernels at bf16 operands
+BF16_TRAIN_SOURCES = {
+    "attention_bwd_bf16": ("gan_ffn_tpu_torch/csrc/attention_bwd_bf16.cu",
+                           "gan_ffn_tpu/ops/attention.py:86"),
+    "mlp_bwd_bf16": ("gan_ffn_tpu_torch/csrc/mlp_bwd_bf16.cu", "gan_ffn_tpu/ops/mlp.py:162"),
+}
+# each f32 kernel's bf16 twin: a bf16 training step runs the twins at the f32 counts
+BF16_TWIN = {"attention_fwd": "attention_fwd_bf16", "attention_bwd": "attention_bwd_bf16",
+             "mlp_fwd": "mlp_fwd_bf16", "mlp_bwd": "mlp_bwd_bf16"}
+# a bf16 train step on the card against the CPU's: the CPU tests' limits
+# (tests/test_torch_bf16_train.py): loss relative, every gradient of max(1, max |ref|)
+BF16_STEP_LOSS_TOL, BF16_STEP_GRAD_TOL = 1e-2, 5e-2
 PEAK_BF16_FLOPS = 989e12  # H100 SXM bf16 tensor cores, dense
 # a bf16 kernel against its plain version: max |diff| <= BF16_TOL * max(1, max |ref|)
 # (bf16's unit roundoff) with at least BF16_SAME of the outputs identical (+0 and -0
@@ -322,8 +366,9 @@ def phase_build():
     t0 = time.perf_counter()
     libs = _build.build()
     secs = time.perf_counter() - t0
-    if set(libs) != set(SOURCES) | set(BF16_SOURCES):
-        fail(f"expected the kernels {sorted(SOURCES) + sorted(BF16_SOURCES)}, built {sorted(libs)}")
+    want = set(SOURCES) | set(BF16_SOURCES) | set(BF16_TRAIN_SOURCES)
+    if set(libs) != want:
+        fail(f"expected the kernels {sorted(want)}, built {sorted(libs)}")
     emit({"phase": "build", "seconds": secs, "libraries": {k: str(v.relative_to(REPO)) for k, v in libs.items()},
           "nvcc_seconds": dict(_build.build_seconds),
           "kernels": {name: [{"kernel": r["kernel"], "registers": r.get("registers"),
@@ -873,11 +918,13 @@ def _host_ms(torch, step, n: int):
     return host_ms, enqueue_ms
 
 
-def _step_vs_cpu(torch, cls, kwargs: dict, host_batch: dict, valid_len: int, seed: int) -> dict:
+def _step_vs_cpu(torch, cls, kwargs: dict, host_batch: dict, valid_len: int, seed: int,
+                 loss_tol: float = E2E_TOL, grad_tol: float = E2E_TOL) -> dict:
     """One deterministic classifier train step of ``cls(**kwargs)`` on the
     CPU (plain versions) and on the card from the same weights and batch;
-    fails unless the loss and every parameter's gradient agree within
-    max |diff| / max(1, max |ref|) <= E2E_TOL, and each gradient within
+    fails unless the loss agrees within ``loss_tol`` relative and every
+    parameter's gradient within max |diff| / max(1, max |ref|) <=
+    ``grad_tol`` (both E2E_TOL at f32), and each gradient within
     OWN_SCALE_TOL of its own max |ref|."""
     cpu_model = cls(**kwargs, generator=torch.Generator().manual_seed(seed), device="cpu")
     card_model = cls(**kwargs, device="cuda")
@@ -893,9 +940,10 @@ def _step_vs_cpu(torch, cls, kwargs: dict, host_batch: dict, valid_len: int, see
     errs = {k: max_rel_err(card_grads[k], g) for k, g in cpu_grads.items()}
     worst = max(errs, key=errs.get)
     ref = {k: g.abs().max().item() for k, g in cpu_grads.items()}
-    if not (loss_err <= E2E_TOL and errs[worst] <= E2E_TOL):
-        fail(f"card vs CPU {cls.__name__} train step: loss {loss_err}, gradients {errs[worst]} "
-             f"at {worst} (max |diff| / max(1, max |ref|), max |ref| {ref[worst]}) > {E2E_TOL}")
+    if not (loss_err <= loss_tol and errs[worst] <= grad_tol):
+        fail(f"card vs CPU {cls.__name__} train step: loss {loss_err} (limit {loss_tol}), "
+             f"gradients {errs[worst]} at {worst} (max |diff| / max(1, max |ref|), max |ref| "
+             f"{ref[worst]}; limit {grad_tol})")
     diff = {k: (card_grads[k] - g).abs().max().item() for k, g in cpu_grads.items()}
     own = {k: d / ref[k] if ref[k] else (0.0 if d == 0 else math.inf) for k, d in diff.items()}
     own_worst = max(own, key=own.get)
@@ -1349,26 +1397,40 @@ def _graphs_replay_inputs(torch) -> dict:
     return line
 
 
-def _port_calls(names) -> dict:
-    """Calls of each kernel wrapper in a Counter of kernel names: one launch
-    of its main kernel per call (the MLP backward's dx product)."""
-    calls = dict.fromkeys(SOURCES, 0)
+# each kernel wrapper's call by one launch of its main kernel (the f32 MLP
+# backward's dx product, the bf16 one's z1 launch); the bf16 names first
+CALL_PATTERNS = (
+    ("attention_fwd_bf16", "attention_fwd_bf16_kernel"),
+    ("attention_bwd_bf16", "attention_bwd_bf16_kernel"),
+    ("mlp_fwd_bf16", "mlp_fwd_bf16_kernel"),
+    ("mlp_bwd_bf16", "z1_kernel"),
+    ("attention_fwd", "attention_fwd_kernel"),
+    ("attention_bwd", "attention_bwd_kernel"),
+    ("mlp_fwd", "mlp_fwd_kernel"),
+    ("mlp_bwd", "gemm_kernel<false,true,3>"),
+    ("mlp_bwd", "gemm_kernel<false,true,kEpiDx>"),
+)
+
+
+def _port_calls(names, kernels=tuple(SOURCES)) -> dict:
+    """Calls of each of ``kernels``' wrappers in a Counter of kernel names:
+    one launch of its main kernel per call (CALL_PATTERNS)."""
+    calls = dict.fromkeys(kernels, 0)
     for name, n in names.items():
         flat = re.sub(r"\(anonymous namespace\)::|<unnamed>::|mlp::|\(Epi\)|Epi\)|\(|\s", "", name)
-        if "attention_fwd_kernel" in flat:
-            calls["attention_fwd"] += n
-        elif "attention_bwd_kernel" in flat:
-            calls["attention_bwd"] += n
-        elif "mlp_fwd_kernel" in flat:
-            calls["mlp_fwd"] += n
-        elif "gemm_kernel<false,true,3>" in flat or "gemm_kernel<false,true,kEpiDx>" in flat:
-            calls["mlp_bwd"] += n
+        for kernel, pattern in CALL_PATTERNS:
+            if pattern in flat:
+                if kernel in calls:
+                    calls[kernel] += n
+                break
     return calls
 
 
 REPLAY_TRACES = 3  # traces of one replay at most, until one counts every kernel
 PORT_KERNELS = ("attention_fwd_kernel", "attention_bwd_kernel", "mlp_fwd_kernel",
-                "mlp_fwd_reduce_kernel", "gemm_kernel", "reduce_kernel", "pre_kernel")
+                "mlp_fwd_reduce_kernel", "gemm_kernel", "reduce_kernel", "pre_kernel",
+                "attention_fwd_bf16_kernel", "attention_bwd_bf16_kernel", "mlp_fwd_bf16_kernel",
+                "z1_kernel", "colsum_kernel")
 
 
 def _profile_one(torch, fn):
@@ -1495,7 +1557,8 @@ def _bf16_counters():
     from gan_ffn_tpu_torch.ops import attention as A
     from gan_ffn_tpu_torch.ops import mlp as M
 
-    return {"attention_fwd_bf16": A.attention_fwd_bf16, "mlp_fwd_bf16": M.mlp_fwd_bf16}
+    return {"attention_fwd_bf16": A.attention_fwd_bf16, "mlp_fwd_bf16": M.mlp_fwd_bf16,
+            "attention_bwd_bf16": A.attention_bwd_bf16, "mlp_bwd_bf16": M.mlp_bwd_bf16}
 
 
 def _all_counters():
@@ -1712,6 +1775,346 @@ def phase_bf16_serving(torch, tmp: str) -> dict:
     return {"rows": rows, "err": err, "serving": serving, "predict": predict}
 
 
+# Phase 9: bf16 training
+
+
+def _bf16_backward_kernels(torch) -> dict:
+    """Each bf16 backward kernel against its plain version at every path
+    shape (B=32 and B=30 at L=112; M=3584 and 3360 rows), at rate 0 and the
+    path's rates, under phase 8's limits; timed at the path's rates (and at
+    rate 0 for B=32) beside the f32 kernel on the same values, the plain
+    version and, for attention, SDPA's bf16 backward.  Returns the timing
+    rows by kernel and path and the worst max |diff| and least identical
+    share of each."""
+    import torch.nn.functional as F
+
+    from gan_ffn_tpu_torch.ops import attention as A
+    from gan_ffn_tpu_torch.ops import mlp as Mo
+
+    rows = {name: {"step": [], "drnn": [], "rate0": []} for name in BF16_TRAIN_SOURCES}
+    err = dict.fromkeys(BF16_TRAIN_SOURCES, 0.0)
+    same = dict.fromkeys(BF16_TRAIN_SOURCES, 1.0)
+
+    def check(name, got, again, want, what):
+        for i, (g, h, w) in enumerate(zip(got, again, want)):
+            res = _bf16_check(torch, g, h, w, f"{what} output {i}")
+            err[name] = max(err[name], res["max_abs_err"])
+            same[name] = min(same[name], res["identical"])
+
+    def keep(name, B, rate, count, t):
+        if rate == 0.0:
+            if B == 32:
+                rows[name]["rate0"].append((count, t))
+        else:
+            rows[name]["step" if B == 32 else "drnn"].append((count, t))
+
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    for (B, H, L, Dh), count in {**ATTN_SHAPES, **DRNN_ATTN_SHAPES}.items():
+        q, k, v, dout = (torch.randn(B, H, L, Dh, device="cuda", generator=gen).bfloat16()
+                         for _ in range(4))
+        for rate in (0.0, ATTN_RATE):
+            for vl in (L, 90, 1, 0):
+                seed = 6000 + vl
+                got = A.fused_attention_backward(q, k, v, dout, vl, rate, seed)
+                again = A.fused_attention_backward(q, k, v, dout, vl, rate, seed)
+                torch.cuda.synchronize()
+                check("attention_bwd_bf16", got, again,
+                      A.attention_backward_plain(q, k, v, dout, vl, rate, seed),
+                      f"attention_bwd_bf16 {(B, H, L, Dh)} rate={rate} valid_len={vl}")
+                if vl != L or (rate == 0.0 and B != 32):
+                    continue
+                dvl = torch.full((), vl, dtype=torch.int32, device="cuda")
+                dseed = A.device_seed(seed, q.device)
+                f32 = [x.float() for x in (q, k, v, dout)]
+                leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+                lib_out = F.scaled_dot_product_attention(*leaves, dropout_p=rate)
+                t = {"ms": device_time_ms(torch, lambda: A.fused_attention_backward(
+                        q, k, v, dout, dvl, rate, dseed)),
+                     "f32_kernel_ms": device_time_ms(torch, lambda: A.fused_attention_backward(
+                         *f32, dvl, rate, dseed)),
+                     "plain_ms": device_time_ms(torch, lambda: A.attention_backward_plain(
+                         q, k, v, dout, vl, rate, seed)),
+                     "library_ms": device_time_ms(torch, lambda: torch.autograd.grad(
+                         lib_out, leaves, dout, retain_graph=True))}
+                n_bytes, flops = _attention_bytes_flops(B, H, L, Dh, True)
+                t["bound_ms"], t["bound_by"] = bf16_bound_ms(n_bytes / 2, flops)  # 2-byte elements
+                keep("attention_bwd_bf16", B, rate, count, t)
+                emit({"phase": "bf16_train_kernel", "name": "attention_bwd_bf16",
+                      "shape": [B, H, L, Dh], "rate": rate, "launches_per_step": count,
+                      "timing": t})
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    for M, ((K, Hd, N, site), count) in itertools.product((MLP_ROWS, DRNN_MLP_ROWS),
+                                                          MLP_SHAPES.items()):
+        args32, dout32 = mlp_inputs(torch, gen, M, K, Hd, N, site)
+        args, dout = [t.bfloat16() for t in args32], dout32.bfloat16()
+        for rate in (0.0, SITE_RATE[site]):
+            cfg, seed = site_cfg(site, rate), 7000 + K + N
+            got = Mo.fused_mlp_backward(*args, dout, **cfg, dropout_seed=seed)
+            again = Mo.fused_mlp_backward(*args, dout, **cfg, dropout_seed=seed)
+            torch.cuda.synchronize()
+            check("mlp_bwd_bf16", got, again,
+                  Mo.mlp_backward_plain(*args, dout, **cfg, dropout_seed=seed),
+                  f"mlp_bwd_bf16 {M}x{K}->{Hd}->{N} ({site}) rate={rate}")
+            if rate == 0.0 and M != MLP_ROWS:
+                continue
+            dseed = Mo.device_seed(seed, args[0].device)
+            t = {"ms": device_time_ms(torch, lambda: Mo.fused_mlp_backward(
+                    *args, dout, **cfg, dropout_seed=dseed), reps=11, group=5),
+                 "f32_kernel_ms": device_time_ms(torch, lambda: Mo.fused_mlp_backward(
+                     *args32, dout32, **cfg, dropout_seed=dseed), reps=11, group=5),
+                 "plain_ms": device_time_ms(torch, lambda: Mo.mlp_backward_plain(
+                     *args, dout, **cfg, dropout_seed=seed), reps=11, group=5),
+                 "library_ms": None,
+                 "workspace_bytes": 8 * Mo.bwd_bf16_workspace_doubles(M, K, Hd, N),
+                 "split_launches": Mo.bwd_bf16_launches(M, K, Hd, N)}
+            n_bytes, flops = _mlp_bytes_flops(M, K, Hd, N, site == "head", True)
+            t["bound_ms"], t["bound_by"] = bf16_bound_ms(n_bytes / 2, flops)
+            keep("mlp_bwd_bf16", M // 112, rate, count, t)
+            emit({"phase": "bf16_train_kernel", "name": "mlp_bwd_bf16", "shape": [M, K, Hd, N],
+                  "site": site, "rate": rate, "launches_per_step": count, "timing": t})
+    emit({"phase": "bf16_train_kernels", "max_abs_err": err, "least_identical": same})
+    return {"rows": rows, "err": err, "identical": same}
+
+
+def mlp_relu_branches_bf16(torch, Mo) -> dict:
+    """mlp_relu_branches at bf16: the bf16 kernels take the same branch of
+    relu' (mlp_bwd_bf16's recomputed z1 against mlp_fwd_bf16's).  Rows are
+    x0 plus bf16 noise of 2^-7 (mlp_relu_branches' 1e-6 is lost in bf16),
+    W1 as there, b1 = -(x0 W1) in f64 rounded to bf16, W2 = I, b2 = 0: out
+    > 0 exactly where the forward's z1 > 0.  Eight rows a call with dout =
+    2^r (r = 0 .. 7), so db1 = sum_r 2^r relu'(z1[r, j]), a whole number
+    below 256, is exact at bf16 and names the rows where relu' is 1.  K =
+    100 and 512, and K = 100 with the generator head's gelu pre chain."""
+    H, groups = 512, 64
+    eye = torch.eye(H, device="cuda", dtype=torch.bfloat16)
+    zero = torch.zeros(H, device="cuda", dtype=torch.bfloat16)
+    dout = (2.0 ** torch.arange(8, device="cuda"))[:, None].expand(8, H).bfloat16().contiguous()
+    out = {}
+    for K, pre in ((100, None), (512, None), (100, "gelu")):
+        cfg = dict(mid=("relu", "act_first", 0.0))
+        if pre is not None:
+            cfg["pre"] = (pre, 0.0)
+        rng = np.random.default_rng(K + 3)
+        w1 = torch.from_numpy((rng.standard_normal((K, H)) * K ** -0.5).astype(np.float32)).cuda()
+        w1 = w1.bfloat16()
+        differ = positive = 0
+        for _ in range(groups):
+            x0 = torch.from_numpy(rng.standard_normal(K).astype(np.float32)).cuda()
+            noise = torch.from_numpy(rng.standard_normal((8, K)).astype(np.float32)).cuda()
+            x = (x0 + 2.0 ** -7 * noise).bfloat16()
+            t0 = x0.bfloat16().double()
+            if pre is not None:
+                t0 = torch.nn.functional.gelu(t0)
+            b1 = (-(t0 @ w1.double())).bfloat16()
+            fwd = Mo.fused_mlp(x, w1, b1, eye, zero, **cfg)
+            db1 = Mo.fused_mlp_backward(x, w1, b1, eye, zero, dout, **cfg)[2]
+            want = (dout.double() * (fwd > 0)).sum(0)
+            differ += int((db1.double() != want).sum().item())
+            positive += int((fwd > 0).sum().item())
+        line = {"phase": "bf16_relu_branches", "K": K, "H": H, "pre": pre,
+                "z1": groups * 8 * H, "z1_positive": positive, "columns_fwd_bwd_differ": differ}
+        emit(line)
+        if differ:
+            fail(f"bf16 relu branches {line}: mlp_bwd_bf16's z1 takes other branches than "
+                 "mlp_fwd_bf16's")
+        out[f"K={K},pre={pre}"] = line
+    return out
+
+
+def _bf16_counts_check(counts: dict, want: dict, what: str) -> None:
+    """A bf16 run's launches: the bf16 kernels at ``want`` (by f32 name),
+    every f32 kernel 0 times."""
+    expect = {**dict.fromkeys(SOURCES, 0), **{BF16_TWIN[k]: n for k, n in want.items()}}
+    if {k: counts[k] for k in expect} != expect:
+        fail(f"{what}: launches {counts}, expected {expect} (the bf16 kernels at the f32 "
+             "counts, no f32 kernel)")
+
+
+def _bf16_steps(torch, batch) -> dict:
+    """One stage-B train step and one stage-A step at B=32, L=112, depth 8,
+    every dropout on, at bf16 and at f32 in turns: launches per step (the
+    bf16 twins at the f32 counts, no f32 kernel), host ms and the device's
+    busy ms (torch.profiler, union of the kernels' intervals)."""
+    from gan_ffn_tpu_torch.cli.common import gan_batch_from
+    from gan_ffn_tpu_torch.models import GAN_FFN
+    from gan_ffn_tpu_torch.nn.core import set_dropout_generator
+    from gan_ffn_tpu_torch.ops.dropout import StepSeeds
+    from gan_ffn_tpu_torch.train.gan import GANConfig, init_gan_state, make_gan_train_step
+
+    def stage_b(dtype):
+        model = GAN_FFN(n_classes=6, gen_num_layers=8, generator=torch.Generator().manual_seed(1),
+                        device="cuda", dtype=dtype)
+        set_dropout_generator(model, torch.Generator().manual_seed(2))
+        train_step, _ = _steps(torch, model)
+        return lambda: train_step(batch)
+
+    def stage_a(dtype):
+        state = init_gan_state(GANConfig(num_layers=8, seed=5, dtype=dtype), device="cuda")
+        seeds = StepSeeds(torch.Generator().manual_seed(6))
+        for module in state.modules.values():
+            set_dropout_generator(module, seeds)
+        step = make_gan_train_step(state.modules, state.opts)
+        gan_batch = gan_batch_from(batch)
+        return lambda: step(gan_batch)
+
+    out = {}
+    for kind, make, per in (("stage_b", stage_b, STEP_LAUNCHES),
+                            ("stage_a", stage_a, GAN_STEP_LAUNCHES)):
+        line = {"phase": "bf16_step", "step": kind, "B": 32, "L": 112,
+                "valid_len": batch["host_valid_len"]}
+        turns = (("bf16", torch.bfloat16), ("f32", None))
+        if kind == "stage_b":  # cheap enough to take the turns both ways
+            turns += (("bf16_again", torch.bfloat16),)
+        for name, dtype in turns:
+            step = make(dtype)
+            before = {k: fn.launches for k, fn in _all_counters().items()}
+            step()
+            torch.cuda.synchronize()
+            counts = {k: fn.launches - before[k] for k, fn in _all_counters().items()}
+            if dtype is not None:
+                _bf16_counts_check(counts, per, f"one bf16 {kind} step")
+            host_ms, _ = _host_ms(torch, step, 3)
+            _, n_kernels, busy = _profile_one(torch, step)
+            line[name] = {"launches_per_step": counts, "host_ms": statistics.median(host_ms),
+                          "host_ms_all": host_ms, "device_busy_ms": busy,
+                          "device_kernels": n_kernels}
+            del step
+        emit(line)
+        out[kind] = line
+    return out
+
+
+def _bf16_trainer_runs(torch, tmp: str) -> dict:
+    """Both trainers with --bf16 at full width on phase 5's fixture, every
+    dropout on: the flagship per batch (1 stage-A epoch, 1 stage-B epoch)
+    and with --epoch-fused (the same, one CUDA graph per shape, traced by
+    torch.profiler), the DialogueRNN (B=30, 1 epoch) loading the networks
+    the flagship's bf16 run saved.  The counts are set to 0 just before
+    each run and read just after."""
+    from gan_ffn_tpu_torch.cli import train_iemocap as FLAGSHIP
+    from gan_ffn_tpu_torch.cli import train_iemocap_dialoguernn as DRNN
+    from gan_ffn_tpu_torch.data import get_iemocap_loaders
+    from gan_ffn_tpu_torch.train import graphs as G
+    from gan_ffn_tpu_torch.train.gan import DISC_NAMES, GEN_NAMES
+
+    data = os.path.join(tmp, "iemocap.pkl")
+    gan_train = get_iemocap_loaders(data, batch_size=32, valid=0.1, seed=0)[0]
+    names = tuple(SOURCES) + tuple(BF16_TWIN.values())
+    runs = {}
+    made = []
+    init = G.ShapeGraphs.__init__
+
+    def recording_init(self, *args, **kw):
+        init(self, *args, **kw)
+        made.append(self)
+
+    G.ShapeGraphs.__init__ = recording_init
+    try:
+        for name, cli, argv, B in (
+                ("flagship", FLAGSHIP, ["--GAN-epochs", "1", "--epochs", "1"], 32),
+                ("flagship_epoch_fused", FLAGSHIP, ["--GAN-epochs", "1", "--epochs", "1",
+                                                    "--epoch-fused"], 32),
+                ("dialoguernn", DRNN, ["--epochs", "1"], 30)):
+            save_dir = os.path.join(tmp, "GAN_save_bf16")
+            full = argv + ["--bf16", "--num-layers", "8", "--batch-size", str(B), "--seed", "0",
+                           "--device", "cuda", "--data-path", data, "--model-save-path", save_dir,
+                           "--output-dir", os.path.join(tmp, f"output_bf16_{name}")]
+            fused = "--epoch-fused" in argv
+            made.clear()
+            out, result = io.StringIO(), {}
+            for fn in _all_counters().values():
+                fn.launches = 0
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                if fused:
+                    port, _, busy = _profile_one(torch, lambda: result.update(cli.main(full)))
+                else:
+                    result.update(cli.main(full))
+            torch.cuda.synchronize()
+            counts = {k: fn.launches for k, fn in _all_counters().items()}
+            seconds = time.perf_counter() - t0
+            log = out.getvalue().splitlines()
+            lines = _check_trainer_run(result, log, 1, f"{name} --bf16")
+            train, valid, test = get_iemocap_loaders(data, batch_size=B, valid=0.1, seed=0)
+            gan = len(gan_train) if name.startswith("flagship") else 0
+            batches = {"stage_a": gan, "train": len(train), "eval": len(valid) + len(test)}
+            per = {"stage_a": GAN_STEP_LAUNCHES, "train": STEP_LAUNCHES,
+                   "eval": {k: n * k.endswith("fwd") for k, n in STEP_LAUNCHES.items()}}
+            run = {"cli": cli.__name__, "argv": argv + ["--bf16"], "epochs": lines,
+                   "best_loss": result["best_loss"], "f1": result["f1"], "seconds": seconds,
+                   "launches": counts, "batches": batches}
+            if name == "dialoguernn" and not any("loaded trained GAN" in l for l in log):
+                fail("the DialogueRNN --bf16 trainer did not load the six networks")
+            if name.startswith("flagship"):
+                missing = [n for n in GEN_NAMES + DISC_NAMES
+                           if not os.path.isfile(os.path.join(save_dir, f"{n}.pt"))]
+                saved = torch.load(result["checkpoint"], weights_only=True)
+                if missing or not all(v.dtype == torch.float32 for v in saved.values()):
+                    fail(f"{name} --bf16: missing {missing} or a checkpoint not in f32")
+            if not fused:
+                want = {k: sum(per[m][k] * n for m, n in batches.items()) for k in STEP_LAUNCHES}
+                _bf16_counts_check(counts, want, f"{name} --bf16")
+            else:
+                graphs = {g.mode: g.stats() for g in made}
+                eager = {mode: len(st) for mode, st in graphs.items()}
+                replays = {mode: sum(g["replays"] for g in st) for mode, st in graphs.items()}
+                if any(eager.get(m, 0) + replays.get(m, 0) != n for m, n in batches.items()):
+                    fail(f"{name} --bf16: {eager} eager first batches and {replays} replays, "
+                         f"expected {batches} batches")
+                _bf16_counts_check(counts, {k: sum(per[m][k] * eager.get(m, 0) for m in batches)
+                                            for k in STEP_LAUNCHES}, f"{name} --bf16 (wrappers)")
+                profiled = _port_calls(port, names)
+                want_all = {k: sum(per[m][k] * n for m, n in batches.items()) for k in STEP_LAUNCHES}
+                _bf16_counts_check(profiled, want_all, f"{name} --bf16 (profiler)")
+                if sum(replays.values()) < 1:
+                    fail(f"{name} --bf16 replayed no graph: {graphs}")
+                run.update(eager_first_batches=eager, replays=replays, profiled_calls=profiled,
+                           device_busy_ms=busy)
+            emit({"phase": "bf16_training", "run": name, **run})
+            runs[name] = run
+    finally:
+        G.ShapeGraphs.__init__ = init
+    return runs
+
+
+def _bf16_step_vs_cpu(torch) -> dict:
+    """One deterministic bf16 flagship train step (depth 8, L=64, B=4) on the
+    card against the CPU's from the same weights and batch, within the CPU
+    tests' limits."""
+    from gan_ffn_tpu_torch.models import GAN_FFN
+
+    rng = np.random.default_rng(13)
+    L, B = 64, 4
+    lengths = np.array([64, 50, 33, 10])
+    umask = (np.arange(L)[None, :] < lengths[:, None]).astype(np.float32)
+    host_batch = {
+        "audio": rng.standard_normal((L, B, 100)).astype(np.float32),
+        "visual": rng.standard_normal((L, B, 512)).astype(np.float32),
+        "text": rng.standard_normal((L, B, 100)).astype(np.float32),
+        "umask": umask, "label": rng.integers(0, 6, (B, L)) * umask.astype(np.int64),
+    }
+    res = _step_vs_cpu(torch, GAN_FFN, dict(n_classes=6, gen_num_layers=8, dtype=torch.bfloat16),
+                       host_batch, int(lengths.max()), seed=14, loss_tol=BF16_STEP_LOSS_TOL,
+                       grad_tol=BF16_STEP_GRAD_TOL)
+    emit({"phase": "bf16_train_step_vs_cpu", "L": L, "B": B, **res})
+    return res
+
+
+def phase_bf16_training(torch, tmp: str) -> dict:
+    from gan_ffn_tpu_torch.ops import mlp as Mo
+    from gan_ffn_tpu_torch.train.loop import batch_to_tensors
+    from gan_ffn_tpu_torch.data import get_iemocap_loaders
+
+    kernels = _bf16_backward_kernels(torch)
+    branches = mlp_relu_branches_bf16(torch, Mo)
+    batch = batch_to_tensors(next(iter(get_iemocap_loaders(
+        os.path.join(tmp, "iemocap.pkl"), batch_size=32, valid=0.1, seed=0)[0])), "cuda")
+    steps = _bf16_steps(torch, batch)
+    runs = _bf16_trainer_runs(torch, tmp)
+    vs_cpu = _bf16_step_vs_cpu(torch)
+    return {**kernels, "relu_branches": branches, "steps": steps, "runs": runs, "vs_cpu": vs_cpu}
+
+
 def main() -> None:
     import torch
 
@@ -1734,6 +2137,7 @@ def main() -> None:
         drnn_counts, drnn_step = phase_dialoguernn(torch, tmp)
         graphs = phase_graphs(torch, tmp)
         bf16 = phase_bf16_serving(torch, tmp)
+        bf16_train = phase_bf16_training(torch, tmp)
 
     emit({"graphs": {
         "card": info["nvidia_smi"][0],
@@ -1802,11 +2206,45 @@ def main() -> None:
             "share_of_bf16_serving_forward": total("ms") / variant["forward_device_ms_L112_B32"],
             "bf16_int8_serving_launches": bf16["serving"]["variants"]["bf16+int8"]["launches"][name],
             "predict_bf16_launches": bf16["predict"]["bf16"]["launches"][name],
+            "bf16_training_launches": bf16_train["runs"]["flagship"]["launches"][name],
+        })
+    runs = bf16_train["runs"]
+    for name, source in BF16_TRAIN_SOURCES.items():
+        r = bf16_train["rows"][name]
+        total = lambda key, rs=r["step"]: sum(n * x[key] for n, x in rs)  # noqa: E731
+        drnn = lambda key, rs=r["drnn"]: sum(n * x[key] for n, x in rs)  # noqa: E731
+        lib = name == "attention_bwd_bf16"
+        kernels.append({
+            "name": name, "route": "cuda", "source": source[0], "replaces": source[1],
+            "launches": runs["flagship"]["launches"][name], "max_abs_err": bf16_train["err"][name],
+            "least_identical": bf16_train["identical"][name],
+            "ms": total("ms"), "kernel_ms": total("ms"), "plain_ms": total("plain_ms"),
+            "bound_ms": total("bound_ms"),
+            "bound_by": max(r["step"], key=lambda nr: nr[0] * nr[1]["bound_ms"])[1]["bound_by"],
+            "library_ms": total("library_ms") if lib else None,
+            "per": "one bf16 stage-B train step at B=32, L=112 with the path's dropout rates: "
+                   "launches_per_step calls at the shapes of the bf16_train_kernel lines",
+            "launches_per_step": sum(n for n, _ in r["step"]),
+            "f32_kernel_ms": total("f32_kernel_ms"),
+            "rate0_ms": sum(n * x["ms"] for n, x in r["rate0"]),
+            "gan_step_launches": bf16_train["steps"]["stage_a"]["bf16"]["launches_per_step"][name],
+            "dialoguernn_launches": runs["dialoguernn"]["launches"][name],
+            "epoch_fused_launches": runs["flagship_epoch_fused"]["profiled_calls"][name],
+            "dialoguernn_step_kernel_ms": drnn("ms"), "dialoguernn_step_plain_ms": drnn("plain_ms"),
+            "dialoguernn_step_bound_ms": drnn("bound_ms"),
+            "dialoguernn_step_library_ms": drnn("library_ms") if lib else None,
         })
     for entry in kernels:
         if entry["name"] in BF16_SOURCES:
             if entry["launches"] < 1 or entry["predict_bf16_launches"] < 1:
                 fail(f"{entry['name']} was not launched on the bf16 serving path")
+            if entry["bf16_training_launches"] < 1:
+                fail(f"{entry['name']} was not launched on the bf16 training path")
+            continue
+        if entry["name"] in BF16_TRAIN_SOURCES:
+            if min(entry["launches"], entry["gan_step_launches"], entry["dialoguernn_launches"],
+                   entry["epoch_fused_launches"]) < 1:
+                fail(f"{entry['name']} was not launched on every bf16 training path: {entry}")
             continue
         if entry["launches"] < 1:
             fail(f"{entry['name']} was not launched on the training path")

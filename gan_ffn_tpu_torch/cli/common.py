@@ -42,7 +42,6 @@ IEMOCAP_N_CLASSES = 6
 LATER_FLAGS = {
     "dp": "module note 13 (parallel and sweeps)",
     "scan_layers": "module note 15 (the scanned layer layout)",
-    "bf16": "Queue 1 item 3, bf16 training: the bf16 backward kernels",
     "tensorboard": "module note 15 (utilities)",
     "profile": "module note 15 (utilities)",
 }
@@ -79,6 +78,13 @@ def setup(parser: argparse.ArgumentParser, argv=None) -> Tuple[argparse.Namespac
         )
         print(f"wrote synthetic features to {args.data_path}")
     return args, device
+
+
+def compute_dtype(args) -> Optional[torch.dtype]:
+    """The models' compute dtype a trainer's ``--bf16`` asks for (None:
+    float32), as the JAX trainers derive it: float32 parameters, cast to
+    bf16 at each use, with LayerNorm, the log-softmax and Adam in float32."""
+    return torch.bfloat16 if args.bf16 else None
 
 
 def param_count(model: nn.Module) -> int:
@@ -202,9 +208,12 @@ def stage_a(args, device, load: bool, continue_epochs: int) -> GANState:
     last.  Whatever was trained is saved with its loss history
     (``{output_dir}/GAN_loss.{csv,png}``); loaded networks that train no
     more are returned as they are.  ``args.epoch_fused`` runs the epochs
-    fused (:func:`train_gan`).  torch's RNG is seeded with ``args.seed + 1``
-    for stage A's dropouts outside the kernels."""
-    gan_cfg = GANConfig(num_layers=args.num_layers, seed=args.seed)  # lr 1e-4, betas (0.5, 0.6)
+    fused (:func:`train_gan`), and ``args.bf16`` at bf16
+    (:func:`compute_dtype`); the checkpoints hold the float32 parameters
+    either way.  torch's RNG is seeded with ``args.seed + 1`` for stage A's
+    dropouts outside the kernels."""
+    gan_cfg = GANConfig(num_layers=args.num_layers, dtype=compute_dtype(args),
+                        seed=args.seed)  # lr 1e-4, betas (0.5, 0.6)
     gan_train_loader, _, _ = get_iemocap_loaders(
         args.data_path, batch_size=32, valid=0.1, seed=args.seed,
         strict_parity=args.strict_parity,

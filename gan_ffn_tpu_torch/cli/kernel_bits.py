@@ -1,0 +1,94 @@
+"""Compare the bf16 forward kernels of this checkout with another checkout's,
+bit for bit, on the card.
+
+    python -m gan_ffn_tpu_torch.cli.kernel_bits --other build/parent
+
+``--other`` is the root of another checkout (e.g. the parent commit unpacked
+with ``git archive``).  Its ``attention_fwd_bf16.cu`` and ``mlp_fwd_bf16.cu``
+are built with this checkout's flags into ``build/other_kernels/`` and
+called through this checkout's wrappers (the C entries' arguments are the
+same), on chip_smoke.py phase 8's inputs: attention (32,10,112,10) and
+(32,8,112,64) at valid_len 112/90/1/0, the MLP at M=3584 for the four path
+geometries, each at rate 0 and the path's rate.  Prints one JSON line: the
+outputs compared and how many differ in their bits.  A refactor that keeps
+the arithmetic gives 0.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+from pathlib import Path
+
+import torch
+
+from ..ops import _build
+from ..ops import attention as A
+from ..ops import mlp as M
+
+ATTN = ((32, 10, 112, 10), (32, 8, 112, 64))
+MLP = ((100, 2048, 100, "ffn"), (512, 2048, 512, "ffn"), (100, 512, 100, "head"),
+       (512, 1024, 100, "head"))
+RATE = {"attention": 0.1, "ffn": 0.1, "head": 0.2}
+
+
+def _chain(site: str, rate: float) -> dict:
+    if site == "ffn":
+        return dict(mid=("relu", "act_first", rate))
+    return dict(pre=("gelu", rate), mid=("gelu", "drop_first", rate),
+                post=("gelu", "drop_first", rate))
+
+
+def outputs() -> list:
+    """The bf16 forwards' outputs on fixed inputs, in a fixed order."""
+    out = []
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    for B, H, L, Dh in ATTN:
+        q, k, v = (torch.randn(B, H, L, Dh, device="cuda", generator=gen).bfloat16()
+                   for _ in range(3))
+        for rate in (0.0, RATE["attention"]):
+            for vl in (L, 90, 1, 0):
+                out.append(A.fused_attention(q, k, v, valid_len=vl, dropout_rate=rate,
+                                             dropout_seed=4000 + vl))
+    rows = 112 * 32
+    for K, H, N, site in MLP:
+        x = torch.randn(rows, K, device="cuda", generator=gen).bfloat16()
+        w1 = ((torch.rand(K, H, device="cuda", generator=gen) * 2 - 1) * K ** -0.5).bfloat16()
+        b1 = ((torch.rand(H, device="cuda", generator=gen) * 2 - 1) * K ** -0.5).bfloat16()
+        w2 = ((torch.rand(H, N, device="cuda", generator=gen) * 2 - 1) * H ** -0.5).bfloat16()
+        b2 = ((torch.rand(N, device="cuda", generator=gen) * 2 - 1) * H ** -0.5).bfloat16()
+        for rate in (0.0, RATE[site]):
+            out.append(M.fused_mlp(x, w1, b1, w2, b2, **_chain(site, rate),
+                                   dropout_seed=5000 + K + N))
+    torch.cuda.synchronize()
+    return out
+
+
+def main(argv=None) -> dict:
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--other", required=True, help="the root of the other checkout")
+    args = p.parse_args(argv)
+    if not torch.cuda.is_available():
+        p.error("no CUDA card: the kernels run only on the card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mine = outputs()
+    csrc, build = _build.CSRC, _build.BUILD_DIR
+    try:
+        _build.CSRC = Path(args.other).resolve() / "gan_ffn_tpu_torch" / "csrc"
+        _build.BUILD_DIR = build.parent / "other_kernels"
+        _build._functions.clear()
+        theirs = outputs()
+    finally:
+        _build.CSRC, _build.BUILD_DIR = csrc, build
+        _build._functions.clear()
+    differ = [int((a.view(torch.int16) != b.view(torch.int16)).sum().item())
+              for a, b in zip(mine, theirs)]
+    res = {"card": torch.cuda.get_device_name(0), "calls": len(mine),
+           "outputs": sum(a.numel() for a in mine), "differing_bits": sum(differ),
+           "calls_that_differ": sum(d > 0 for d in differ)}
+    print(json.dumps(res))
+    return res
+
+
+if __name__ == "__main__":
+    main()

@@ -26,7 +26,10 @@ them.  ``--gan-schedule`` is accepted, and both values run the same step
 (``stepwise`` is refused with ``--epoch-fused``, as the JAX trainer refuses
 it).  ``--epoch-fused`` runs both stages' epochs fused: batches grouped by
 shape, one CUDA graph per shape on a card (eager on the CPU), as
-``cli/common.train_gan`` and ``train/loop.run_epoch_fused`` say.  ``--device`` (default ``cuda``) picks the device; ``--no-cuda`` is the
+``cli/common.train_gan`` and ``train/loop.run_epoch_fused`` say.  ``--bf16``
+runs both stages at bfloat16, as the JAX trainer's ``--bf16``: float32
+parameters (and checkpoints) cast to bf16 at each use, the kernels' bf16
+forwards and backwards, LayerNorm, the log-softmax and Adam in float32.  ``--device`` (default ``cuda``) picks the device; ``--no-cuda`` is the
 reference's way to ask for the CPU.
 
 Seeds: ``--seed`` draws the weights of both stages (CPU ``torch.Generator``s)
@@ -56,8 +59,8 @@ from ..nn.core import set_dropout_generator
 from ..train.classifier import make_classifier_epoch_steps, make_classifier_steps
 from ..train.loop import run_epoch, run_epoch_fused
 from ..train.optim import torch_adam
-from .common import (IEMOCAP_LOSS_WEIGHTS, IEMOCAP_N_CLASSES, graft_generators, param_count,
-                     setup, stage_a)
+from .common import (IEMOCAP_LOSS_WEIGHTS, IEMOCAP_N_CLASSES, compute_dtype, graft_generators,
+                     param_count, setup, stage_a)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -101,7 +104,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--lr-schedule", choices=("reference", "decay"), default="reference",
                    help="reference: constant lr (the reference's LambdaLR re-creation "
                         "quirk); decay: 0.98^epoch")
-    p.add_argument("--bf16", action="store_true", default=False, help="refused for now")
+    p.add_argument("--bf16", action="store_true", default=False,
+                   help="bfloat16 compute in both stages: float32 parameters cast at each "
+                        "use, the kernels at bf16, LayerNorm, log-softmax and Adam in float32")
     p.add_argument("--seed", type=int, default=3407)
     p.add_argument("--strict-parity", action="store_true", default=False,
                    help="replicate the reference's NaN on constant-feature normalization")
@@ -121,7 +126,8 @@ def main(argv=None) -> dict:
     torch.manual_seed(args.seed)
     model = GAN_FFN(n_classes=IEMOCAP_N_CLASSES, dropout=args.dropout,
                     gen_num_layers=args.num_layers,
-                    generator=torch.Generator().manual_seed(args.seed), device=device)
+                    generator=torch.Generator().manual_seed(args.seed), device=device,
+                    dtype=compute_dtype(args))
     graft_generators(model, gan_state)
     set_dropout_generator(model, torch.Generator().manual_seed(args.seed + 2))
     train_loader, valid_loader, test_loader = get_iemocap_loaders(

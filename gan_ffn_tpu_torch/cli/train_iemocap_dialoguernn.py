@@ -22,9 +22,14 @@ Pipeline, as the reference's:
 Reference defaults that differ from the flagship trainer: batch 30, 100
 epochs, ``--l2 1e-5``, ``--rec-dropout 0.1``, ``--dropout 0.6``,
 ``--attention general`` (the context attention), ``--active-listener``
-off.  ``--dp``, ``--bf16``, ``--scan-layers`` and ``--tensorboard`` are
-refused with the ROADMAP item that brings them.  ``--epoch-fused`` runs
-both stages' epochs fused, as the flagship trainer's does.
+off.  ``--dp``, ``--scan-layers`` and ``--tensorboard`` are refused with
+the ROADMAP item that brings them; ``--tb-grad-histograms`` is accepted for
+``--tensorboard``'s sake, as in the flagship trainer.  ``--epoch-fused``
+runs both stages' epochs fused, as the flagship trainer's does, and
+``--gan-schedule`` is accepted for stage A (both values run the same step;
+``stepwise`` is refused with ``--epoch-fused``).  ``--bf16`` runs both
+stages at bfloat16, as the flagship trainer's: the generators and the
+recurrent stack at bf16 from float32 parameters cast at each use.
 ``--device`` (default ``cuda``) picks the device; ``--no-cuda`` asks for
 the CPU.
 
@@ -57,8 +62,8 @@ from ..nn.core import set_dropout_generator
 from ..train.classifier import make_classifier_epoch_steps, make_classifier_steps
 from ..train.loop import run_epoch, run_epoch_fused
 from ..train.optim import torch_adam
-from .common import (IEMOCAP_LOSS_WEIGHTS, IEMOCAP_N_CLASSES, graft_generators, param_count,
-                     setup, stage_a)
+from .common import (IEMOCAP_LOSS_WEIGHTS, IEMOCAP_N_CLASSES, compute_dtype, graft_generators,
+                     param_count, setup, stage_a)
 
 # DialogueRNN widths (train_IEMOCAP_DialogueRNN.py:635-641)
 D_m, D_g, D_p, D_e, D_h, D_a = 100, 500, 500, 100, 100, 100
@@ -82,6 +87,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--class-weight", action="store_true", default=True)
     p.add_argument("--active-listener", action="store_true", default=False)
     p.add_argument("--tensorboard", action="store_true", default=False, help="refused for now")
+    p.add_argument("--tb-grad-histograms", choices=("epoch", "batch"), default="epoch",
+                   help="compat; needs --tensorboard")
     p.add_argument("--use-trained-GAN", action="store_true", default=True,
                    help="load the six GAN networks from --model-save-path where they exist")
     p.add_argument("--fresh-GAN", dest="use_trained_GAN", action="store_false",
@@ -93,6 +100,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--model-save-path", default="./GAN_save/")
     p.add_argument("--num-layers", type=int, default=8, help="transformer encoder depth")
     p.add_argument("--scan-layers", action="store_true", default=False, help="refused for now")
+    p.add_argument("--gan-schedule", choices=("fused", "stepwise"), default="fused",
+                   help="compat: both run stage A's one eager loop")
     p.add_argument("--epoch-fused", action="store_true", default=False,
                    help="run both stages' epochs fused: batches grouped by shape, one CUDA "
                         "graph per shape replayed for its batches (eager on the CPU); each "
@@ -102,7 +111,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="reference: constant lr (the reference's LambdaLR re-creation "
                         "quirk); decay: 0.98^epoch")
     p.add_argument("--dp", action="store_true", default=False, help="refused for now")
-    p.add_argument("--bf16", action="store_true", default=False, help="refused for now")
+    p.add_argument("--bf16", action="store_true", default=False,
+                   help="bfloat16 compute in both stages: float32 parameters cast at each "
+                        "use, the kernels at bf16, LayerNorm, log-softmaxes and Adam in float32")
     p.add_argument("--seed", type=int, default=3407)
     p.add_argument("--strict-parity", action="store_true", default=False,
                    help="replicate the reference's NaN on constant-feature normalization")
@@ -124,7 +135,8 @@ def main(argv=None) -> dict:
         D_m=D_m, D_g=D_g, D_p=D_p, D_e=D_e, D_h=D_h, D_a=D_a, n_classes=IEMOCAP_N_CLASSES,
         listener_state=args.active_listener, context_attention=args.attention,
         dropout_rec=args.rec_dropout, dropout=args.dropout, gen_num_layers=args.num_layers,
-        generator=torch.Generator().manual_seed(args.seed), device=device)
+        generator=torch.Generator().manual_seed(args.seed), device=device,
+        dtype=compute_dtype(args))
     graft_generators(model, gan_state)
     del gan_state
     set_dropout_generator(model, torch.Generator().manual_seed(args.seed + 2))

@@ -43,12 +43,15 @@
 // (bf16::mma_add) and the row sums are taken in f64, each rounded to f32
 // once, as the plain version rounds its exact (f64) sums; so P is the same
 // bits on both sides almost everywhere, and so are the rounded outputs.
+// The weights (S, mask, softmax, keep bits) come from attention_bf16.cuh,
+// which attention_bwd_bf16.cu calls too, so its recomputed P is these bits.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "attention_bf16.cuh"
 #include "mma_bf16.cuh"
 #include "mma_tf32.cuh"
 #include "philox.cuh"
@@ -56,20 +59,7 @@
 namespace {
 
 using bf16::bf16_t;
-
-constexpr int kMaxLen = 128;  // keys (and query rows) per block
-constexpr int kMaxTiles = kMaxLen / 8;  // key tiles of 8 (S accumulators)
-constexpr int kWidths[3] = {16, 32, 64};
-
-__host__ __device__ constexpr int round_up(int x, int m) { return (x + m - 1) / m * m; }
-
-__host__ __device__ constexpr int width_index(int Dh) { return Dh <= 16 ? 0 : Dh <= 32 ? 1 : 2; }
-
-// Sum over the four lanes that share a row.
-__device__ __forceinline__ double quad_sum(double x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
+using namespace attn_bf16;
 
 // Dp: Dh padded to 16, 32 or 64; kDrop: apply the attention-weight dropout mask.
 template <int Dp, bool kDrop>
@@ -79,9 +69,7 @@ attention_fwd_bf16_kernel(const bf16_t* __restrict__ q, const bf16_t* __restrict
                           const int* __restrict__ valid_len_at, float scale, int vec,
                           philox::DropoutArg drop_at) {
   constexpr int ld = Dp + 8;    // 16 bytes mod 128: ldmatrix rows in 8 bank groups
-  constexpr int kSteps = Dp / 16;  // k steps of S
   constexpr int kDt = Dp / 8;      // n tiles of O
-  constexpr int kPairs = kMaxTiles / 2;  // 16-key steps of S and of P V
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16_t* sq = reinterpret_cast<bf16_t*>(smem_raw);
   const int Lp = round_up(L, 16);
@@ -97,89 +85,19 @@ attention_fwd_bf16_kernel(const bf16_t* __restrict__ q, const bf16_t* __restrict
 
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int r0 = (threadIdx.x >> 5) * 16;  // the warp's first query row
-  const int valid_len = __ldg(valid_len_at);
-  const bool uniform = valid_len <= 0;
-  const int keys = uniform ? L : min(valid_len, L);
-  const bool upper = keys > kMaxLen / 2;  // whether keys 64 .. 127 carry any weight
-  // 16-key step p reads keys 16p .. 16p + 15; past the staged rows it reads
-  // the last staged 16 instead, whose scores are then masked (weight 0).
-  const auto key_row = [Lp](int p) { return min(16 * p, Lp - 16); };
-  const unsigned long long row_g = ((unsigned long long)blockIdx.x * L + r0 + g) * L;
-  const unsigned long long row_g8 = row_g + 8ull * L;
-  const bool aligned = (L & 3) == 0;
+  const Rows rows = rows_of(__ldg(valid_len_at), L, r0, g);
   const philox::Dropout drop = kDrop ? philox::resolve(drop_at) : philox::Dropout{0ull, 0u, 1.f};
 
   float s[kMaxTiles][4];
-#pragma unroll
-  for (int n = 0; n < kMaxTiles; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-  uint32_t keep[2] = {0u, 0u};  // bit 4n + e of word n / 8: element e of tile n
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    if (h == 1 && !upper) break;  // block-uniform
-#pragma unroll
-    for (int pp = 0; pp < kPairs / 2; ++pp) {
-      const int p = h * kPairs / 2 + pp;
-      if (!uniform) {
-        double acc[2][4] = {};
-#pragma unroll
-        for (int kk = 0; kk < kSteps; ++kk) {
-          uint32_t a[4], b[4];
-          bf16::load_a(a, sq, ld, r0, 16 * kk, lane);
-          bf16::load_b_nk(b, sk, ld, key_row(p), 16 * kk, lane);
-          bf16::mma_add(acc[0], a, b[0], b[1]);
-          bf16::mma_add(acc[1], a, b[2], b[3]);
-        }
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          s[2 * p][e] = (float)acc[0][e];
-          s[2 * p + 1][e] = (float)acc[1][e];
-        }
-      }
-      if (kDrop) {
-#pragma unroll
-        for (int x = 0; x < 2; ++x) {
-          const int n = 2 * p + x;
-          keep[n / 8] |= tf32::tile_keep(drop, row_g, row_g8, 8 * n, t, aligned) << (4 * (n % 8));
-        }
-      }
-    }
-  }
-
-  // scale and mask (uniform: every kept score equal, so use 0); max per row
-  float m0 = -INFINITY, m1 = -INFINITY;
-#pragma unroll
-  for (int n = 0; n < kMaxTiles; ++n) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int j = 8 * n + 2 * t + (e & 1);
-      s[n][e] = j < keys ? s[n][e] * scale : -INFINITY;
-    }
-    m0 = fmaxf(m0, fmaxf(s[n][0], s[n][1]));
-    m1 = fmaxf(m1, fmaxf(s[n][2], s[n][3]));
-  }
-  m0 = tf32::quad_max(m0);  // finite: key 0 is never masked
-  m1 = tf32::quad_max(m1);
-  double l0 = 0.0, l1 = 0.0;  // the row sums, exact: the same f32 whatever the order
-#pragma unroll
-  for (int n = 0; n < kMaxTiles; ++n) {  // masked scores give exp(-inf) = 0
-    s[n][0] = expf(s[n][0] - m0);
-    s[n][1] = expf(s[n][1] - m0);
-    s[n][2] = expf(s[n][2] - m1);
-    s[n][3] = expf(s[n][3] - m1);
-    l0 += (double)s[n][0] + (double)s[n][1];
-    l1 += (double)s[n][2] + (double)s[n][3];
-  }
-  const float sum0 = (float)quad_sum(l0), sum1 = (float)quad_sum(l1);
-  // P = e / l (the softmax's division), then the mask, in f32; rounded to
-  // bf16 pairs, the A fragments of P V
+  uint32_t keep[2];
+  weights<Dp, kDrop>(s, keep, sq, sk, ld, Lp, r0, lane, scale, rows, drop);
+  // the mask in f32; rounded to bf16 pairs, the A fragments of P V
   uint32_t pa[kPairs][4];
 #pragma unroll
   for (int n = 0; n < kMaxTiles; ++n) {
+    if (kDrop) {
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      float pr = __fdiv_rn(s[n][e], e < 2 ? sum0 : sum1);
-      if (kDrop) pr = keep[n / 8] >> (4 * (n % 8) + e) & 1 ? pr * drop.scale : 0.f;
-      s[n][e] = pr;
+      for (int e = 0; e < 4; ++e) s[n][e] = kept(keep, n, e) ? s[n][e] * drop.scale : 0.f;
     }
     if (n % 2 == 1) bf16::acc_pair_as_a(pa[n / 2], s[n - 1], s[n]);
   }
@@ -192,12 +110,12 @@ attention_fwd_bf16_kernel(const bf16_t* __restrict__ q, const bf16_t* __restrict
     double o[2][4] = {};
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      if (h == 1 && !upper) break;  // block-uniform
+      if (h == 1 && !rows.upper) break;  // block-uniform
 #pragma unroll
       for (int pp = 0; pp < kPairs / 2; ++pp) {
         const int p = h * kPairs / 2 + pp;
         uint32_t b[4];
-        bf16::load_b_kn(b, sv, ld, key_row(p), 16 * d, lane);
+        bf16::load_b_kn(b, sv, ld, key_row(p, Lp), 16 * d, lane);
         bf16::mma_add(o[0], pa[p], b[0], b[1]);
         bf16::mma_add(o[1], pa[p], b[2], b[3]);
       }

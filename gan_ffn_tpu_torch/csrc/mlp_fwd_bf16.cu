@@ -49,13 +49,16 @@
 // product's epilogue writes its bf16 a1 tile (64 x chunk).  Only the weights
 // stream through a 2-stage cp.async ring of 32-deep slices, read as they lie
 // in device memory (W1 (K, H), W2 (H, N)).  The epilogues work on the
-// accumulators in place, one Philox call per pair of mask values.
+// accumulators in place, one Philox call per pair of mask values.  The t1
+// staging, the products and z1 live in mlp_bf16_tile.cuh, which
+// mlp_bwd_bf16.cu calls for its recompute, so the two give z1 the same bits.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "mlp_bf16_tile.cuh"
 #include "mlp_tile.cuh"
 #include "mma_bf16.cuh"
 
@@ -63,95 +66,15 @@ namespace {
 
 using bf16::bf16_t;
 using mlp::Chain;
+using namespace mlp_bf16;
 
-constexpr int kBM = 64, kBN = 64;  // output tile
-constexpr int kSlice = 32;         // the ring's k-slice
-constexpr int kThreads = 128;      // 4 warps of 32 x 32 outputs, 2 x 2
-constexpr int kStages = 2;         // the ring's stages
-constexpr int kLdB = kBN + 8;      // 72 bf16: 16 bytes mod 128
-constexpr int kSliceElems = kSlice * kLdB;
-constexpr int kMaxChunkTiles = 4;  // d_ff columns a block holds: 4 x 64
-constexpr int kWaveBlocks = 4 * 132;
-
-__host__ __device__ constexpr int round_up(int x, int m) { return (x + m - 1) / m * m; }
-
-// Row strides of the resident A tiles, 8 mod 64 bf16 (ldmatrix rows in 8
-// bank groups): t1 (K padded to kSlice) and a1 (a chunk of d_ff).
-__host__ __device__ constexpr int ld_t1(int K) { return round_up(K, kSlice) + 8; }
+// Row stride of the resident a1 tile (a chunk of d_ff), 8 mod 64 bf16.
 __host__ __device__ constexpr int ld_a1(int chunk) { return chunk + 8; }
 
 // Bytes of one block's shared memory: the t1 and a1 tiles and the ring;
 // 109,568 at K = 512 and 256 columns, so two blocks share an SM.
 constexpr int smem_bytes(int K, int chunk) {
   return (kBM * ld_t1(K) + kBM * ld_a1(chunk) + kStages * kSliceElems) * (int)sizeof(bf16_t);
-}
-
-// An accumulator tile: a warp's 32 x 32 outputs as 4 x 4 tiles of 8 x 8;
-// element e of tile (x, y) is output (wm + 8x + g, wn + 8y + 2t + e).
-using Acc = double[4][4][2];
-
-// d += a b on the f64 tensor cores (mma.m8n8k4: a = A[g][t], b = B[t][g],
-// d = D[g][2t], D[g][2t + 1]).
-__device__ __forceinline__ void dmma(double (&d)[2], double a, double b) {
-  asm volatile("mma.sync.aligned.m8n8k4.row.col.f64.f64.f64.f64 {%0, %1}, {%2}, {%3}, {%0, %1};"
-               : "+d"(d[0]), "+d"(d[1])
-               : "d"(a), "d"(b));
-}
-
-__device__ __forceinline__ double as_f64(bf16_t x) { return (double)__bfloat162float(x); }
-
-// acc += A[0 .. 63][k - kbeg] B[k][n0 .. n0 + 63] over k in [kbeg, kend)
-// (kend - kbeg a multiple of kSlice): the exact products of the bf16
-// operands, summed in f64.  A is resident in shared memory (row stride
-// lda); B lies in device memory (row stride ldb), zero at rows >= k_lim and
-// columns >= n_lim, and streams through the ring in slices of kSlice rows,
-// copies of vec bf16.  Every thread of the block must call; on return the
-// ring is free.
-__device__ __forceinline__ void product(Acc& acc, bf16_t* ring, const bf16_t* a, int lda,
-                                        const bf16_t* __restrict__ b, int ldb, int k_lim, int n0,
-                                        int n_lim, int vec, int kbeg, int kend) {
-  const int nk = (kend - kbeg) / kSlice;
-  const auto load = [&](int i) {
-    bf16::load_tile(ring + (i % kStages) * kSliceElems, kLdB, b, ldb, kbeg + i * kSlice, k_lim,
-                    n0, n_lim, kSlice, kBN, vec);
-  };
-#pragma unroll
-  for (int i = 0; i < kStages - 1; ++i) {
-    if (i < nk) load(i);
-    bf16::commit();
-  }
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int wm = (warp >> 1) * 32, wn = (warp & 1) * 32;
-  for (int i = 0; i < nk; ++i) {
-    bf16::wait<kStages - 2>();  // slice i is in; every warp is done with slice i - 1
-    if (i + kStages - 1 < nk) load(i + kStages - 1);  // into slice i - 1's buffer
-    bf16::commit();
-    const bf16_t* as = a + (wm + g) * lda + i * kSlice + t;
-    const bf16_t* bs = ring + (i % kStages) * kSliceElems + t * kLdB + wn + g;
-#pragma unroll
-    for (int kk = 0; kk < kSlice; kk += 4) {
-      double fa[4], fb[4];
-#pragma unroll
-      for (int x = 0; x < 4; ++x) fa[x] = as_f64(as[8 * x * lda + kk]);
-#pragma unroll
-      for (int y = 0; y < 4; ++y) fb[y] = as_f64(bs[kk * kLdB + 8 * y]);
-#pragma unroll
-      for (int x = 0; x < 4; ++x) {
-#pragma unroll
-        for (int y = 0; y < 4; ++y) dmma(acc[x][y], fa[x], fb[y]);
-      }
-    }
-  }
-  __syncthreads();  // the ring is free again
-}
-
-// The mask values of elements idx and idx + 1 of dropout site s (0 pre, 1
-// mid, 2 post), 1 where the site draws none.
-__device__ __forceinline__ void site_pair(const Chain& chain, int s, uint32_t stream,
-                                          unsigned long long seed, unsigned long long idx,
-                                          float& k0, float& k1) {
-  k0 = k1 = 1.f;
-  if (chain.on[s]) bf16::keep_pair(mlp::site(chain, s, seed), stream, idx, k0, k1);
 }
 
 // post(z2) of output (r, c): z2 = v + b2[c], post's mask value ks.
@@ -172,38 +95,22 @@ mlp_fwd_bf16_kernel(const bf16_t* __restrict__ x, int vec_x, const bf16_t* __res
                     Chain chain) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16_t* t1 = reinterpret_cast<bf16_t*>(smem_raw);  // 64 x Kp, row stride ldt
-  const int Kp = round_up(K, kSlice), ldt = ld_t1(K), lda1 = ld_a1(chunk);
-  bf16_t* a1 = t1 + kBM * ldt;  // 64 x chunk, row stride lda1
+  const int lda1 = ld_a1(chunk);
+  bf16_t* a1 = t1 + kBM * ld_t1(K);  // 64 x chunk, row stride lda1
   bf16_t* ring = a1 + kBM * lda1;
   const int m0 = blockIdx.y * kBM, h0 = blockIdx.x * chunk, hn = min(chunk, H - h0);
   const unsigned long long seed = mlp::call_seed(chain);
 
   // 0. t1 = bf16(pre(x)) of the block's rows (zero past M and K)
-  if (chain.pre == mlp::kNone) {
-    bf16::load_tile(t1, ldt, x, K, m0, M, 0, K, kBM, Kp, vec_x);
-    bf16::commit();  // waited for by the first product
-  } else {
-    for (int idx = threadIdx.x; idx < kBM * Kp / 2; idx += kThreads) {
-      const int rl = idx / (Kp / 2), c = 2 * (idx % (Kp / 2)), r = m0 + rl;
-      float v0 = 0.f, v1 = 0.f;
-      if (r < M && c < K) {
-        const size_t o = (size_t)r * K + c;
-        float k0, k1;
-        site_pair(chain, 0, philox::kPre, seed, o, k0, k1);
-        v0 = mlp::act(chain.pre, __bfloat162float(x[o])) * k0;
-        if (c + 1 < K) v1 = mlp::act(chain.pre, __bfloat162float(x[o + 1])) * k1;
-      }
-      *reinterpret_cast<__nv_bfloat162*>(t1 + rl * ldt + c) = __floats2bfloat162_rn(v0, v1);
-    }
-  }
+  stage_t1(t1, x, vec_x, m0, M, K, chain, seed);
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int wm = (warp >> 1) * 32, wn = (warp & 1) * 32;
 
   // 1. a1 = bf16(mid(t1 W1[:, chunk] + b1)), 64 columns at a time
   for (int j0 = 0; j0 < hn; j0 += kBN) {
-    Acc acc = {};
-    product(acc, ring, t1, ldt, w1, H, K, h0 + j0, H, vec_w1, 0, Kp);
+    Acc acc;
+    z1_product(acc, ring, t1, w1, K, H, h0 + j0, vec_w1);
 #pragma unroll 1
     for (int x = 0; x < 4; ++x) {
       const int rl = wm + 8 * x + g, r = m0 + rl;
@@ -214,9 +121,8 @@ mlp_fwd_bf16_kernel(const bf16_t* __restrict__ x, int vec_x, const bf16_t* __res
         if (r < M && c < H) {
           float k0, k1;
           site_pair(chain, 1, philox::kMid, seed, (size_t)r * H + c, k0, k1);
-          mlp::mid_act(chain, (float)acc[x][y][0] + __bfloat162float(b1[c]), k0, a[0], d);
-          if (c + 1 < H)
-            mlp::mid_act(chain, (float)acc[x][y][1] + __bfloat162float(b1[c + 1]), k1, a[1], d);
+          mlp::mid_act(chain, z1_value(acc[x][y][0], b1, c), k0, a[0], d);
+          if (c + 1 < H) mlp::mid_act(chain, z1_value(acc[x][y][1], b1, c + 1), k1, a[1], d);
         }
         // past H: W2's rows there are zero-filled, and a1 is zero
         *reinterpret_cast<__nv_bfloat162*>(a1 + rl * lda1 + cl) = __floats2bfloat162_rn(a[0], a[1]);
@@ -275,27 +181,6 @@ mlp_fwd_bf16_reduce_kernel(const float* __restrict__ part, int S, const bf16_t* 
     ks = philox::keep_scale(mlp::site(chain, 2, mlp::call_seed(chain)), philox::kPost,
                             (unsigned long long)o);
   out[o] = __float2bfloat16_rn(post_value(chain, (float)v + __bfloat162float(b2[o % N]), ks));
-}
-
-struct Split {
-  int chunk, S;  // d_ff columns of a chunk, and chunks
-};
-
-// mlp_fwd.cu's split of d_ff (ops/mlp.py fwd_split mirrors it): at least the
-// chunks the a1 tile allows (kMaxChunkTiles 64-column tiles each); where
-// that leaves at most half a wave of blocks, s = min(kWaveBlocks / row
-// tiles, tiles of d_ff) chunks instead.  A chunk takes ceil(tiles / s)
-// 64-column tiles (the last may be shorter; rounding may leave fewer than s).
-Split fwd_split(int M, int H) {
-  const long long rows = (M + kBM - 1) / kBM;
-  const int tiles = (H + kBN - 1) / kBN;
-  long long s = (tiles + kMaxChunkTiles - 1) / kMaxChunkTiles;
-  if (2 * rows * s <= kWaveBlocks) {
-    const long long fill = kWaveBlocks / rows < tiles ? kWaveBlocks / rows : tiles;
-    if (fill > s) s = fill;
-  }
-  const int per = (int)((tiles + s - 1) / s);
-  return {per * kBN, (tiles + per - 1) / per};
 }
 
 }  // namespace

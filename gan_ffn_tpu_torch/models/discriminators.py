@@ -16,7 +16,11 @@ it outside any kernel; its op order is the reference's.
 the input's last dim is 512: the raw visual features of the "real" path.
 
 Each wraps a ``_TransformerDiscriminator`` under ``net``, as the JAX modules
-do, so the ``state_dict`` keys follow the JAX parameter tree.
+do, so the ``state_dict`` keys follow the JAX parameter tree.  ``dtype`` is
+the compute dtype (None: float32), threaded as the JAX modules thread it:
+the input cast on entry, the positional encoding added at it, the encoder,
+``fc1``-``fc3`` (and ``object``) and the sigmoid at it, the parameters
+float32 and cast at each use.
 """
 
 from __future__ import annotations
@@ -39,10 +43,12 @@ class _TransformerDiscriminator(nn.Module):
     """Shared discriminator skeleton: PE -> encoder -> gelu -> FC head."""
 
     def __init__(self, d_model: int, nhead: int, num_layers: int = 8, dropout: float = 0.2, *,
-                 generator: Optional[torch.Generator] = None, device="cuda"):
+                 generator: Optional[torch.Generator] = None, device="cuda",
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.dropout = dropout
-        kw = dict(generator=generator, device=device)
+        self.dtype = dtype
+        kw = dict(generator=generator, device=device, dtype=dtype)
         self.position_encoding = PositionalEncoding(d_model, max_len=PE_MAX_LEN, device=device)
         self.transformer_encoder = TransformerEncoder(d_model, nhead, num_layers=num_layers, **kw)
         self.fc1 = Linear(d_model, 64, **kw)
@@ -50,6 +56,8 @@ class _TransformerDiscriminator(nn.Module):
         self.fc3 = Linear(16, 1, **kw)
 
     def forward(self, x: torch.Tensor, valid_len=None) -> torch.Tensor:
+        if self.dtype is not None:
+            x = x.to(self.dtype)
         x = self.position_encoding(x)
         x = gelu(self.transformer_encoder(x, valid_len=valid_len))
         x = gelu(F.dropout(self.fc1(x), self.dropout, self.training))
@@ -59,10 +67,11 @@ class _TransformerDiscriminator(nn.Module):
 
 class _Discriminator(nn.Module):
     def __init__(self, D_h: int = 100, dropout: float = 0.2, num_layers: int = 8, *,
-                 generator: Optional[torch.Generator] = None, device="cuda"):
+                 generator: Optional[torch.Generator] = None, device="cuda",
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.net = _TransformerDiscriminator(D_h, 10, num_layers, dropout,
-                                             generator=generator, device=device)
+                                             generator=generator, device=device, dtype=dtype)
 
     def forward(self, fusion: torch.Tensor, valid_len=None) -> torch.Tensor:
         return self.net(fusion, valid_len=valid_len)
@@ -77,9 +86,11 @@ class VisualDiscriminator(_Discriminator):
     ``object`` first."""
 
     def __init__(self, D_h: int = 100, dropout: float = 0.2, num_layers: int = 8, *,
-                 generator: Optional[torch.Generator] = None, device="cuda"):
-        super().__init__(D_h, dropout, num_layers, generator=generator, device=device)
-        self.object = Linear(RAW_VISUAL_DIM, 100, generator=generator, device=device)
+                 generator: Optional[torch.Generator] = None, device="cuda",
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__(D_h, dropout, num_layers, generator=generator, device=device,
+                         dtype=dtype)
+        self.object = Linear(RAW_VISUAL_DIM, 100, generator=generator, device=device, dtype=dtype)
 
     def forward(self, fusion: torch.Tensor, valid_len=None) -> torch.Tensor:
         if fusion.shape[-1] == RAW_VISUAL_DIM:

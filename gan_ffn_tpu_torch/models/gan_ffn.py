@@ -6,7 +6,10 @@ the fusion:
   log-softmax; its ``dtype`` (None: float32) is the generators' compute
   dtype, and the head runs at the fusion's, as in the JAX module;
 - ``GAN_FFN_DialogueRNN`` runs the bidirectional DialogueRNN ``BiModel`` on
-  the fusion.
+  the fusion; with a ``dtype`` the generators compute at it and the
+  recurrent stack follows the fusion's dtype (GRU cells, the party blend,
+  the states and the attentions; their softmaxes and the log-softmax in
+  float32), as in the JAX module.
 
 ``INPUTS`` names the batch entries each model takes, in order, before
 ``valid_len`` (``train/classifier.py`` reads them); ``ATTENTIONS`` names the
@@ -75,13 +78,14 @@ class GAN_FFN_DialogueRNN(nn.Module):
                  listener_state: bool = False, context_attention: str = "general",
                  dropout_rec: float = 0.1, dropout: float = 0.6, gen_dropout: float = 0.2,
                  gen_num_layers: int = 8, *, generator: Optional[torch.Generator] = None,
-                 device="cuda"):
+                 device="cuda", dtype: Optional[torch.dtype] = None):
         super().__init__()
-        self.n_classes, self.gen_num_layers = n_classes, gen_num_layers
+        self.n_classes, self.gen_num_layers, self.dtype = n_classes, gen_num_layers, dtype
         kw = dict(generator=generator, device=device)
-        self.acoustic_generator = AcousticGenerator(D_h, gen_dropout, gen_num_layers, **kw)
-        self.visual_generator = VisualGenerator(D_h, gen_dropout, gen_num_layers, **kw)
-        self.text_generator = TextGenerator(D_h, gen_dropout, gen_num_layers, **kw)
+        gen = dict(kw, dtype=dtype)
+        self.acoustic_generator = AcousticGenerator(D_h, gen_dropout, gen_num_layers, **gen)
+        self.visual_generator = VisualGenerator(D_h, gen_dropout, gen_num_layers, **gen)
+        self.text_generator = TextGenerator(D_h, gen_dropout, gen_num_layers, **gen)
         self.bi_model = BiModel(D_m, D_g, D_p, D_e, D_h, n_classes, listener_state,
                                 context_attention, D_a, dropout_rec, dropout, **kw)
 

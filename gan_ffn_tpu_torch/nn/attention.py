@@ -10,6 +10,8 @@
   ``concat``.  Queries may carry a leading time axis, so BiModel's att2
   attends over all L queries in one call.
 
+Each computes at the memory's dtype (bf16 under ``--bf16``), its float32
+weights cast at use, the softmax in float32, as the JAX modules do.
 Masked positions (``mask == 0``) get the score -1e30 before the softmax,
 the JAX package's fixed-buffer semantics.  Both modules are thin layouts
 over :func:`simple_attention` and :func:`matching_attention`, which take
@@ -46,7 +48,7 @@ def simple_attention(M: torch.Tensor, weight: torch.Tensor,
                      mask: Optional[torch.Tensor] = None):
     """``M (X, B, L, D)``, ``weight (X, 1, D)``, ``mask (X, B, L)`` or None
     -> ``pool (X, B, D)``, ``alpha (X, B, L)`` float32."""
-    scores = (M @ weight.transpose(1, 2).unsqueeze(1)).squeeze(-1)  # (X, B, L)
+    scores = (M @ weight.to(M.dtype).transpose(1, 2).unsqueeze(1)).squeeze(-1)  # (X, B, L)
     alpha = _masked_softmax(scores.unsqueeze(2), mask).squeeze(2)
     pool = (alpha.to(M.dtype).unsqueeze(2) @ M).squeeze(2)
     return pool, alpha
@@ -73,7 +75,8 @@ def matching_attention(att_type: str, M: torch.Tensor, x: torch.Tensor,
             alpha = torch.softmax(torch.tanh(xt @ M.transpose(-1, -2)).float(), dim=-1)
         else:
             m = mask.unsqueeze(2)  # (X, B, 1, L)
-            scores = torch.tanh((xt @ (M * mask.unsqueeze(-1)).transpose(-1, -2)) * m)
+            Mm = M * mask.unsqueeze(-1)  # at the promoted dtype, as JAX multiplies them
+            scores = torch.tanh((xt.to(Mm.dtype) @ Mm.transpose(-1, -2)) * m)
             alpha = torch.softmax(scores.float(), dim=-1) * m
             # a fully masked row sums to 0: divide it by 1, so it stays 0
             denom = alpha.sum(-1, keepdim=True)

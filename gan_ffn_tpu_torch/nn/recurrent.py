@@ -12,7 +12,10 @@ module's ``generator``.
 that the DialogueRNN scan runs both directions' cells as one batch of
 products (``models/dialogue_rnn.py``); ``GRUCell.forward`` is the same step
 with that axis of size 1.  The products are cuBLAS's, as the JAX package
-leaves them to XLA: no Pallas kernel computes a GRU.
+leaves them to XLA: no Pallas kernel computes a GRU.  A step computes at its
+input's dtype, its float32 parameters cast at each use (bf16 under
+``--bf16``), as the JAX cell does: the product rounded to the dtype, then
+the bias added at it.
 """
 
 from __future__ import annotations
@@ -30,11 +33,18 @@ def stacked_linear(x: torch.Tensor, weight: torch.Tensor,
                    bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``x (X, ..., in) -> (X, ..., out)``: ``x[i] W[i]^T + b[i]`` for each
     ``i`` of the leading axis, as one batched product; ``weight (X, out,
-    in)``, ``bias (X, out)`` or None."""
+    in)``, ``bias (X, out)`` or None.  At ``x``'s dtype: below float32 the
+    weights are cast to it and the bias is added after the product, as
+    ``nn.core.linear`` adds it."""
     X, d_in = x.shape[0], x.shape[-1]
     rows = x.reshape(X, -1, d_in)
-    wt = weight.transpose(1, 2)
-    y = torch.bmm(rows, wt) if bias is None else torch.baddbmm(bias.unsqueeze(1), rows, wt)
+    wt = weight.to(x.dtype).transpose(1, 2)
+    if bias is None:
+        y = torch.bmm(rows, wt)
+    elif x.dtype == torch.float32:
+        y = torch.baddbmm(bias.unsqueeze(1), rows, wt)
+    else:
+        y = torch.bmm(rows, wt) + bias.to(x.dtype).unsqueeze(1)
     return y.reshape(*x.shape[:-1], weight.shape[1])
 
 

@@ -11,7 +11,7 @@ Module boundaries are time-major ``(L, B, E)``; heads are ``(B, H, L, Dh)``.
 attention keys at positions ``>=`` it, the bucket-padding mask.  ``dtype``
 is the compute dtype (None: the input's), as the JAX modules' ``dtype``:
 each product casts its operands to it at use (``nn.core.linear``), the
-LayerNorms return it, and the kernels run at it (bf16: forward only).  The
+LayerNorms return it, and the kernels run at it, forward and backward.  The
 ``in_proj``/``out_proj`` products are plain ``F.linear`` (at bf16 the bias
 added after the product, as JAX adds it), as the JAX package leaves them
 to XLA; attention runs through

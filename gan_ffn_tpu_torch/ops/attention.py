@@ -19,12 +19,12 @@ read both from device memory (a host value is first written there), so a
 CUDA graph that records a call replays it at whatever ``valid_len`` and seed
 base hold at replay time.
 
-:func:`fused_attention` dispatches on the tensors' device.  CPU tensors go
-through :func:`attention_plain`, and autograd of it is the backward.  CUDA
-tensors go through :class:`_FusedAttention`: its forward launches
-``csrc/attention_fwd.cu``, its backward :func:`fused_attention_backward`,
-which launches ``csrc/attention_bwd.cu`` -- each launches or raises, with
-no fallback.  The backward recomputes the softmax and the mask: the
+:func:`fused_attention` dispatches on the tensors' device.  float32 CPU
+tensors go through :func:`attention_plain`, and autograd of it is the
+backward.  CUDA tensors go through :class:`_FusedAttention`: its forward
+launches ``csrc/attention_fwd.cu``, its backward
+:func:`fused_attention_backward`, which launches ``csrc/attention_bwd.cu``
+(their bf16 twins at bf16) -- each launches or raises, with no fallback.  The backward recomputes the softmax and the mask: the
 function saves q, k and v only, never the ``(B, H, L, L)`` weights.  The
 plain backward, :func:`attention_backward_plain`, is autograd of
 :func:`attention_plain`; the kernel is held to it on the card within
@@ -34,22 +34,29 @@ cores as TF32 ``mma.sync`` in the 3xTF32 split (``csrc/mma_tf32.cuh``),
 which keeps them f32-accurate to ~2^-21 per product; one TF32 pass would
 miss both limits (``tests/test_torch_attention_tf32.py``).
 
-bfloat16 operands run the forward only, at the JAX kernel's rounding
-points (``gan_ffn_tpu/ops/attention.py:38-83``): scores from the bf16 q and
-k summed to f32, scale, mask, softmax and dropout in f32, the weights
-rounded to bf16 before the product with v (summed to f32), the output
-rounded to bf16.  :func:`attention_plain` rounds at the same points; on
-CUDA bf16 tensors :func:`attention_fwd_bf16` launches
-``csrc/attention_fwd_bf16.cu`` (bf16 ``mma.sync`` products, as the MXU
-does), held to the plain version within 2^-8 * max(1, max |ref|) with at
-least 99% of the elements identical.  At bf16 both sides take each sum
-(the two products, the softmax's row sum) exactly, rounded to f32 once
-(:func:`exact_matmul`; f64 in the kernel): summed in f32 in two orders, the
-two put 0.02-0.04% of the outputs a bf16 ulp apart, and one such ulp at the
-largest outputs is past that limit, which is half an ulp there.  A bf16
-call that would need a gradient raises ``NotImplementedError`` on any
-device (:data:`BF16_BACKWARD`): there is no bf16 backward kernel yet, and
-no fallback.
+bfloat16 operands run at the JAX kernels' rounding points.  The forward
+(``gan_ffn_tpu/ops/attention.py:38-83``): scores from the bf16 q and k
+summed to f32, scale, mask, softmax and dropout in f32, the weights rounded
+to bf16 before the product with v (summed to f32), the output rounded to
+bf16.  :func:`attention_plain` rounds at the same points; on CUDA bf16
+tensors :func:`attention_fwd_bf16` launches ``csrc/attention_fwd_bf16.cu``
+(bf16 ``mma.sync`` products, as the MXU does).  The backward (``:86-136``):
+the weights recomputed in f32, the dropped weights rounded to bf16 for dV,
+dP = dO V^T summed to f32, the softmax backward in f32, dS * scale rounded
+to bf16 for dQ and dK, the three gradients written at bf16.
+:func:`attention_backward_plain` rounds at those points (autograd of the
+plain forward would round dP to bf16, which JAX does not); on CUDA bf16
+tensors :func:`attention_bwd_bf16` launches ``csrc/attention_bwd_bf16.cu``,
+which recomputes the weights through the forward kernel's own code
+(``csrc/attention_bf16.cuh``), so they are the forward's bits.  Each bf16
+kernel is held to its plain version within 2^-8 * max(1, max |ref|) with
+at least 99% of the elements identical.  At bf16 both sides take each sum
+(the products, the softmax's row sum, D) exactly, rounded to f32 once
+(:func:`exact_matmul`; f64 in the kernels): summed in f32 in two orders,
+the two put 0.02-0.04% of the outputs a bf16 ulp apart, and one such ulp at
+the largest outputs is past that limit, which is half an ulp there.  A bf16
+call with a gradient runs through :class:`_FusedAttention` on either device
+(the plain versions on the CPU).
 
 The TPU kernel's padding (L to 128 lanes, Dh to the sublane tile) is a TPU
 layout and is not carried over.  At ``valid_len == 0`` the port follows the
@@ -71,9 +78,7 @@ from .dropout import STREAM_ATTENTION, Seed, SeedRef, keep_scale, threshold_and_
 NEG_INF = -1e30
 MAX_LEN = 128  # keys a block holds in 16 mma tiles of 8, one block per (b, h) (csrc kMaxLen)
 MAX_HEAD_DIM = 64  # the widest of the kernels' head widths 16, 32, 64 (csrc kWidths)
-FORWARD_DTYPES = (torch.float32, torch.bfloat16)  # what the forward kernels take
-# where a bf16 backward comes from
-BF16_BACKWARD = "ROADMAP Queue 1 item 3, bf16 training: the bf16 backward kernels"
+KERNEL_DTYPES = (torch.float32, torch.bfloat16)  # what the kernels take, forward and backward
 
 # dropout on, seed base pointer, seed index, threshold, scale
 _DROP_ARGTYPES = [ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float]
@@ -123,11 +128,43 @@ def exact_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def attention_backward_plain(q, k, v, dout, valid_len, dropout_rate=0.0, dropout_seed=0):
-    """(dq, dk, dv): autograd of :func:`attention_plain`."""
+    """(dq, dk, dv) of :func:`attention_plain` for the upstream gradient
+    ``dout``: autograd of it at float32; at bf16 the JAX kernel's chain,
+    rounded where it rounds (:func:`_attention_backward_bf16`)."""
+    if q.dtype == torch.bfloat16:
+        return _attention_backward_bf16(q, k, v, dout, valid_len, dropout_rate, dropout_seed)
     with torch.enable_grad():
         leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
         out = attention_plain(*leaves, valid_len, dropout_rate, dropout_seed)
         return torch.autograd.grad(out, leaves, dout)
+
+
+def _attention_backward_bf16(q, k, v, dout, valid_len, rate, seed):
+    """The bf16 backward of ``gan_ffn_tpu/ops/attention.py:86-136`` with every
+    sum exact (:func:`exact_matmul`): the weights P recomputed in f32 as
+    :func:`attention_plain` computes them; dV = bf16(P M)^T dO; dP = dO V^T
+    and D = sum_j P M dP in f32; dS = bf16(P (dP M - D) * scale); dQ = dS K,
+    dK = dS^T Q; all three rounded to bf16.  The masked scores' gradient is
+    0 (the XLA chain's ``where``): at ``valid_len <= 0`` dQ = dK = 0."""
+    B, H, L, Dh = q.shape
+    scale = 1.0 / math.sqrt(Dh)
+    masked = torch.arange(L, device=q.device) >= valid_len
+    scores = (exact_matmul(q, k.transpose(-1, -2)) * scale).masked_fill(masked, NEG_INF)
+    e = torch.exp(scores - scores.amax(dim=-1, keepdim=True))
+    attn = e / e.double().sum(dim=-1, keepdim=True).float()
+    keep = (keep_scale(seed, STREAM_ATTENTION, attn.shape, rate, q.device)
+            if rate > 0.0 else None)
+    dropped = attn if keep is None else attn * keep
+    dv = exact_matmul(dropped.to(torch.bfloat16).transpose(-1, -2), dout)
+    dattn = exact_matmul(dout, v.transpose(-1, -2))
+    if keep is not None:
+        dattn = dattn * keep
+    D = (dattn * attn).double().sum(dim=-1, keepdim=True).float()
+    ds = (attn * (dattn - D)).masked_fill(masked, 0.0)
+    ds = (ds * scale).to(torch.bfloat16)
+    dq = exact_matmul(ds, k)
+    dk = exact_matmul(ds.transpose(-1, -2), q)
+    return tuple(t.to(torch.bfloat16) for t in (dq, dk, dv))
 
 
 def _check_shapes(q, k, v) -> Tuple[int, int, int, int]:
@@ -210,12 +247,19 @@ attention_fwd_bf16.launches = 0  # bf16 forward kernel launches since the caller
 
 
 class _FusedAttention(torch.autograd.Function):
-    """attention_fwd.cu forward, attention_bwd.cu backward; saves q, k, v."""
+    """Forward and backward by device and dtype: on CUDA the kernels
+    (attention_fwd.cu and attention_bwd.cu at f32, their bf16 twins at
+    bf16), on the CPU the plain versions (the bf16 route: autograd of the
+    plain forward would round where JAX does not).  Saves q, k, v."""
 
     @staticmethod
     def forward(ctx, q, k, v, valid_len, rate, seed):
         ctx.save_for_backward(q, k, v)
         ctx.valid_len, ctx.rate, ctx.seed = valid_len, rate, seed
+        if q.device.type == "cpu":
+            return attention_plain(q, k, v, valid_len, rate, seed)
+        if q.dtype == torch.bfloat16:
+            return attention_fwd_bf16(q, k, v, valid_len, rate, seed)
         out = _launch_fwd(q, k, v, valid_len, rate, seed)
         _build.count_launch(fused_attention)
         return out
@@ -223,9 +267,7 @@ class _FusedAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         q, k, v = ctx.saved_tensors
-        dq, dk, dv = fused_attention_backward(
-            q, k, v, dout, ctx.valid_len, ctx.rate, ctx.seed
-        )
+        dq, dk, dv = fused_attention_backward(q, k, v, dout, ctx.valid_len, ctx.rate, ctx.seed)
         return dq, dk, dv, None, None, None
 
 
@@ -245,7 +287,7 @@ def fused_attention(
     int or a :class:`~.dropout.SeedRef`; default 0).  On a CUDA tensor the
     kernels take float32 or bfloat16, contiguous operands with ``L <= 128``
     and ``Dh <= 64`` and raise on anything else.  Differentiable in q, k and
-    v at float32; at bfloat16 the forward only.
+    v at both dtypes.
     """
     B, H, L, Dh = _check_shapes(q, k, v)
     valid_len = L if valid_len is None else valid_len
@@ -254,15 +296,14 @@ def fused_attention(
     rate = float(dropout_rate)
     seed = 0 if dropout_seed is None else dropout_seed
     threshold_and_scale(rate)  # refuses a rate outside [0, 1)
-    refuse_bf16_grad("fused_attention", (q, k, v))
     if q.device.type == "cpu":
-        return attention_plain(q, k, v, valid_len, rate, seed)
-    _check_cuda_operands("fused_attention", (q, k, v), q.device, FORWARD_DTYPES)
+        if q.dtype == torch.float32:
+            return attention_plain(q, k, v, valid_len, rate, seed)
+        return _FusedAttention.apply(q, k, v, valid_len, rate, seed)
+    _check_cuda_operands("fused_attention", (q, k, v), q.device, KERNEL_DTYPES)
     _check_kernel_geometry("fused_attention", L, Dh)
     args = (_device_valid_len(valid_len, q.device), rate,
             device_seed(seed, q.device) if rate > 0.0 else None)
-    if q.dtype == torch.bfloat16:
-        return attention_fwd_bf16(q, k, v, *args)
     return _FusedAttention.apply(q, k, v, *args)
 
 
@@ -281,12 +322,10 @@ def fused_attention_backward(
     """(dq, dk, dv) of :func:`fused_attention` for the upstream gradient
     ``dout``, with the forward's ``valid_len``, rate and seed (each as
     :func:`fused_attention` takes it).  CPU tensors:
-    :func:`attention_backward_plain`; CUDA tensors: ``attention_bwd.cu``.
-    ``dout`` is made contiguous here (autograd hands over a permuted view).
-    float32 only: bf16 raises ``NotImplementedError`` (:data:`BF16_BACKWARD`)."""
+    :func:`attention_backward_plain`; CUDA tensors: ``attention_bwd.cu`` at
+    f32, ``attention_bwd_bf16.cu`` at bf16 (:func:`attention_bwd_bf16`).
+    ``dout`` is made contiguous here (autograd hands over a permuted view)."""
     B, H, L, Dh = _check_shapes(q, k, v)
-    if torch.bfloat16 in (q.dtype, k.dtype, v.dtype, dout.dtype):
-        raise NotImplementedError(f"fused_attention_backward: no bf16 backward yet ({BF16_BACKWARD})")
     if dout.shape != q.shape:
         raise ValueError(f"dout {tuple(dout.shape)} does not match q {tuple(q.shape)}")
     if not isinstance(valid_len, torch.Tensor):
@@ -294,15 +333,29 @@ def fused_attention_backward(
     if q.device.type == "cpu":
         return attention_backward_plain(q, k, v, dout, valid_len, dropout_rate, dropout_seed)
     dout = dout.contiguous()
-    _check_cuda_operands("fused_attention_backward", (q, k, v, dout), q.device)
+    _check_cuda_operands("fused_attention_backward", (q, k, v, dout), q.device, KERNEL_DTYPES)
     _check_kernel_geometry("fused_attention_backward", L, Dh)
-    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
-    if q.numel() == 0:
-        return dq, dk, dv
     rate = float(dropout_rate)
     valid_len = _device_valid_len(valid_len, q.device)
     seed = device_seed(dropout_seed, q.device) if rate > 0.0 else None
-    fn = _build.function("attention_bwd", "gan_attention_bwd", _BWD_ARGTYPES)
+    if q.dtype == torch.bfloat16:
+        return attention_bwd_bf16(q, k, v, dout, valid_len, rate, seed)
+    grads = _launch_bwd(q, k, v, dout, valid_len, rate, seed, "attention_bwd")
+    _build.count_launch(fused_attention_backward)
+    return grads
+
+
+fused_attention_backward.launches = 0  # backward kernel launches since the last reset
+
+
+def _launch_bwd(q, k, v, dout, valid_len, rate, seed, library: str):
+    """Launch the backward kernel of ``library`` (``attention_bwd``, f32, or
+    ``attention_bwd_bf16``) on checked CUDA operands; returns (dq, dk, dv)."""
+    B, H, L, Dh = q.shape
+    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    if q.numel() == 0:
+        return dq, dk, dv
+    fn = _build.function(library, f"gan_{library}", _BWD_ARGTYPES)
     with torch.cuda.device(q.device):
         code = fn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
@@ -311,21 +364,22 @@ def fused_attention_backward(
             *_dropout_args(rate, seed),
             torch.cuda.current_stream(q.device).cuda_stream,
         )
-    _build.check(code, "attention_bwd")
-    _build.count_launch(fused_attention_backward)
+    _build.check(code, library)
     return dq, dk, dv
 
 
-fused_attention_backward.launches = 0  # backward kernel launches since the last reset
+def attention_bwd_bf16(q, k, v, dout, valid_len: torch.Tensor, rate: float,
+                       seed: Optional[SeedRef]):
+    """Launch ``csrc/attention_bwd_bf16.cu`` on bf16 CUDA operands that
+    :func:`fused_attention_backward` has checked (as :func:`attention_fwd_bf16`
+    takes them, with the forward's ``valid_len``, rate and seed); returns
+    the bf16 (dq, dk, dv).  Counts its launches."""
+    grads = _launch_bwd(q, k, v, dout, valid_len, rate, seed, "attention_bwd_bf16")
+    _build.count_launch(attention_bwd_bf16)
+    return grads
 
 
-def refuse_bf16_grad(op: str, tensors) -> None:
-    """Raise ``NotImplementedError`` where a bf16 call would need a gradient:
-    the bf16 kernels are forward only (:data:`BF16_BACKWARD`)."""
-    if (torch.is_grad_enabled() and any(t.dtype == torch.bfloat16 for t in tensors)
-            and any(t.requires_grad for t in tensors)):
-        raise NotImplementedError(
-            f"{op}: bfloat16 runs the forward only; no bf16 backward yet ({BF16_BACKWARD})")
+attention_bwd_bf16.launches = 0  # bf16 backward kernel launches since the caller last reset it
 
 
 def _check_cuda_operands(op: str, tensors, device: torch.device,

@@ -19,12 +19,12 @@ memory), streams ``STREAM_PRE``, ``STREAM_MID`` and ``STREAM_POST``,
 addressed by the flat ``(row, col)`` index of the ``(M, K)``, ``(M, H)`` and
 ``(M, N)`` tensors, rows counted over the input flattened to ``(M, K)``.
 
-:func:`fused_mlp` dispatches on the device: CPU tensors go through
+:func:`fused_mlp` dispatches on the device: float32 CPU tensors go through
 :func:`mlp_plain`, and autograd of it is the backward.  CUDA tensors go
 through :class:`_FusedMLP`: its forward launches ``csrc/mlp_fwd.cu``, its
-backward :func:`fused_mlp_backward`, which launches ``csrc/mlp_bwd.cu``;
-each launches or raises.  The function saves the inputs only; the backward
-recomputes the forward and the masks.  The plain backward,
+backward :func:`fused_mlp_backward`, which launches ``csrc/mlp_bwd.cu``
+(their bf16 twins at bf16); each launches or raises.  The function saves
+the inputs only; the backward recomputes the forward and the masks.  The plain backward,
 :func:`mlp_backward_plain`, is autograd of :func:`mlp_plain`; the kernel is
 held to it on the card within max |diff| <= 1e-4 * max(1, max |ref|) per
 output (f32 sums over up to M = 3584 rows in another order).  Weights use
@@ -53,23 +53,29 @@ sums the partials in ascending chunk order.
 All four geometries of the path pass both:
 100->2048->100, 512->2048->512, 100->512->100 and 512->1024->100.
 
-bfloat16 operands run the forward only, at the JAX kernel's rounding
-points (``gan_ffn_tpu/ops/mlp.py:107-146``): x, b1 and b2 read as f32, the
-pre chain in f32 and t1 rounded to bf16 for the first product, z1 with f32
-sums + b1 and the mid chain in f32, a1 rounded to bf16, z2 with f32 sums +
-b2 and the post chain in f32, the output rounded to bf16.  :func:`mlp_plain`
-rounds at the same points; on CUDA bf16 tensors :func:`mlp_fwd_bf16`
-launches ``csrc/mlp_fwd_bf16.cu`` (the same d_ff split as the f32 forward),
-held to the plain version within 2^-8 * max(1, max |ref|) with at least 99%
-of the elements identical.  Both take z1 and z2 as the exact sums of the
-bf16 products rounded to f32 once (``ops.attention.exact_matmul``; the
-kernel on the f64 tensor cores), so their roundings do not depend on the
-order of the sums.  The bf16 tensor cores truncate their sums, and a z1 one
-ulp off at a bf16 boundary changes an a1 that every output of its row
-reads (the kernel's notes have the measurements).  A bf16 call that would
-need a gradient raises ``NotImplementedError`` on any device
-(``ops.attention.BF16_BACKWARD``).  :func:`fused_mlp_supported` gives the
-same answer at both dtypes.
+bfloat16 operands run at the JAX kernels' rounding points.  The forward
+(``gan_ffn_tpu/ops/mlp.py:107-146``): x, b1 and b2 read as f32, the pre
+chain in f32 and t1 rounded to bf16 for the first product, z1 with f32 sums
++ b1 and the mid chain in f32, a1 rounded to bf16, z2 with f32 sums + b2
+and the post chain in f32, the output rounded to bf16.  The backward
+(``:162-233``): the chain recomputed so, g = dz2 in f32 and rounded to bf16
+for its products, dW2 = a1^T g and da1 = g W2^T, dz1 in f32 and rounded to
+bf16 for dW1 = t1^T dz1 and dt1 = dz1 W1^T, db1 and db2 summed from the f32
+dz1 and g, dx rounded to bf16, and dW, db summed over every row in f32 and
+cast once to the weights' dtype.  :func:`mlp_plain` and
+:func:`mlp_backward_plain` round at the same points; on CUDA bf16 tensors
+:func:`mlp_fwd_bf16` launches ``csrc/mlp_fwd_bf16.cu`` (the same d_ff split
+as the f32 forward) and :func:`mlp_bwd_bf16` ``csrc/mlp_bwd_bf16.cu``,
+each held to its plain version within 2^-8 * max(1, max |ref|) with at
+least 99% of the elements identical.  All take every product's sum exactly,
+rounded to f32 once (``ops.attention.exact_matmul``; the kernels on the f64
+tensor cores), so their roundings do not depend on the order of the sums.
+The bf16 tensor cores truncate their sums, and a z1 one ulp off at a bf16
+boundary changes an a1 that every output of its row reads (the kernels'
+notes have the measurements).  The backward's z1 comes from the forward's
+own tile code (``csrc/mlp_bf16_tile.cuh``), so relu' takes the branch that
+relu took.  :func:`fused_mlp_supported` gives the same answer at both
+dtypes.
 """
 
 from __future__ import annotations
@@ -81,8 +87,7 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
-from .attention import (BF16_BACKWARD, FORWARD_DTYPES, _check_cuda_operands, device_seed,
-                        exact_matmul, refuse_bf16_grad)
+from .attention import KERNEL_DTYPES, _check_cuda_operands, device_seed, exact_matmul
 from .dropout import (STREAM_MID, STREAM_POST, STREAM_PRE, Seed, keep_scale,
                       threshold_and_scale)
 
@@ -104,6 +109,8 @@ _FWD_BF16_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + _CHAIN_ARGTYP
                       + [ctypes.c_void_p])
 _BWD_ARGTYPES = ([ctypes.c_void_p] * 16 + [ctypes.c_int] * 4 + _CHAIN_ARGTYPES
                  + [ctypes.c_void_p])
+_BWD_BF16_ARGTYPES = ([ctypes.c_void_p] * 18 + [ctypes.c_int] * 4 + _CHAIN_ARGTYPES
+                      + [ctypes.c_void_p])
 
 
 def fused_mlp_supported(K: int, H: int, N: int, M: int = 1) -> bool:
@@ -133,18 +140,30 @@ def split_reduction(tiles: int, depth: int) -> Tuple[int, int]:
     return -(-depth // chunk), chunk
 
 
-def bwd_launches(M: int, K: int, H: int, N: int) -> list:
-    """The backward's three launches that may split their reduction: name,
-    output shape (the dW launches carry the bias as one more row), depth,
-    output tiles, chunks ``S``, chunk length and blocks."""
+def _split_launches(launches) -> list:
+    """Each ``(name, rows, cols, depth)`` launch with its output tiles,
+    chunks ``S``, chunk length and blocks (:func:`split_reduction`)."""
     out = []
-    for name, rows, cols, depth in (("dx", M, K, H), ("dw1_db1", K + 1, H, M),
-                                    ("dw2_db2", H + 1, N, M)):
+    for name, rows, cols, depth in launches:
         tiles = -(-rows // _TILE) * -(-cols // _TILE)
         S, chunk = split_reduction(tiles, depth)
         out.append({"name": name, "outputs": [rows, cols], "depth": depth, "tiles": tiles,
                     "chunks": S, "chunk": chunk, "blocks": tiles * S})
     return out
+
+
+def _split_workspace(launches) -> int:
+    """The largest chunks x outputs of the launches that split, 0 where none does."""
+    return max([l["chunks"] * l["outputs"][0] * l["outputs"][1]
+                for l in launches if l["chunks"] > 1], default=0)
+
+
+def bwd_launches(M: int, K: int, H: int, N: int) -> list:
+    """The backward's three launches that may split their reduction: name,
+    output shape (the dW launches carry the bias as one more row), depth,
+    output tiles, chunks ``S``, chunk length and blocks."""
+    return _split_launches((("dx", M, K, H), ("dw1_db1", K + 1, H, M),
+                            ("dw2_db2", H + 1, N, M)))
 
 
 def bwd_workspace_floats(M: int, K: int, H: int, N: int) -> int:
@@ -153,8 +172,24 @@ def bwd_workspace_floats(M: int, K: int, H: int, N: int) -> int:
     launch that splits, 0 where none does."""
     if min(M, K, H, N) < 1:
         return 0
-    return max([l["chunks"] * l["outputs"][0] * l["outputs"][1]
-                for l in bwd_launches(M, K, H, N) if l["chunks"] > 1], default=0)
+    return _split_workspace(bwd_launches(M, K, H, N))
+
+
+def bwd_bf16_launches(M: int, K: int, H: int, N: int) -> list:
+    """The bf16 backward's three launches that may split their reduction
+    (csrc ``mlp_bwd_bf16.cu``), as :func:`bwd_launches` gives the f32 ones:
+    db1 and db2 are summed apart from the f32 dz1 and g, so the dW launches
+    carry no bias row."""
+    return _split_launches((("dx", M, K, H), ("dw1", K, H, M), ("dw2", H, N, M)))
+
+
+def bwd_bf16_workspace_doubles(M: int, K: int, H: int, N: int) -> int:
+    """Doubles of workspace the bf16 backward needs (csrc
+    ``gan_mlp_bwd_bf16_workspace_doubles``): its split launches keep their
+    partial sums in f64, the largest chunks x outputs; 0 where none splits."""
+    if min(M, K, H, N) < 1:
+        return 0
+    return _split_workspace(bwd_bf16_launches(M, K, H, N))
 
 
 def fwd_split(M: int, H: int) -> Tuple[int, int]:
@@ -258,11 +293,86 @@ def mlp_plain(x, w1, b1, w2, b2, pre=None, mid=("relu", "act_first", 0.0), post=
 
 def mlp_backward_plain(x, w1, b1, w2, b2, dout, pre=None, mid=("relu", "act_first", 0.0),
                        post=None, dropout_seed: Seed = 0):
-    """(dx, dw1, db1, dw2, db2): autograd of :func:`mlp_plain`."""
+    """(dx, dw1, db1, dw2, db2): autograd of :func:`mlp_plain` at float32;
+    at bf16 the JAX kernel's chain, rounded where it rounds
+    (:func:`_mlp_backward_bf16`)."""
+    if x.dtype == torch.bfloat16:
+        return _mlp_backward_bf16(x, w1, b1, w2, b2, dout, pre, mid, post, dropout_seed)
     with torch.enable_grad():
         leaves = [t.detach().requires_grad_(True) for t in (x, w1, b1, w2, b2)]
         out = mlp_plain(*leaves, pre, mid, post, dropout_seed)
         return torch.autograd.grad(out, leaves, dout)
+
+
+def _act_grad(name: Optional[str], z: torch.Tensor) -> torch.Tensor:
+    """d act(z) / dz in f32, as ``gan_ffn_tpu/ops/mlp.py::_act_grad``: the
+    exact gelu's Phi(z) + z phi(z)."""
+    if name == "relu":
+        return (z > 0.0).float()
+    return 0.5 * (1.0 + torch.erf(z * 0.7071067811865476)) + z * (
+        torch.exp(-0.5 * z * z) * 0.3989422804014327)
+
+
+def _mlp_backward_bf16(x, w1, b1, w2, b2, dout, pre, mid, post, seed):
+    """The bf16 backward of ``gan_ffn_tpu/ops/mlp.py::_bwd_kernel`` with
+    every product's sum exact, rounded to f32 once (``exact_matmul``): the
+    forward chain recomputed as :func:`mlp_plain` computes it; g (= dz2)
+    and dz1 in f32, rounded to bf16 as the products' operands; db1, db2
+    exact sums of the f32 dz1, g; dx rounded to bf16, and dW, db cast to
+    the weights' dtype."""
+    (a_pre, a_mid, order, a_post), (r_pre, r_mid, r_post) = _parse_chain(pre, mid, post)
+    K, H, N = w1.shape[0], w1.shape[1], w2.shape[1]
+    dtype = x.dtype
+    xf = x.reshape(-1, K).float()
+    M = xf.shape[0]
+
+    def mask(stream, cols, rate, on):
+        return keep_scale(seed, stream, (M, cols), rate, x.device) if on else None
+
+    m_pre = mask(STREAM_PRE, K, r_pre, a_pre is not None and r_pre > 0.0)
+    m_mid = mask(STREAM_MID, H, r_mid, r_mid > 0.0)
+    m_post = mask(STREAM_POST, N, r_post, a_post is not None and r_post > 0.0)
+    t1 = _act(a_pre, xf)
+    if m_pre is not None:
+        t1 = t1 * m_pre
+    t1 = t1.to(dtype)
+    z1 = exact_matmul(t1, w1) + b1.float()
+    if order == "drop_first":
+        zd1 = z1 if m_mid is None else z1 * m_mid
+        a1 = _act(a_mid, zd1)
+    else:
+        a1 = _act(a_mid, z1)
+        if m_mid is not None:
+            a1 = a1 * m_mid
+    a1 = a1.to(dtype)
+    g = dout.reshape(M, N).float()
+    if a_post is not None:
+        z2 = exact_matmul(a1, w2) + b2.float()
+        g = g * _act_grad(a_post, z2 if m_post is None else z2 * m_post)
+        if m_post is not None:
+            g = g * m_post
+    gd = g.to(dtype)
+    dw2 = exact_matmul(a1.t(), gd)
+    db2 = g.double().sum(dim=0).float()
+    da1 = exact_matmul(gd, w2.t())
+    if order == "drop_first":
+        dz1 = da1 * _act_grad(a_mid, zd1)
+        if m_mid is not None:
+            dz1 = dz1 * m_mid
+    else:
+        if m_mid is not None:
+            da1 = da1 * m_mid
+        dz1 = da1 * _act_grad(a_mid, z1)
+    dz1d = dz1.to(dtype)
+    dw1 = exact_matmul(t1.t(), dz1d)
+    db1 = dz1.double().sum(dim=0).float()
+    dt1 = exact_matmul(dz1d, w1.t())
+    if a_pre is not None:
+        if m_pre is not None:
+            dt1 = dt1 * m_pre
+        dt1 = dt1 * _act_grad(a_pre, xf)
+    return (dt1.to(dtype).reshape(x.shape), dw1.to(w1.dtype), db1.to(b1.dtype),
+            dw2.to(w2.dtype), db2.to(b2.dtype))
 
 
 def _drop_on(pre, mid, post):
@@ -341,12 +451,19 @@ def _launch_fwd(x2, w1, b1, w2, b2, chain, seed) -> torch.Tensor:
 
 
 class _FusedMLP(torch.autograd.Function):
-    """mlp_fwd.cu forward, mlp_bwd.cu backward; saves the inputs only."""
+    """Forward and backward by device and dtype: on CUDA the kernels
+    (mlp_fwd.cu and mlp_bwd.cu at f32, their bf16 twins at bf16), on the
+    CPU the plain versions (the bf16 route: autograd of the plain forward
+    would round where JAX does not).  Saves the inputs only."""
 
     @staticmethod
     def forward(ctx, x2, w1, b1, w2, b2, chain, seed):
         ctx.save_for_backward(x2, w1, b1, w2, b2)
         ctx.chain, ctx.seed = chain, seed
+        if x2.device.type == "cpu":
+            return mlp_plain(x2, w1, b1, w2, b2, *chain, dropout_seed=seed)
+        if x2.dtype == torch.bfloat16:
+            return mlp_fwd_bf16(x2, w1, b1, w2, b2, chain, seed)
         return _launch_fwd(x2, w1, b1, w2, b2, chain, seed)
 
     @staticmethod
@@ -384,18 +501,19 @@ def fused_mlp(
     of the call.  On CUDA tensors
     the kernels take float32 or bfloat16, contiguous operands of one dtype
     in a geometry that :func:`fused_mlp_supported` accepts, and raise on
-    anything else.  Differentiable in every tensor argument at float32; at
-    bfloat16 the forward only.
+    anything else.  Differentiable in every tensor argument at both dtypes.
     """
     _parse_chain(pre, mid, post)
     K, H, N = _check_geometry(x, w1, b1, w2, b2)
     seed = 0 if dropout_seed is None else dropout_seed
-    refuse_bf16_grad("fused_mlp", (x, w1, b1, w2, b2))
-    if x.device.type == "cpu":
-        return mlp_plain(x, w1, b1, w2, b2, pre, mid, post, seed)
-    _check_cuda_operands("fused_mlp", (x, w1, b1, w2, b2), x.device, FORWARD_DTYPES)
     lead = x.shape[:-1]
     M = x.numel() // K
+    if x.device.type == "cpu":
+        if x.dtype == torch.float32:
+            return mlp_plain(x, w1, b1, w2, b2, pre, mid, post, seed)
+        out = _FusedMLP.apply(x.reshape(M, K), w1, b1, w2, b2, (pre, mid, post), seed)
+        return out.reshape(*lead, N)
+    _check_cuda_operands("fused_mlp", (x, w1, b1, w2, b2), x.device, KERNEL_DTYPES)
     if not fused_mlp_supported(K, H, N, max(M, 1)):
         raise ValueError(
             f"fused_mlp kernels do not take M={M} K={K} H={H} N={N} (flat indices < 2**31 "
@@ -403,8 +521,7 @@ def fused_mlp(
         )
     if any(_drop_on(pre, mid, post)):
         seed = device_seed(seed, x.device)  # once, so that the backward reads the same
-    launch = mlp_fwd_bf16 if x.dtype == torch.bfloat16 else _FusedMLP.apply
-    out = launch(x.reshape(M, K), w1, b1, w2, b2, (pre, mid, post), seed)
+    out = _FusedMLP.apply(x.reshape(M, K), w1, b1, w2, b2, (pre, mid, post), seed)
     return out.reshape(*lead, N)
 
 
@@ -416,22 +533,22 @@ def fused_mlp_backward(x, w1, b1, w2, b2, dout, pre=None, mid=("relu", "act_firs
     """(dx, dw1, db1, dw2, db2) of :func:`fused_mlp` over ``(M, K)`` inputs
     for the upstream gradient ``dout (M, N)``, with the forward's chain and
     seed.  CPU tensors: :func:`mlp_backward_plain`; CUDA tensors:
-    ``mlp_bwd.cu`` (its launches, scratch buffers and workspace, one
-    call).  float32 only: bf16 raises ``NotImplementedError``
-    (``ops.attention.BF16_BACKWARD``)."""
+    ``mlp_bwd.cu`` at f32, ``mlp_bwd_bf16.cu`` at bf16 (:func:`mlp_bwd_bf16`),
+    each with its launches, scratch buffers and workspace, one call."""
     K, H, N = _check_geometry(x, w1, b1, w2, b2)
-    if any(t.dtype == torch.bfloat16 for t in (x, w1, b1, w2, b2, dout)):
-        raise NotImplementedError(f"fused_mlp_backward: no bf16 backward yet ({BF16_BACKWARD})")
     if x.dim() != 2 or dout.shape != (x.shape[0], N):
         raise ValueError(f"fused_mlp_backward takes x (M, K) and dout (M, N), got "
                          f"{tuple(x.shape)} and {tuple(dout.shape)}")
     if x.device.type == "cpu":
         return mlp_backward_plain(x, w1, b1, w2, b2, dout, pre, mid, post, dropout_seed)
     dout = dout.contiguous()
-    _check_cuda_operands("fused_mlp_backward", (x, w1, b1, w2, b2, dout), x.device)
+    _check_cuda_operands("fused_mlp_backward", (x, w1, b1, w2, b2, dout), x.device,
+                         KERNEL_DTYPES)
     M = x.shape[0]
     if not fused_mlp_supported(K, H, N, max(M, 1)):
         raise ValueError(f"fused_mlp_backward kernel does not take M={M} K={K} H={H} N={N}")
+    if x.dtype == torch.bfloat16:
+        return mlp_bwd_bf16(x, w1, b1, w2, b2, dout, (pre, mid, post), dropout_seed)
     dx = torch.empty_like(x)
     dw1, db1, dw2, db2 = (torch.empty_like(t) for t in (w1, b1, w2, b2))
     if M == 0:
@@ -460,3 +577,50 @@ def fused_mlp_backward(x, w1, b1, w2, b2, dout, pre=None, mid=("relu", "act_firs
 
 
 fused_mlp_backward.launches = 0  # backward kernel calls since the caller last reset it
+
+
+def mlp_bwd_bf16(x, w1, b1, w2, b2, dout, chain, seed):
+    """Launch ``csrc/mlp_bwd_bf16.cu`` on bf16 CUDA operands that
+    :func:`fused_mlp_backward` has checked (``x (M, K)``, ``dout (M, N)``,
+    ``chain`` the forward's ``(pre, mid, post)``, ``seed`` its seed);
+    returns the bf16 (dx, dw1, db1, dw2, db2).  Allocates the scratch: t1
+    (with pre), a1, dz1 (f32) and its bf16 copy, g (f32) and its bf16 copy
+    (with post), and the f64 workspace of the split launches.  Counts its
+    launches."""
+    M, K = x.shape
+    H, N = w2.shape
+    dx = torch.empty_like(x)
+    dw1, db1, dw2, db2 = (torch.empty_like(t) for t in (w1, b1, w2, b2))
+    if M == 0:
+        for t in (dw1, db1, dw2, db2):
+            t.zero_()
+        return dx, dw1, db1, dw2, db2
+    pre, _, post = chain
+    dev = x.device
+
+    def empty(dtype, *shape):
+        return torch.empty(shape, dtype=dtype, device=dev)
+
+    t1 = empty(x.dtype, M, K) if pre is not None else empty(x.dtype, 0)
+    a1, dz1, dz1b = empty(x.dtype, M, H), empty(torch.float32, M, H), empty(x.dtype, M, H)
+    g = empty(torch.float32, M, N) if post is not None else empty(torch.float32, 0)
+    gd = empty(x.dtype, M, N) if post is not None else empty(x.dtype, 0)
+    workspace = _build.function("mlp_bwd_bf16", "gan_mlp_bwd_bf16_workspace_doubles",
+                                [ctypes.c_int] * 4, ctypes.c_longlong)
+    ws = empty(torch.float64, workspace(M, K, H, N))
+    fn = _build.function("mlp_bwd_bf16", "gan_mlp_bwd_bf16", _BWD_BF16_ARGTYPES)
+    args, _keep = _chain_args(*chain, seed, dev)
+    with torch.cuda.device(dev):
+        code = fn(
+            x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
+            dout.data_ptr(), dx.data_ptr(), dw1.data_ptr(), db1.data_ptr(), dw2.data_ptr(),
+            db2.data_ptr(), t1.data_ptr(), a1.data_ptr(), dz1.data_ptr(), dz1b.data_ptr(),
+            g.data_ptr(), gd.data_ptr(), ws.data_ptr(), M, K, H, N, *args,
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    _build.check(code, "mlp_bwd_bf16")
+    _build.count_launch(mlp_bwd_bf16)
+    return dx, dw1, db1, dw2, db2
+
+
+mlp_bwd_bf16.launches = 0  # bf16 backward kernel calls since the caller last reset it

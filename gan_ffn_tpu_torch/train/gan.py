@@ -23,6 +23,13 @@ reference's dynamically padded batch: ``t < valid_len`` and ``b < n_real``
 duplicate-key overwrites: each logged key holds its last write
 (``LOGGED_LOSS_KEYS``).
 
+At ``GANConfig(dtype=torch.bfloat16)`` (``--bf16``) the six networks compute
+at bf16 from float32 parameters cast at each use, as the JAX package's
+``GANConfig(dtype=...)`` runs them: the discriminators' probabilities and
+the BCE at bf16 (``nn.losses.bce_loss``), the kernels' bf16 forwards and
+backwards, and each Adam on the float32 parameters with the float32
+gradients that come back through the casts.
+
 The JAX package compiles the schedule as one program or as twelve; in eager
 torch both are this one loop.  :func:`make_gan_epoch_step` is the same step
 for the epoch-fused stage A (``--epoch-fused``): one CUDA graph per batch
@@ -106,6 +113,7 @@ class GANConfig:
     lr: float = 1e-4
     b1: float = 0.5
     b2: float = 0.6
+    dtype: Optional[torch.dtype] = None  # the six networks' compute dtype (bf16: --bf16)
     seed: int = 3407
 
 
@@ -121,7 +129,7 @@ def create_gan_modules(cfg: GANConfig, generator: Optional[torch.Generator] = No
     """The six networks, with weights drawn from ``generator`` (a CPU
     ``torch.Generator``) in the order of ``GEN_NAMES + DISC_NAMES``."""
     kw = dict(D_h=cfg.D_h, dropout=cfg.dropout, num_layers=cfg.num_layers,
-              generator=generator, device=device)
+              generator=generator, device=device, dtype=cfg.dtype)
     return {name: cls(**kw) for name, cls in _MODULES.items()}
 
 

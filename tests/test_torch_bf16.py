@@ -174,23 +174,25 @@ def test_bf16_plain_versions_round_at_the_kernels_points():
     assert torch.equal(TA.fused_attention(q, k, v), exact(p, v).bfloat16())
 
 
-# (i) no bf16 backward: a gradient is refused, on any device
+# (i) a gradient at bf16: the calls that were refused before the bf16
+# backward now return bf16 gradients (their values: tests/test_torch_bf16_train.py)
 
 
 def test_bf16_refuses_a_gradient_in_both_ops():
     q = torch.zeros(1, 2, 4, 8, dtype=torch.bfloat16, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="bf16 training"):
-        TA.fused_attention(q, q, q)
+    TA.fused_attention(q, q, q).float().sum().backward()
+    assert q.grad.dtype == torch.bfloat16 and q.grad.shape == q.shape
     x = torch.zeros(3, 8, dtype=torch.bfloat16, requires_grad=True)
     w1, w2 = torch.zeros(8, 16, dtype=torch.bfloat16), torch.zeros(16, 8, dtype=torch.bfloat16)
     b1, b2 = torch.zeros(16, dtype=torch.bfloat16), torch.zeros(8, dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="bf16 training"):
-        TM.fused_mlp(x, w1, b1, w2, b2)
-    with pytest.raises(NotImplementedError, match="bf16 training"):
-        TA.fused_attention_backward(q.detach(), q.detach(), q.detach(), q.detach(), 4)
-    with pytest.raises(NotImplementedError, match="bf16 training"):
-        TM.fused_mlp_backward(x.detach(), w1, b1, w2, b2, torch.zeros(3, 8, dtype=torch.bfloat16))
-    with torch.no_grad():  # without a gradient the forward runs
+    TM.fused_mlp(x, w1, b1, w2, b2).float().sum().backward()
+    assert x.grad.dtype == torch.bfloat16 and x.grad.shape == x.shape
+    grads = TA.fused_attention_backward(q.detach(), q.detach(), q.detach(), q.detach(), 4)
+    assert all(g.dtype == torch.bfloat16 and g.shape == q.shape for g in grads)
+    grads = TM.fused_mlp_backward(x.detach(), w1, b1, w2, b2, torch.ones(3, 8, dtype=torch.bfloat16))
+    assert [g.dtype for g in grads] == [torch.bfloat16] * 5
+    assert [g.shape for g in grads] == [t.shape for t in (x, w1, b1, w2, b2)]
+    with torch.no_grad():  # without a gradient the forward runs as before
         assert TA.fused_attention(q, q, q).dtype == torch.bfloat16
         assert TM.fused_mlp(x, w1, b1, w2, b2).dtype == torch.bfloat16
 

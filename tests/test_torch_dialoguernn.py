@@ -473,7 +473,7 @@ def test_cli_main_returns_the_best_epoch(tmp_path, monkeypatch, short_dialogues)
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--bf16"], "Queue 1 item 3, bf16 training"),
+    (["--epoch-fused", "--gan-schedule", "stepwise"], "--gan-schedule stepwise"),
     (["--dp"], "module note 13"),
     (["--scan-layers"], "module note 15"),
     (["--tensorboard"], "module note 15"),

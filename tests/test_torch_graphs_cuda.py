@@ -16,7 +16,9 @@ is False, and runs wherever a CUDA card is present:
   between replays, through ``train.optim.set_lr_scale``): with the same
   capturable Adams at the trainers' eps 1e-8, so the graph is the only
   difference, the same bits; against the per-batch path's plain Adams,
-  losses and every parameter within 1e-6 * max(1, max |ref|).  Adam's eps
+  losses and every parameter within 1e-6 * max(1, max |ref|).  The three
+  at bf16 (``--bf16 --epoch-fused``: the bf16 kernels) against eager with
+  the same capturable Adams: the same bits.  Adam's eps
   is 1e-3 there, as in the other step comparisons
   (tests/test_torch_train.py EPS): gradients that are 0 in exact
   arithmetic come out as noise of either sign, which the two Adams'
@@ -132,11 +134,11 @@ def _batch(rng, B, L, device):
 LR_SCALES = (1.0, 0.5, 0.25)  # the lr's scale in each of the 3 compared steps
 
 
-def _classifier(cls):
+def _classifier(cls, dtype=None):
     def build(graphed, device, eps):
         kw = dict(D_g=16, D_p=16, D_e=8, D_a=7) if cls is GAN_FFN_DialogueRNN else {}
         model = cls(n_classes=6, gen_num_layers=2, generator=torch.Generator().manual_seed(1),
-                    device=device, **kw)
+                    device=device, dtype=dtype, **kw)
         opt = torch_adam(model.parameters(), 1e-3, eps=eps, weight_decay=0.008)
         make = make_classifier_epoch_steps if graphed else make_classifier_steps
         step = make(model, opt, 6, torch.from_numpy(IEMOCAP_LOSS_WEIGHTS).to(device),
@@ -145,8 +147,8 @@ def _classifier(cls):
     return build
 
 
-def _stage_a(graphed, device, eps):
-    state = init_gan_state(GANConfig(num_layers=2, seed=3), device=device)
+def _stage_a(graphed, device, eps, dtype=None):
+    state = init_gan_state(GANConfig(num_layers=2, seed=3, dtype=dtype), device=device)
     for opt in state.opts.values():
         for group in opt.param_groups:
             group["eps"] = eps
@@ -159,13 +161,20 @@ def _stage_a(graphed, device, eps):
 
 STEP_BUILDERS = [("stage_a", _stage_a), ("stage_b", _classifier(GAN_FFN)),
                  ("dialoguernn", _classifier(GAN_FFN_DialogueRNN))]
+# the same steps at bf16 (--bf16 --epoch-fused): a graph replays the bf16
+# kernels' step with the same bits
+BF16_STEP_BUILDERS = [
+    ("stage_a_bf16", lambda graphed, device, eps: _stage_a(graphed, device, eps, torch.bfloat16)),
+    ("stage_b_bf16", _classifier(GAN_FFN, torch.bfloat16)),
+    ("dialoguernn_bf16", _classifier(GAN_FFN_DialogueRNN, torch.bfloat16)),
+]
 
 
 def _eager_and_graphed(name, build, device, eps, capturable):
     """Losses and parameters after 3 eager and after 3 graphed steps."""
     rng = np.random.default_rng(4)
     batches = [_batch(rng, 4, 32, device) for _ in LR_SCALES]
-    if name == "stage_a":
+    if name.startswith("stage_a"):
         batches = [gan_batch_from(b) for b in batches]
     results = []
     for graphed in (False, True):
@@ -184,7 +193,7 @@ def _eager_and_graphed(name, build, device, eps, capturable):
     return results
 
 
-@pytest.mark.parametrize("name,build", STEP_BUILDERS)
+@pytest.mark.parametrize("name,build", STEP_BUILDERS + BF16_STEP_BUILDERS)
 def test_graphed_steps_equal_eager(cuda, name, build):
     (want_losses, want), (got_losses, got) = _eager_and_graphed(name, build, cuda, 1e-8,
                                                                 capturable=True)

@@ -27,7 +27,9 @@ largest output) with at least 99% of the elements identical (+0 and -0 as
 one value: a dropped weight's zero products carry either sign); both take
 each sum exactly and round it to f32 once, so a rounded value differs only
 where an intermediate lies within about an f32 ulp of a rounding boundary.
-Two calls give identical bits.
+The bf16 backward kernels (``attention_bwd_bf16``, ``mlp_bwd_bf16``) are
+held to their plain versions at bf16 under the same limits.  Two calls give
+identical bits.
 """
 
 import numpy as np
@@ -489,12 +491,148 @@ def test_bf16_kernels_read_valid_len_and_seed_from_device_memory(cuda):
 
 
 def test_bf16_kernels_refuse_a_gradient_and_mixed_dtypes(cuda):
+    """A bf16 call with a gradient runs the bf16 kernels both ways; operands
+    of two dtypes are refused."""
     q = torch.zeros(1, 2, 8, 16, device=cuda, dtype=torch.bfloat16, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="bf16 training"):
-        A.fused_attention(q, q, q)
+    before = (A.attention_fwd_bf16.launches, A.attention_bwd_bf16.launches)
+    A.fused_attention(q, q, q).float().sum().backward()
+    assert (A.attention_fwd_bf16.launches, A.attention_bwd_bf16.launches) == (
+        before[0] + 1, before[1] + 1)
+    assert q.grad.dtype == torch.bfloat16
     with pytest.raises(TypeError, match="one dtype"):
         A.fused_attention(q.detach(), q.detach().float(), q.detach())
     x = torch.zeros(4, 8, device=cuda, dtype=torch.bfloat16)
     w1, w2 = torch.zeros(8, 16, device=cuda), torch.zeros(16, 8, device=cuda)
     with pytest.raises(TypeError, match="one dtype"):
         M.fused_mlp(x, w1, torch.zeros(16, device=cuda), w2, torch.zeros(8, device=cuda))
+
+
+# The bf16 backward kernels against their plain versions (the same limits).
+
+
+@pytest.mark.parametrize("H,Dh", [(10, 10), (8, 64), (3, 7), (2, 16), (2, 33)])
+@pytest.mark.parametrize("L", [1, 17, 37, 112, 128])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_attention_bf16_backward_kernel_matches_plain(cuda, H, Dh, L, rate):
+    rng = np.random.default_rng(L * 100 + Dh + 9)
+    q, k, v, dout = (_bf16(rng, (3, H, L, Dh), 1.0, cuda) for _ in range(4))
+    for vl in _valid_lens(L):
+        before = A.attention_bwd_bf16.launches
+        grads = A.fused_attention_backward(q, k, v, dout, vl, rate, vl + 5)
+        again = A.fused_attention_backward(q, k, v, dout, vl, rate, vl + 5)
+        torch.cuda.synchronize()
+        assert A.attention_bwd_bf16.launches == before + 2
+        want = A.attention_backward_plain(q, k, v, dout, vl, rate, vl + 5)
+        for name, g, w, g2 in zip(("dq", "dk", "dv"), grads, want, again):
+            _bf16_close(g, w, f"{name} valid_len={vl}")
+            assert torch.equal(g, g2), f"{name}: two calls differ"
+
+
+def test_attention_bf16_autograd_runs_both_kernels(cuda):
+    rng = np.random.default_rng(3)
+    q, k, v = (_bf16(rng, (2, 8, 50, 64), 1.0, cuda).requires_grad_() for _ in range(3))
+    fwd, bwd = A.attention_fwd_bf16.launches, A.attention_bwd_bf16.launches
+    f32 = (A.fused_attention.launches, A.fused_attention_backward.launches)
+    out = A.fused_attention(q, k, v, valid_len=40, dropout_rate=0.1, dropout_seed=3)
+    dout = _bf16(rng, (50, 2, 8, 64), 1.0, cuda).permute(1, 2, 0, 3)
+    out.backward(dout)
+    assert (A.attention_fwd_bf16.launches - fwd, A.attention_bwd_bf16.launches - bwd) == (1, 1)
+    assert (A.fused_attention.launches, A.fused_attention_backward.launches) == f32
+    want = A.attention_backward_plain(q.detach(), k.detach(), v.detach(), dout, 40, 0.1, 3)
+    for g, w in zip((q.grad, k.grad, v.grad), want):
+        _bf16_close(g, w, "autograd")
+
+
+@pytest.mark.parametrize(
+    "K,H,N,cfg",
+    [
+        (100, 2048, 100, FFN_DROP),
+        (512, 2048, 512, FFN_DROP),
+        (100, 512, 100, HEAD),
+        (100, 512, 100, HEAD_DROP),
+        (512, 1024, 100, HEAD_DROP),
+        (37, 100, 33, HEAD_DROP),  # ragged everywhere: 2-byte copies, single stores
+        (36, 204, 60, FFN_DROP),  # K, H, N % 8 != 0
+    ],
+)
+# 1000 and 3585 rows make the last chunk of the split reductions over M ragged;
+# 3360 is B = 30 at L = 112 (GAN_FFN_DialogueRNN)
+@pytest.mark.parametrize("rows", [1, 77, 1000, 3360, 3584, 3585])
+def test_mlp_bf16_backward_kernel_matches_plain(cuda, K, H, N, cfg, rows):
+    rng = np.random.default_rng(K + H + N + rows + 3)
+    x = _bf16(rng, (rows, K), 1.0, cuda)
+    w1, b1 = _bf16(rng, (K, H), K ** -0.5, cuda), _bf16(rng, (H,), 0.05, cuda)
+    w2, b2 = _bf16(rng, (H, N), H ** -0.5, cuda), _bf16(rng, (N,), 0.05, cuda)
+    dout = _bf16(rng, (rows, N), 1.0, cuda)
+    seed = rows * 31 + K
+    before = (M.mlp_bwd_bf16.launches, M.fused_mlp_backward.launches)
+    grads = M.fused_mlp_backward(x, w1, b1, w2, b2, dout, **cfg, dropout_seed=seed)
+    again = M.fused_mlp_backward(x, w1, b1, w2, b2, dout, **cfg, dropout_seed=seed)
+    torch.cuda.synchronize()
+    assert (M.mlp_bwd_bf16.launches, M.fused_mlp_backward.launches) == (before[0] + 2, before[1])
+    want = M.mlp_backward_plain(x, w1, b1, w2, b2, dout, **cfg, dropout_seed=seed)
+    for name, g, w, g2 in zip(("dx", "dw1", "db1", "dw2", "db2"), grads, want, again):
+        _bf16_close(g, w, name)
+        assert torch.equal(g, g2), f"{name}: two calls differ"
+
+
+def test_mlp_bf16_bwd_workspace_mirrors_the_kernel(cuda):
+    import ctypes
+
+    from gan_ffn_tpu_torch.ops import _build
+
+    query = _build.function("mlp_bwd_bf16", "gan_mlp_bwd_bf16_workspace_doubles",
+                            [ctypes.c_int] * 4, ctypes.c_longlong)
+    for rows in (1, 77, 1000, 3360, 3584, 3585):
+        for K, H, N in ((100, 2048, 100), (512, 2048, 512), (100, 512, 100), (512, 1024, 100),
+                        (37, 100, 33), (36, 204, 60)):
+            assert query(rows, K, H, N) == M.bwd_bf16_workspace_doubles(rows, K, H, N), (
+                rows, K, H, N)
+
+
+def test_mlp_bf16_autograd_runs_both_kernels(cuda):
+    rng = np.random.default_rng(4)
+    x = _bf16(rng, (9, 7, 100), 1.0, cuda).requires_grad_()
+    params = [_bf16(rng, s, 0.1, cuda).requires_grad_()
+              for s in ((100, 512), (512,), (512, 100), (100,))]
+    fwd, bwd = M.mlp_fwd_bf16.launches, M.mlp_bwd_bf16.launches
+    f32 = (M.fused_mlp.launches, M.fused_mlp_backward.launches)
+    out = M.fused_mlp(x, *params, **HEAD_DROP, dropout_seed=11)
+    dout = _bf16(rng, (9, 7, 100), 1.0, cuda)
+    out.backward(dout)
+    assert (M.mlp_fwd_bf16.launches - fwd, M.mlp_bwd_bf16.launches - bwd) == (1, 1)
+    assert (M.fused_mlp.launches, M.fused_mlp_backward.launches) == f32
+    want = M.mlp_backward_plain(x.detach().reshape(63, 100), *(p.detach() for p in params),
+                                dout.reshape(63, 100), **HEAD_DROP, dropout_seed=11)
+    for g, w in zip((x.grad.reshape(63, 100), *(p.grad for p in params)), want):
+        _bf16_close(g, w, "autograd")
+
+
+@pytest.mark.parametrize("K,pre", [(100, None), (512, None), (100, "gelu")])
+def test_mlp_bf16_forward_and_backward_take_the_same_relu_branches(cuda, K, pre):
+    """The bf16 kernels compute z1 through the same tile code
+    (csrc/mlp_bf16_tile.cuh).  With W2 = I, b2 = 0 and no post, out > 0
+    exactly where the forward's z1 > 0; b1 = -bf16(t1 W1) of one row puts
+    z1 near 0.  Eight rows a call with dout = 2^r (r = 0 .. 7): db1 =
+    sum_r 2^r relu'(z1[r, j]) is a whole number below 256, exact at bf16,
+    whose bits name the rows where relu' is 1."""
+    H = 512
+    rng = np.random.default_rng(K + 17)
+    cfg = dict(mid=("relu", "act_first", 0.0))
+    if pre is not None:
+        cfg["pre"] = (pre, 0.0)
+    eye, zero = (torch.eye(H, device=cuda, dtype=torch.bfloat16),
+                 torch.zeros(H, device=cuda, dtype=torch.bfloat16))
+    w1 = _bf16(rng, (K, H), K ** -0.5, cuda)
+    dout = (2.0 ** torch.arange(8, device=cuda))[:, None].expand(8, H).to(torch.bfloat16)
+    flips = 0
+    for group in range(16):
+        x0 = _bf16(rng, (1, K), 1.0, cuda)
+        x = (x0 + _bf16(rng, (8, K), 2.0 ** -7, cuda)).to(torch.bfloat16)
+        t0 = x0.double() if pre is None else torch.nn.functional.gelu(x0.double())
+        b1 = (-(t0 @ w1.double())[0]).to(torch.bfloat16)
+        out = M.fused_mlp(x, w1, b1, eye, zero, **cfg)
+        db1 = M.fused_mlp_backward(x, w1, b1, eye, zero, dout, **cfg)[2]
+        want = (dout.double() * (out > 0)).sum(0)
+        flips += (db1.double() != want).sum().item()
+    assert flips == 0, f"{flips} columns take other branches"

@@ -272,7 +272,13 @@ def test_library_path_follows_the_included_headers(tmp_path):
     assert all(any(h.name == "philox.cuh" for h in _build.local_headers(p))
                for p in _build.sources().values())
     assert set(_build.sources()) == {"attention_fwd", "attention_bwd", "mlp_fwd", "mlp_bwd",
-                                     "attention_fwd_bf16", "mlp_fwd_bf16"}
-    # the bf16 forwards follow their tensor-core header too
-    for name in ("attention_fwd_bf16", "mlp_fwd_bf16"):
-        assert "mma_bf16.cuh" in [h.name for h in _build.local_headers(_build.sources()[name])]
+                                     "attention_fwd_bf16", "mlp_fwd_bf16",
+                                     "attention_bwd_bf16", "mlp_bwd_bf16"}
+    # the bf16 kernels follow their tensor-core header too, and each bf16
+    # backward the header of the code it shares with its forward
+    for name, shared in (("attention_fwd_bf16", "attention_bf16.cuh"),
+                         ("attention_bwd_bf16", "attention_bf16.cuh"),
+                         ("mlp_fwd_bf16", "mlp_bf16_tile.cuh"),
+                         ("mlp_bwd_bf16", "mlp_bf16_tile.cuh")):
+        headers = [h.name for h in _build.local_headers(_build.sources()[name])]
+        assert "mma_bf16.cuh" in headers and shared in headers, name
