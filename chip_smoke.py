@@ -11,7 +11,8 @@ Phases, each printing JSON lines; any failure exits non-zero:
                their bf16 twins attention_fwd_bf16, attention_bwd_bf16,
                mlp_fwd_bf16, mlp_bwd_bf16), one process each, all at once;
                prints each library's nvcc seconds and each kernel's
-               registers and spill bytes.
+               registers and spill bytes; fails if a variant of the bf16
+               attention kernels spills or takes more than 128 registers.
 3. kernels  -- each kernel against its plain PyTorch version on the card, at
                the training paths' shapes (L=112 bucket; B=32 on the
                flagship path, B=30 on the DialogueRNN path): attention
@@ -136,7 +137,8 @@ Phases, each printing JSON lines; any failure exits non-zero:
 8. bf16_serving -- the bf16 forward kernels and the serving variants.
                Each bf16 kernel against its plain version (which rounds
                where the JAX kernel does) at the serving shapes: attention
-               (32,10,112,10) and (32,8,112,64) at valid_len 112/90/1/0, MLP
+               (32,10,112,10) and (32,8,112,64) at valid_len 112/90/1/0 (and
+               at the DialogueRNN path's (30,10,112,10), (30,8,112,64)), MLP
                at M=3584 for the four geometries (phase 3's inputs rounded
                to bf16), each at rate 0 and the path's rate: max |diff| <=
                2^-8 * max(1, max |ref|), at least 99% of the outputs
@@ -197,7 +199,9 @@ line sums up phase 7.  The line before the last is the ``kernels`` summary (time
 per stage-B train step at B=32, L=112, at the path's dropout rates, the same
 sums at the DialogueRNN step's B=30 shapes, and each kernel's launches per
 stage-A step and per DialogueRNN train step; the bf16 forwards' per bf16
-serving forward, the bf16 backwards' per bf16 stage-B train step); the last
+serving forward and, for attention_fwd_bf16, per bf16 train step too, the
+bf16 backwards' per bf16 stage-B train step; every kernel's registers and
+spill bytes by variant); the last
 line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -294,6 +298,10 @@ PEAK_BF16_FLOPS = 989e12  # H100 SXM bf16 tensor cores, dense
 # as one value: a dropped weight's zero products carry either sign)
 BF16_TOL, BF16_SAME = 2.0 ** -8, 0.99
 BF16_E2E_TOL = 5e-2  # bf16 artifact on the card against the CPU (gan_ffn_tpu/cli/export.py --verify)
+# the bf16 attention kernels' registers a thread, without spills: at most 128
+# (14 warps a block at L = 112); the forward's variants up to L = 112 take 72,
+# two blocks an SM (csrc/attention_fwd_bf16.cu)
+ATTN_BF16_MAX_REGISTERS = 128
 INT8_TOL = 1e-3  # int8 artifact against its dequantized live model
 
 
@@ -369,12 +377,20 @@ def phase_build():
     want = set(SOURCES) | set(BF16_SOURCES) | set(BF16_TRAIN_SOURCES)
     if set(libs) != want:
         fail(f"expected the kernels {sorted(want)}, built {sorted(libs)}")
+    resources = {name: [{"kernel": r["kernel"], "registers": r.get("registers"),
+                         "spill_stores": r.get("spill_stores"), "spill_loads": r.get("spill_loads")}
+                        for r in _build.ptxas_resources(log)]
+                 for name, log in _build.build_logs.items()}
     emit({"phase": "build", "seconds": secs, "libraries": {k: str(v.relative_to(REPO)) for k, v in libs.items()},
-          "nvcc_seconds": dict(_build.build_seconds),
-          "kernels": {name: [{"kernel": r["kernel"], "registers": r.get("registers"),
-                              "spill_stores": r.get("spill_stores"), "spill_loads": r.get("spill_loads")}
-                             for r in _build.ptxas_resources(log)]
-                      for name, log in _build.build_logs.items()}})
+          "nvcc_seconds": dict(_build.build_seconds), "kernels": resources})
+    for name in ("attention_fwd_bf16", "attention_bwd_bf16"):
+        variants = resources.get(name, [])
+        if not variants:
+            fail(f"no ptxas resources for {name} (build/kernels holds its library without its .log)")
+        for r in variants:
+            if (r["registers"] or 0) > ATTN_BF16_MAX_REGISTERS or r["spill_stores"] or r["spill_loads"]:
+                fail(f"{name}: {r}: more than {ATTN_BF16_MAX_REGISTERS} registers or spills")
+    return resources
 
 
 class Rows:
@@ -1587,18 +1603,21 @@ def bf16_bound_ms(n_bytes: float, flops: float):
 def _bf16_kernels(torch) -> dict:
     """Each bf16 kernel against its plain version at the serving shapes
     (B=32, L=112; M=3584), at rate 0 and the path's rates, timed beside the
-    f32 kernel on the same values and (attention) SDPA's bf16 forward.
-    Returns {kernel: [(launches per serving forward, rate-0 timing row)]}
-    and the worst max |diff| of each."""
+    f32 kernel on the same values and (attention) SDPA's bf16 forward; the
+    attention forward also at the DialogueRNN path's shapes (B=30).  Returns
+    {kernel: [(launches per serving forward, rate-0 timing row)]}, the
+    attention forward's rows at the path's rate per train step (B=32) and
+    per DialogueRNN step (B=30), and the worst max |diff| of each."""
     import torch.nn.functional as F
 
     from gan_ffn_tpu_torch.ops import attention as A
     from gan_ffn_tpu_torch.ops import mlp as Mo
 
     rows = {name: [] for name in BF16_SOURCES}
+    train_rows = {"step": [], "drnn": []}  # attention_fwd_bf16 at the path's rate
     err = dict.fromkeys(BF16_SOURCES, 0.0)
     gen = torch.Generator(device="cuda").manual_seed(8)
-    for (B, H, L, Dh), count in ATTN_SHAPES.items():
+    for (B, H, L, Dh), count in {**ATTN_SHAPES, **DRNN_ATTN_SHAPES}.items():
         q, k, v = (torch.randn(B, H, L, Dh, device="cuda", generator=gen).bfloat16()
                    for _ in range(3))
         for rate in (0.0, ATTN_RATE):
@@ -1625,8 +1644,10 @@ def _bf16_kernels(torch) -> dict:
                              q, k, v, dropout_p=rate))}
                     t["bound_ms"], t["bound_by"] = bf16_bound_ms(2 * 4 * n, 2 * 2 * B * H * L * L * Dh)
                     line["timing"] = t
-                    if rate == 0.0:
+                    if rate == 0.0 and B == 32:
                         rows["attention_fwd_bf16"].append((count, t))
+                    elif rate > 0.0:
+                        train_rows["step" if B == 32 else "drnn"].append((count, t))
                 emit(line)
     gen = torch.Generator(device="cuda").manual_seed(9)
     for (K, Hd, N, site), count in MLP_SHAPES.items():
@@ -1655,7 +1676,7 @@ def _bf16_kernels(torch) -> dict:
             if rate == 0.0:
                 rows["mlp_fwd_bf16"].append((count, t))
             emit(line)
-    return rows, err
+    return rows, train_rows, err
 
 
 def _bf16_artifacts(torch, tmp: str) -> dict:
@@ -1769,10 +1790,11 @@ def _bf16_predict(torch, tmp: str) -> dict:
 
 
 def phase_bf16_serving(torch, tmp: str) -> dict:
-    rows, err = _bf16_kernels(torch)
+    rows, train_rows, err = _bf16_kernels(torch)
     serving = _bf16_artifacts(torch, tmp)
     predict = _bf16_predict(torch, tmp)
-    return {"rows": rows, "err": err, "serving": serving, "predict": predict}
+    return {"rows": rows, "train_rows": train_rows, "err": err, "serving": serving,
+            "predict": predict}
 
 
 # Phase 9: bf16 training
@@ -2127,7 +2149,7 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
 
     info = phase_device(torch)
-    phase_build()
+    resources = phase_build()
     rows = Rows()
     phase_kernels_attention(torch, rows)
     phase_kernels_mlp(torch, rows)
@@ -2208,6 +2230,18 @@ def main() -> None:
             "predict_bf16_launches": bf16["predict"]["bf16"]["launches"][name],
             "bf16_training_launches": bf16_train["runs"]["flagship"]["launches"][name],
         })
+        if name == "attention_fwd_bf16":  # per bf16 train step at the path's rate
+            step, drnn = (bf16["train_rows"][k] for k in ("step", "drnn"))
+            kernels[-1].update({
+                "step_kernel_ms": sum(n * r["ms"] for n, r in step),
+                "step_plain_ms": sum(n * r["plain_ms"] for n, r in step),
+                "step_bound_ms": sum(n * r["bound_ms"] for n, r in step),
+                "step_library_ms": sum(n * r["library_ms"] for n, r in step),
+                "dialoguernn_step_kernel_ms": sum(n * r["ms"] for n, r in drnn),
+                "dialoguernn_step_plain_ms": sum(n * r["plain_ms"] for n, r in drnn),
+                "dialoguernn_step_bound_ms": sum(n * r["bound_ms"] for n, r in drnn),
+                "dialoguernn_step_library_ms": sum(n * r["library_ms"] for n, r in drnn),
+            })
     runs = bf16_train["runs"]
     for name, source in BF16_TRAIN_SOURCES.items():
         r = bf16_train["rows"][name]
@@ -2234,6 +2268,13 @@ def main() -> None:
             "dialoguernn_step_bound_ms": drnn("bound_ms"),
             "dialoguernn_step_library_ms": drnn("library_ms") if lib else None,
         })
+    for entry in kernels:  # every variant's registers and spill bytes (ptxas)
+        variants = resources.get(entry["name"], [])
+        entry["variants"] = [{k: r[k] for k in ("registers", "spill_stores", "spill_loads")}
+                             for r in variants]
+        entry["registers"] = max((r["registers"] or 0 for r in variants), default=None)
+        entry["spill_bytes"] = sum((r["spill_stores"] or 0) + (r["spill_loads"] or 0)
+                                   for r in variants)
     for entry in kernels:
         if entry["name"] in BF16_SOURCES:
             if entry["launches"] < 1 or entry["predict_bf16_launches"] < 1:

@@ -1,7 +1,8 @@
 """Where one train step's device time goes, on the card, for stage B of
 both classifiers and for stage A.
 
-    python -m gan_ffn_tpu_torch.cli.step_profile [--label NAME] [--steps 5]
+    python -m gan_ffn_tpu_torch.cli.step_profile [--label NAME] [--steps 5] [--bf16]
+        [--only stage_b,dialoguernn,stage_a] [--eager]
 
 Builds the full-width 8-layer ``GAN_FFN`` (random weights from a seed) and
 trains it on one random batch at B = 32, L = 112 (dialogues of 97-110
@@ -19,7 +20,9 @@ under their own).  Then the same three steps graphed, as ``--epoch-fused``
 runs them (``train/graphs.py``): the first call runs eagerly and captures
 the step's CUDA graph, and the profiled calls replay it; their lines add
 the capture seconds and the graph pool's bytes.  The first line names the
-card and its power limit.
+card and its power limit.  ``--bf16`` trains each step at bfloat16, as the
+trainers' ``--bf16`` does (float32 parameters cast at each use), ``--only``
+profiles the named steps alone and ``--eager`` skips the graphed ones.
 
 Like ``cli/mlp_profile.py``, it imports the ``gan_ffn_tpu_torch`` first
 on ``sys.path``, so it can time another checkout (see there).
@@ -70,13 +73,14 @@ def step_batch(name: str, rng: np.random.Generator) -> dict:
 
 
 def build_step(name: str, graphed: bool, deterministic: bool = False, capturable: bool = False,
-               eps: float = 1e-8):
+               eps: float = 1e-8, dtype=None):
     """``(step, named parameters, optimizers)`` of a full-width step from
     fixed weights: ``stage_b`` (``GAN_FFN``), ``dialoguernn``
     (``GAN_FFN_DialogueRNN``) or ``stage_a`` (the 12 duels), per batch or
     ``graphed`` (the epoch-fused step, whose Adams are capturable).
     ``capturable`` gives a per-batch step the capturable Adams too, so that
-    it differs from the graphed step by the graph alone; ``eps`` is Adam's."""
+    it differs from the graphed step by the graph alone; ``eps`` is Adam's;
+    ``dtype`` the compute dtype (None: float32)."""
     from gan_ffn_tpu_torch.cli.common import IEMOCAP_LOSS_WEIGHTS, IEMOCAP_N_CLASSES
     from gan_ffn_tpu_torch.models import GAN_FFN, GAN_FFN_DialogueRNN
     from gan_ffn_tpu_torch.nn.core import set_dropout_generator
@@ -87,7 +91,7 @@ def build_step(name: str, graphed: bool, deterministic: bool = False, capturable
     from gan_ffn_tpu_torch.train.optim import make_capturable, torch_adam
 
     if name == "stage_a":
-        state = init_gan_state(GANConfig(num_layers=8, seed=3), device="cuda")
+        state = init_gan_state(GANConfig(num_layers=8, seed=3, dtype=dtype), device="cuda")
         seeds = StepSeeds(torch.Generator().manual_seed(4))
         for module in state.modules.values():
             set_dropout_generator(module, seeds)
@@ -101,7 +105,7 @@ def build_step(name: str, graphed: bool, deterministic: bool = False, capturable
     else:
         cls, l2 = {"stage_b": (GAN_FFN, 0.008), "dialoguernn": (GAN_FFN_DialogueRNN, 1e-5)}[name]
         model = cls(n_classes=IEMOCAP_N_CLASSES, gen_num_layers=8,
-                    generator=torch.Generator().manual_seed(1), device="cuda")
+                    generator=torch.Generator().manual_seed(1), device="cuda", dtype=dtype)
         set_dropout_generator(model, torch.Generator().manual_seed(2))
         opts = [torch_adam(model.parameters(), 1e-4, eps=eps, weight_decay=l2)]
         make = make_classifier_epoch_steps if graphed else make_classifier_steps
@@ -127,22 +131,29 @@ def _busy_us(intervals) -> float:
 # the port's kernels: each library's entry points
 LIBRARY = {"attention_fwd_kernel": "attention_fwd", "attention_bwd_kernel": "attention_bwd",
            "mlp_fwd_kernel": "mlp_fwd", "mlp_fwd_reduce_kernel": "mlp_fwd",
-           "gemm_kernel": "mlp_bwd", "reduce_kernel": "mlp_bwd", "pre_kernel": "mlp_bwd"}
+           "gemm_kernel": "mlp_bwd", "reduce_kernel": "mlp_bwd", "pre_kernel": "mlp_bwd",
+           "attention_fwd_bf16_kernel": "attention_fwd_bf16",
+           "attention_bwd_bf16_kernel": "attention_bwd_bf16",
+           "mlp_fwd_bf16_kernel": "mlp_fwd_bf16", "mlp_fwd_bf16_reduce_kernel": "mlp_fwd_bf16",
+           "z1_kernel": "mlp_bwd_bf16", "colsum_kernel": "mlp_bwd_bf16"}
+# in a bf16 step the kernels of both MLP backwards' names are mlp_bwd_bf16's
+BF16_LIBRARY = {**LIBRARY, "gemm_kernel": "mlp_bwd_bf16", "reduce_kernel": "mlp_bwd_bf16"}
 # kernels that both MLP libraries launch (csrc/mlp_tile.cuh): each launch is
 # counted with the library of the kernel that runs next on the stream
 SHARED = {"mlp::pre_kernel"}
 
 
-def _kernel_name(name: str) -> str:
+def _kernel_name(name: str, bf16: bool = False) -> str:
     """A kernel's name without its namespace, template arguments and
     parameters; the port's kernels as their library's name."""
     name = name.replace("(anonymous namespace)::", "").removeprefix("void ")
     name = name.split("(")[0].split("<")[0]
-    return LIBRARY.get(name, name[:80])
+    return (BF16_LIBRARY if bf16 else LIBRARY).get(name, name[:80])
 
 
-def _profile(step, steps: int) -> dict:
-    """Device time of ``steps`` calls of ``step()`` after 3 warm-up calls."""
+def _profile(step, steps: int, bf16: bool = False) -> dict:
+    """Device time of ``steps`` calls of ``step()`` after 3 warm-up calls
+    (``bf16``: a bf16 step, for the kernels' names)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -160,7 +171,7 @@ def _profile(step, steps: int) -> dict:
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA
                and not getattr(e, "is_user_annotation", False)]
     kernels.sort(key=lambda e: e.time_range.start)
-    names = [_kernel_name(e.name) for e in kernels]
+    names = [_kernel_name(e.name, bf16) for e in kernels]
     per_name = collections.Counter()
     for i, e in enumerate(kernels):
         name = names[i]
@@ -181,7 +192,14 @@ def main(argv=None) -> None:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--label", default="tree", help="a name for this checkout in the output")
     p.add_argument("--steps", type=int, default=5, help="profiled train steps")
+    p.add_argument("--bf16", action="store_true", help="train at bfloat16")
+    p.add_argument("--only", default=",".join(STEPS), help="the steps to profile, comma-separated")
+    p.add_argument("--eager", action="store_true", help="skip the graphed steps")
     args = p.parse_args(argv)
+    names = args.only.split(",")
+    if not set(names) <= set(STEPS):
+        p.error(f"--only takes steps of {sorted(STEPS)}")
+    dtype = torch.bfloat16 if args.bf16 else None
     if not torch.cuda.is_available():
         sys.exit("step_profile: no CUDA card")
 
@@ -190,13 +208,14 @@ def main(argv=None) -> None:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip()
     print(json.dumps({"label": args.label, "card": smi}), flush=True)
-    for graphed in (False, True):
-        for name in STEPS:
+    for graphed in (False,) if args.eager else (False, True):
+        for name in names:
             batch = step_batch(name, np.random.default_rng(0))
-            step = build_step(name, graphed)[0]
+            step = build_step(name, graphed, dtype=dtype)[0]
             line = {"label": args.label, "B": STEPS[name], "L": L,
                     "valid_len": int(batch["valid_len"].item()), "step": name,
-                    "graphed": graphed, **_profile(lambda: step(batch), args.steps)}
+                    "graphed": graphed, "bf16": args.bf16,
+                    **_profile(lambda: step(batch), args.steps, args.bf16)}
             if graphed:
                 line["graphs"] = step.graphs.stats()
             print(json.dumps(line), flush=True)

@@ -17,33 +17,39 @@
 // the same points.
 //
 // The weights are the forward kernel's bits: both kernels compute them
-// through attention_bf16.cuh (S from bf16 mma.sync with each k step's
-// product added in f64, the f64 row sums, one rounded division).  As there,
-// every sum that the plain version takes exactly is kept order-free: the k
-// steps of dP, dQ, dK and dV are added in f64 and D is summed in f64, each
-// rounded to f32 once; the f32 steps between (dP M, dP - D, P (dP - D),
-// * scale) are single rounded operations, as torch runs them.
+// through attention_bf16.cuh (S from bf16 mma.sync with the k steps added
+// exactly, the f64 row sums of the warp pair, one rounded division).  As
+// there, every sum that the plain version takes exactly is kept order-free:
+// the k steps of dP, dQ, dK and dV are added exactly (bf16::Acc) and D is
+// summed in f64, each rounded to f32 once; the f32 steps between (dP M, dP -
+// D, P (dP - D), * scale) are single rounded operations, as torch runs them.
 //
 // What bounds it on the H100: at the path's shapes (B = 32 or 30, L = 112,
 // (H, Dh) in {(10, 10), (8, 64)}) a launch reads 4 and writes 3 (B, H, L,
 // Dh) bf16 tensors (1.6-6.4 MB) and does the work of five L x L x Dh
 // products (0.4-2.1 GFLOP): 0.5-1.9 us at 3.35 TB/s, 0.4-2.1 us at 989
-// TFLOP/s.  As in the f32 kernel, one block's chain of dependent steps sets
-// the time.
+// TFLOP/s.  As in the forward, the exact sums and one block's chain of
+// dependent steps set the time.
 //
-// Design: one block per (batch, head), one warp per 16 rows, Q and K, then
-// V and dO, staged with cp.async (Dh zero-padded to Dp, rows to Lp).
-//   1. Each warp: its rows' weights P and keep bits (attention_bf16.cuh),
-//      dP = dO V^T one 16-key step at a time, D, dS; it writes A = bf16(P M)
-//      and bf16(dS) for its 16 rows into two Lp x Lp shared tiles.
+// Design: one block per (batch, head), two warps per 16 rows (a group; 14
+// warps at L = 112, at most 128 registers a thread, one block an SM), Q and
+// K, then V and dO, staged with cp.async (Dh zero-padded to Dp, rows to Lp).
+//   1. Each warp, for the group's query rows and its half of the keys: the
+//      weights P and keep bits (attention_bf16.cuh), dP = dO V^T one 16-key
+//      step at a time, its half of D, combined with the other warp's through
+//      shared memory (part 0's half first), dS; it writes A = bf16(P M) and
+//      bf16(dS) of its keys into two Lp x Lp shared tiles.
 //   -- one barrier --
-//   2. Each warp: dQ of its 16 query rows (dS K, A from the dS tile by
-//      ldmatrix), and dV, dK of its 16 keys (A^T dO, dS^T Q, the transposed
-//      A fragments by ldmatrix.trans), over 16-row steps, each step's bf16
-//      mma.sync product added in f64.
-// Nothing is summed across warps, and every sum runs in a fixed order, so
-// two calls give the same bits.  Shared memory: 4 staged tiles and the two
-// Lp x Lp tiles, 140 KB at L = 128 and Dh = 64: one block an SM.
+//   2. Each warp, half of the Dp columns: dQ of the group's 16 query rows
+//      (dS K, A from the dS tile by ldmatrix), and dV, dK of its 16 keys
+//      (A^T dO, dS^T Q, the transposed A fragments by ldmatrix.trans), over
+//      16-row steps, each step's bf16 mma.sync added exactly, the next
+//      step's mma.sync issued before the adds (attention_bf16.cuh
+//      half_product).
+// Nothing is summed across warps but the halves of the row sums and of D,
+// in a fixed order, and every sum runs in a fixed order, so two calls give
+// the same bits.  Shared memory: the pair scratch, 4 staged tiles and the
+// two Lp x Lp tiles, 123,392 B at L = 112 and Dh = 64, 148,480 B at L = 128.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -60,49 +66,9 @@ namespace {
 using bf16::bf16_t;
 using namespace attn_bf16;
 
-// The A fragment of A[m][k] = s[k][m] for m in m0 .. m0 + 15, k in k0 ..
-// k0 + 15 (s stored [k][m], row stride ld): ldmatrix.trans of the four
-// 8 x 8 blocks in the order a0 .. a3 wants them.
-__device__ __forceinline__ void load_a_t(uint32_t (&a)[4], const bf16_t* s, int ld, int m0,
-                                         int k0, int lane) {
-  const int i = lane >> 3;
-  bf16::ldmatrix_x4_trans(a, s + (k0 + (lane & 7) + ((i >> 1) << 3)) * ld + m0 + ((i & 1) << 3));
-}
-
-// One 16 x Dp output block: out rows m0 .. m0 + 15 = sum over 16-row steps p
-// of A(m, 16p ..) B(16p .., :), with A from `a` ([m][k], or [k][m] when
-// kTrans) and B = sb[k][n] (row stride ldb), each step added in f64; rounded
-// to bf16 and stored to rows < L of dst (row stride Dh).
-template <int Dp, bool kTrans>
-__device__ __forceinline__ void block_product(bf16_t* __restrict__ dst, const bf16_t* a, int lda,
-                                              const bf16_t* sb, int ldb, int m0, int steps,
-                                              int L, int Dh, bool pairs, int lane) {
-  const int g = lane >> 2, t = lane & 3, ra = m0 + g, rb = ra + 8;
-#pragma unroll
-  for (int d = 0; d < Dp / 16; ++d) {
-    double o[2][4] = {};
-    for (int p = 0; p < steps; ++p) {
-      uint32_t fa[4], b[4];
-      if (kTrans)
-        load_a_t(fa, a, lda, m0, 16 * p, lane);
-      else
-        bf16::load_a(fa, a, lda, m0, 16 * p, lane);
-      bf16::load_b_kn(b, sb, ldb, 16 * p, 16 * d, lane);
-      bf16::mma_add(o[0], fa, b[0], b[1]);
-      bf16::mma_add(o[1], fa, b[2], b[3]);
-    }
-#pragma unroll
-    for (int x = 0; x < 2; ++x) {
-      const int c = 16 * d + 8 * x + 2 * t;
-      if (ra < L) bf16::store_pair(dst + (size_t)ra * Dh, c, Dh, pairs, (float)o[x][0], (float)o[x][1]);
-      if (rb < L) bf16::store_pair(dst + (size_t)rb * Dh, c, Dh, pairs, (float)o[x][2], (float)o[x][3]);
-    }
-  }
-}
-
 // Dp: Dh padded to 16, 32 or 64; kDrop: the forward applied attention-weight dropout.
 template <int Dp, bool kDrop>
-__global__ void __launch_bounds__(kMaxLen * 2, 1)
+__global__ void __launch_bounds__(kMaxLen / 16 * 32 * kParts, 1)
 attention_bwd_bf16_kernel(const bf16_t* __restrict__ q, const bf16_t* __restrict__ k,
                           const bf16_t* __restrict__ v, const bf16_t* __restrict__ dout,
                           bf16_t* __restrict__ dq, bf16_t* __restrict__ dk,
@@ -112,8 +78,10 @@ attention_bwd_bf16_kernel(const bf16_t* __restrict__ q, const bf16_t* __restrict
   constexpr int ld = Dp + 8;  // 16 bytes mod 128: ldmatrix rows in 8 bank groups
   constexpr int kSteps = Dp / 16;
   extern __shared__ __align__(16) unsigned char smem_raw[];
+  GAN_PROBE(0);
+  PairScratch* scratch = reinterpret_cast<PairScratch*>(smem_raw);
   const int Lp = round_up(L, 16), lw = Lp + 8;  // lw: the weight tiles' row stride (odd x 16 B)
-  bf16_t* sq = reinterpret_cast<bf16_t*>(smem_raw);
+  bf16_t* sq = reinterpret_cast<bf16_t*>(smem_raw + kScratchBytes);
   bf16_t* sk = sq + Lp * ld;
   bf16_t* sv = sk + Lp * ld;
   bf16_t* sdo = sv + Lp * ld;
@@ -127,47 +95,50 @@ attention_bwd_bf16_kernel(const bf16_t* __restrict__ q, const bf16_t* __restrict
   bf16::load_tile(sdo, ld, dout + base, Dh, 0, L, 0, Dh, Lp, Dp, vec);
   bf16::commit();
   bf16::wait<1>();
+  GAN_PROBE(1);
 
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int r0 = (threadIdx.x >> 5) * 16;  // the warp's first query row (pass 1) and key (pass 2)
-  const Rows rows = rows_of(__ldg(valid_len_at), L, r0, g);
+  const int warp = threadIdx.x >> 5, part = warp % kParts, group = warp / kParts;
+  const int r0 = group * 16;  // the group's first query row (pass 1) and key (pass 2)
+  const int key0 = part * kTiles * 8;  // this warp's first key in pass 1
+  const Rows rows = rows_of(__ldg(valid_len_at), L, r0, part, g);
   const philox::Dropout drop = kDrop ? philox::resolve(drop_at) : philox::Dropout{0ull, 0u, 1.f};
 
-  // ---- pass 1: the warp's query rows against every key ----
-  float s[kMaxTiles][4];
-  uint32_t keep[2];
-  weights<Dp, kDrop>(s, keep, sq, sk, ld, Lp, r0, lane, scale, rows, drop);
+  // ---- pass 1: the group's query rows against this warp's keys ----
+  float s[kTiles][4];
+  uint32_t keep;
+  weights<Dp, kDrop, true>(s, keep, sq, sk, ld, Lp, r0, part, group, lane, scale, rows, drop,
+                           scratch[group]);
   bf16::wait<0>();  // V and dO are in
-  float dp[kMaxTiles][4];
+  GAN_PROBE(4);
+  float dp[kTiles][4];
 #pragma unroll
-  for (int n = 0; n < kMaxTiles; ++n) dp[n][0] = dp[n][1] = dp[n][2] = dp[n][3] = 0.f;
+  for (int n = 0; n < kTiles; ++n) dp[n][0] = dp[n][1] = dp[n][2] = dp[n][3] = 0.f;
   double D0 = 0.0, D1 = 0.0;
-  if (!rows.uniform) {  // uniform: dS = 0, so neither dP nor D is needed
+  if (!rows.uniform && rows.active) {  // uniform: dS = 0, so neither dP nor D is needed
+    uint32_t da[kSteps][4];  // dO's A fragments, loaded once
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      if (h == 1 && !rows.upper) break;  // block-uniform
+    for (int kk = 0; kk < kSteps; ++kk) bf16::load_a(da[kk], sdo, ld, r0, 16 * kk, lane);
 #pragma unroll
-      for (int pp = 0; pp < kPairs / 2; ++pp) {
-        const int p = h * kPairs / 2 + pp;
-        double acc[2][4] = {};
+    for (int pp = 0; pp < kKeySteps; ++pp) {
+      const int kr = key_row(key0 + 16 * pp, Lp);
+      bf16::Acc acc[2];
 #pragma unroll
-        for (int kk = 0; kk < kSteps; ++kk) {
-          uint32_t a[4], b[4];
-          bf16::load_a(a, sdo, ld, r0, 16 * kk, lane);
-          bf16::load_b_nk(b, sv, ld, key_row(p, Lp), 16 * kk, lane);
-          bf16::mma_add(acc[0], a, b[0], b[1]);
-          bf16::mma_add(acc[1], a, b[2], b[3]);
-        }
+      for (int kk = 0; kk < kSteps; ++kk) {
+        uint32_t b[4];
+        bf16::load_b_nk(b, sv, ld, kr, 16 * kk, lane);
+        bf16::mma_add(acc[0], kk == 0, da[kk], b[0], b[1]);
+        bf16::mma_add(acc[1], kk == 0, da[kk], b[2], b[3]);
+      }
 #pragma unroll
-        for (int x = 0; x < 2; ++x) {
+      for (int x = 0; x < 2; ++x) {
 #pragma unroll
-          for (int e = 0; e < 4; ++e) dp[2 * p + x][e] = (float)acc[x][e];
-        }
+        for (int e = 0; e < 4; ++e) dp[2 * pp + x][e] = bf16::value(acc[x], e);
       }
     }
-    // dP M, and D_i = sum_j P_ij (dP M)_ij in f64 (P = 0 at masked keys)
+    // dP M, and this warp's half of D_i = sum_j P_ij (dP M)_ij in f64 (P = 0 at masked keys)
 #pragma unroll
-    for (int n = 0; n < kMaxTiles; ++n) {
+    for (int n = 0; n < kTiles; ++n) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         if (kDrop) dp[n][e] = kept(keep, n, e) ? __fmul_rn(dp[n][e], drop.scale) : 0.f;
@@ -176,12 +147,16 @@ attention_bwd_bf16_kernel(const bf16_t* __restrict__ q, const bf16_t* __restrict
       }
     }
   }
-  const float d0 = (float)quad_sum(D0), d1 = (float)quad_sum(D1);
-  // A = bf16(P M) and dS = bf16(P (dP M - D) * scale) of the warp's rows,
-  // keys 0 .. Lp - 1, into the shared tiles
+  GAN_PROBE(5);  // dP and this warp's half of D
+  pair_sum(scratch[group].d, part, group, g, t, quad_sum(D0), quad_sum(D1), D0, D1);
+  const float d0 = (float)D0, d1 = (float)D1;
+  GAN_PROBE(6);  // D of the pair
+  // A = bf16(P M) and dS = bf16(P (dP M - D) * scale) of the group's rows
+  // at this warp's keys (< Lp), into the shared tiles
 #pragma unroll
-  for (int n = 0; n < kMaxTiles; ++n) {
-    if (8 * n >= Lp) break;
+  for (int n = 0; n < kTiles; ++n) {
+    const int j0 = key0 + 8 * n;
+    if (j0 >= Lp) break;
     float av[4], dv4[4];
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
@@ -190,20 +165,29 @@ attention_bwd_bf16_kernel(const bf16_t* __restrict__ q, const bf16_t* __restrict
                    ? 0.f
                    : __fmul_rn(__fmul_rn(s[n][e], __fsub_rn(dp[n][e], e < 2 ? d0 : d1)), scale);
     }
-    const int c = 8 * n + 2 * t, ra = (r0 + g) * lw + c, rb = ra + 8 * lw;
+    const int ra = (r0 + g) * lw + j0 + 2 * t, rb = ra + 8 * lw;
     *reinterpret_cast<uint32_t*>(sa + ra) = bf16::pack(av[0], av[1]);
     *reinterpret_cast<uint32_t*>(sa + rb) = bf16::pack(av[2], av[3]);
     *reinterpret_cast<uint32_t*>(sds + ra) = bf16::pack(dv4[0], dv4[1]);
     *reinterpret_cast<uint32_t*>(sds + rb) = bf16::pack(dv4[2], dv4[3]);
   }
   __syncthreads();  // every row's A and dS are in
+  GAN_PROBE(7);
 
-  // ---- pass 2: dQ of the warp's query rows, dV and dK of its keys ----
+  // ---- pass 2: half of the columns of dQ of the group's query rows, dV
+  // and dK of its keys ----
   const bool pairs = vec >= 2;
   const int steps = Lp / 16;
-  block_product<Dp, false>(dq + base, sds, lw, sk, ld, r0, steps, L, Dh, pairs, lane);
-  block_product<Dp, true>(dv + base, sa, lw, sdo, ld, r0, steps, L, Dh, pairs, lane);
-  block_product<Dp, true>(dk + base, sds, lw, sq, ld, r0, steps, L, Dh, pairs, lane);
+  bf16::Acc o[Dp / 16];
+  half_product<Dp, 4, false>(o, sds, lw, sk, ld, r0, part, steps, lane);
+  store_half<Dp>(dq + base, o, r0, part, L, Dh, pairs, lane);
+  GAN_PROBE(8);
+  half_product<Dp, 4, true>(o, sa, lw, sdo, ld, r0, part, steps, lane);
+  store_half<Dp>(dv + base, o, r0, part, L, Dh, pairs, lane);
+  GAN_PROBE(9);
+  half_product<Dp, 4, true>(o, sds, lw, sq, ld, r0, part, steps, lane);
+  store_half<Dp>(dk + base, o, r0, part, L, Dh, pairs, lane);
+  GAN_PROBE(10);
 }
 
 using KernelFn = void (*)(const bf16_t*, const bf16_t*, const bf16_t*, const bf16_t*, bf16_t*,
@@ -225,7 +209,8 @@ extern "C" {
 int gan_attention_bwd_bf16_smem_bytes(int L, int Dh) {
   if (L < 1 || L > kMaxLen || Dh < 1 || Dh > kWidths[2]) return 0;
   const int Lp = round_up(L, 16);
-  return (4 * Lp * (kWidths[width_index(Dh)] + 8) + 2 * Lp * (Lp + 8)) * (int)sizeof(bf16_t);
+  return kScratchBytes +
+         (4 * Lp * (kWidths[width_index(Dh)] + 8) + 2 * Lp * (Lp + 8)) * (int)sizeof(bf16_t);
 }
 
 // q, k, v, dout, dq, dk, dv: (B, H, L, Dh) bf16, contiguous, on the current
@@ -247,8 +232,8 @@ int gan_attention_bwd_bf16(const bf16_t* q, const bf16_t* k, const bf16_t* v, co
   const void* const ptrs[] = {q, k, v, dout, dq, dk, dv};
   const int vec = bf16::copy_width(Dh, ptrs, 7);
   const philox::DropoutArg drop{{seed_base, seed_index}, threshold, drop_scale};
-  kernel<<<B * H, 2 * round_up(L, 16), smem, stream>>>(q, k, v, dout, dq, dk, dv, L, Dh, valid_len,
-                                                        scale, vec, drop);
+  kernel<<<B * H, block_threads(L), smem, stream>>>(q, k, v, dout, dq, dk, dv, L, Dh, valid_len,
+                                                     scale, vec, drop);
   return (int)cudaGetLastError();
 }
 

@@ -21,30 +21,35 @@
 // What bounds it on the H100: at the serving shapes (B = 32, L = 112, (H,
 // Dh) in {(10, 10), (8, 64)}) a launch moves 0.9-3.7 MB and does 0.16-0.8
 // GFLOP: 0.3-1.1 us at 3.35 TB/s, 0.2-0.8 us at 989 TFLOP/s (bf16 tensor
-// cores, dense).  As in the f32 kernel, a block's chain of dependent steps
-// (staging, S, the row reductions, P V) sets the time, not the card's rates.
+// cores, dense).  The instructions of the exact sums set the time: each k
+// step of S and of P V is one mma.sync whose four outputs are added into f32
+// pairs (bf16::Acc, seven adds each), about 80k such additions (560k f32
+// adds) per block at (112, 64), against a few thousand cycles of mma; with
+// the softmax's exp and division and the dropout mask's Philox rounds, two
+// blocks keep an SM's schedulers issuing (cli/attention_probes.py).  An f64
+// add per output would spend one f32 -> f64 conversion per product element,
+// 16 a cycle per SM: about as long as three TF32 products (PERF.md).
 //
-// Design: the f32 kernel's layout (one block per (batch, head), one warp per
-// 16 query rows; Q and K, then V, staged with cp.async in two groups, Dh
-// zero-padded to Dp in {16, 32, 64}, rows padded to 16), with one bf16
-// mma.m16n8k16 per product step (mma_bf16.cuh) and ldmatrix fragment loads.
-// Dh = 10 pads k to 16; the padded columns are zeros, so they add nothing to
-// S and produce O columns that are never stored.  Unlike the f32 kernel, a
-// warp holds its whole 16 x L row block of S (64 registers a thread): P must
-// be normalised before it is rounded to bf16, as the JAX kernel rounds the
-// softmax's output, so the row's max and sum are complete before P V starts
-// (an online rescale would round e^(s - m) instead of P and move ~10% of the
-// outputs by one bf16 ulp).  Keys past the staged rows read the last staged
-// 16 keys and are masked; the upper 64 keys are skipped where valid_len
-// leaves them no weight.  Two neighbouring S tiles, rounded, are the A
-// fragment of P V as they lie in the registers, in natural key order.
-// Sums that the plain version computes with torch.matmul or a reduction
-// are kept order-free: the k steps of S and of P V are added in f64
-// (bf16::mma_add) and the row sums are taken in f64, each rounded to f32
-// once, as the plain version rounds its exact (f64) sums; so P is the same
-// bits on both sides almost everywhere, and so are the rounded outputs.
-// The weights (S, mask, softmax, keep bits) come from attention_bf16.cuh,
-// which attention_bwd_bf16.cu calls too, so its recomputed P is these bits.
+// Design: one block per (batch, head), two warps per 16 query rows (a
+// group; 14 warps at L = 112), two blocks an SM.  Q and K, then V, staged
+// with cp.async in two groups, Dh zero-padded to Dp in {16, 32, 64}, rows
+// padded to 16.  attention_bf16.cuh computes the weights: each warp of a
+// group holds S for its half of the keys (8 tiles, 32 registers a thread)
+// and the pair combines its row max and row sum through shared memory, so P
+// is normalised before it is rounded to bf16, as the JAX kernel rounds the
+// softmax's output (an online rescale would round e^(s - m) instead of P
+// and move ~10% of the outputs by one bf16 ulp).  Each warp then writes its
+// half of the group's bf16(P M) to an Lp x Lp shared tile, and after one
+// barrier computes O for half of the Dp columns over every key that carries
+// weight (attention_bf16.cuh half_product), so no sum crosses warps.  Dh =
+// 10 pads k to 16; the padded columns are zeros, so they add nothing to S
+// and produce O columns that are never stored.  Sums that the plain version
+// computes with torch.matmul or a reduction are kept order-free: the k
+// steps of S and of P V are added exactly (bf16::Acc) and the row sums are
+// taken in f64, each rounded to f32 once, as the plain version rounds its
+// exact (f64) sums; so P is the same bits on both sides almost everywhere,
+// and so are the rounded outputs.  Every sum runs in a fixed order (no
+// atomics), so two calls give the same bits.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -61,20 +66,26 @@ namespace {
 using bf16::bf16_t;
 using namespace attn_bf16;
 
-// Dp: Dh padded to 16, 32 or 64; kDrop: apply the attention-weight dropout mask.
-template <int Dp, bool kDrop>
-__global__ void __launch_bounds__(kMaxLen * 2, 2)
+constexpr int kTwoBlockRows = 112;  // up to these rows a block takes 72 registers a thread, 2 an SM
+
+// Dp: Dh padded to 16, 32 or 64; kDrop: apply the attention-weight dropout
+// mask; kLong: L > kTwoBlockRows (one block an SM).
+template <int Dp, bool kDrop, bool kLong>
+__global__ void __launch_bounds__((kLong ? kMaxLen : kTwoBlockRows) / 16 * 32 * kParts,
+                                  kLong ? 1 : 2)
 attention_fwd_bf16_kernel(const bf16_t* __restrict__ q, const bf16_t* __restrict__ k,
                           const bf16_t* __restrict__ v, bf16_t* __restrict__ out, int L, int Dh,
                           const int* __restrict__ valid_len_at, float scale, int vec,
                           philox::DropoutArg drop_at) {
-  constexpr int ld = Dp + 8;    // 16 bytes mod 128: ldmatrix rows in 8 bank groups
-  constexpr int kDt = Dp / 8;      // n tiles of O
+  constexpr int ld = Dp + 8;  // 16 bytes mod 128: ldmatrix rows in 8 bank groups
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16_t* sq = reinterpret_cast<bf16_t*>(smem_raw);
-  const int Lp = round_up(L, 16);
+  GAN_PROBE(0);
+  PairScratch* scratch = reinterpret_cast<PairScratch*>(smem_raw);
+  const int Lp = round_up(L, 16), lw = Lp + 8;  // lw: the weight tile's row stride (odd x 16 B)
+  bf16_t* sq = reinterpret_cast<bf16_t*>(smem_raw + kScratchBytes);
   bf16_t* sk = sq + Lp * ld;
   bf16_t* sv = sk + Lp * ld;
+  bf16_t* sp = sv + Lp * ld;  // bf16(P M), [query][key]
   const size_t base = (size_t)blockIdx.x * L * Dh;
   bf16::load_tile(sq, ld, q + base, Dh, 0, L, 0, Dh, Lp, Dp, vec);
   bf16::load_tile(sk, ld, k + base, Dh, 0, L, 0, Dh, Lp, Dp, vec);
@@ -82,64 +93,56 @@ attention_fwd_bf16_kernel(const bf16_t* __restrict__ q, const bf16_t* __restrict
   bf16::load_tile(sv, ld, v + base, Dh, 0, L, 0, Dh, Lp, Dp, vec);  // lands while S is computed
   bf16::commit();
   bf16::wait<1>();
+  GAN_PROBE(1);
 
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int r0 = (threadIdx.x >> 5) * 16;  // the warp's first query row
-  const Rows rows = rows_of(__ldg(valid_len_at), L, r0, g);
+  const int warp = threadIdx.x >> 5, part = warp % kParts, group = warp / kParts;
+  const int r0 = group * 16;  // the group's first query row
+  const Rows rows = rows_of(__ldg(valid_len_at), L, r0, part, g);
   const philox::Dropout drop = kDrop ? philox::resolve(drop_at) : philox::Dropout{0ull, 0u, 1.f};
 
-  float s[kMaxTiles][4];
-  uint32_t keep[2];
-  weights<Dp, kDrop>(s, keep, sq, sk, ld, Lp, r0, lane, scale, rows, drop);
-  // the mask in f32; rounded to bf16 pairs, the A fragments of P V
-  uint32_t pa[kPairs][4];
+  float s[kTiles][4];
+  uint32_t keep;
+  // Q's fragments stay in registers but at Dp = 64, where they would spill
+  // within the 72 registers of two blocks an SM
+  weights<Dp, kDrop, (Dp <= 32)>(s, keep, sq, sk, ld, Lp, r0, part, group, lane, scale, rows,
+                                 drop, scratch[group]);
+  // the mask in f32, then bf16(P M) of this warp's keys into the weight tile
 #pragma unroll
-  for (int n = 0; n < kMaxTiles; ++n) {
-    if (kDrop) {
+  for (int n = 0; n < kTiles; ++n) {
+    const int j0 = part * kTiles * 8 + 8 * n;
+    if (j0 >= Lp) break;
+    float a[4];
 #pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = kept(keep, n, e) ? s[n][e] * drop.scale : 0.f;
-    }
-    if (n % 2 == 1) bf16::acc_pair_as_a(pa[n / 2], s[n - 1], s[n]);
+    for (int e = 0; e < 4; ++e)
+      a[e] = kDrop ? (kept(keep, n, e) ? s[n][e] * drop.scale : 0.f) : s[n][e];
+    const int ra = (r0 + g) * lw + j0 + 2 * t, rb = ra + 8 * lw;
+    *reinterpret_cast<uint32_t*>(sp + ra) = bf16::pack(a[0], a[1]);
+    *reinterpret_cast<uint32_t*>(sp + rb) = bf16::pack(a[2], a[3]);
   }
+  bf16::wait<0>();  // V is in, and every warp's weights
+  GAN_PROBE(4);
 
-  bf16::wait<0>();  // V is in
-  const int ra = r0 + g, rb = ra + 8;
-  const bool pairs = vec >= 2;
-#pragma unroll
-  for (int d = 0; d < kDt / 2; ++d) {  // 16 columns of O at a time, summed in f64
-    double o[2][4] = {};
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      if (h == 1 && !rows.upper) break;  // block-uniform
-#pragma unroll
-      for (int pp = 0; pp < kPairs / 2; ++pp) {
-        const int p = h * kPairs / 2 + pp;
-        uint32_t b[4];
-        bf16::load_b_kn(b, sv, ld, key_row(p, Lp), 16 * d, lane);
-        bf16::mma_add(o[0], pa[p], b[0], b[1]);
-        bf16::mma_add(o[1], pa[p], b[2], b[3]);
-      }
-    }
-#pragma unroll
-    for (int x = 0; x < 2; ++x) {
-      const int c = 16 * d + 8 * x + 2 * t;
-      if (ra < L)
-        bf16::store_pair(out + base + (size_t)ra * Dh, c, Dh, pairs, (float)o[x][0], (float)o[x][1]);
-      if (rb < L)
-        bf16::store_pair(out + base + (size_t)rb * Dh, c, Dh, pairs, (float)o[x][2], (float)o[x][3]);
-    }
-  }
+  // O = bf16(P M) V over the keys that carry weight (the rest are 0)
+  bf16::Acc o[Dp / 16];
+  half_product<Dp, 2, false>(o, sp, lw, sv, ld, r0, part, (rows.keys + 15) / 16, lane);
+  store_half<Dp>(out + base, o, r0, part, L, Dh, vec >= 2, lane);
+  GAN_PROBE(5);
 }
 
 using KernelFn = void (*)(const bf16_t*, const bf16_t*, const bf16_t*, bf16_t*, int, int,
                           const int*, float, int, philox::DropoutArg);
 
-// [dropout][width_index]
-const KernelFn kKernels[2][3] = {
-    {attention_fwd_bf16_kernel<16, false>, attention_fwd_bf16_kernel<32, false>,
-     attention_fwd_bf16_kernel<64, false>},
-    {attention_fwd_bf16_kernel<16, true>, attention_fwd_bf16_kernel<32, true>,
-     attention_fwd_bf16_kernel<64, true>},
+// [dropout][L > kTwoBlockRows][width_index]
+const KernelFn kKernels[2][2][3] = {
+    {{attention_fwd_bf16_kernel<16, false, false>, attention_fwd_bf16_kernel<32, false, false>,
+      attention_fwd_bf16_kernel<64, false, false>},
+     {attention_fwd_bf16_kernel<16, false, true>, attention_fwd_bf16_kernel<32, false, true>,
+      attention_fwd_bf16_kernel<64, false, true>}},
+    {{attention_fwd_bf16_kernel<16, true, false>, attention_fwd_bf16_kernel<32, true, false>,
+      attention_fwd_bf16_kernel<64, true, false>},
+     {attention_fwd_bf16_kernel<16, true, true>, attention_fwd_bf16_kernel<32, true, true>,
+      attention_fwd_bf16_kernel<64, true, true>}},
 };
 
 }  // namespace
@@ -149,7 +152,9 @@ extern "C" {
 // Shared memory one block needs, in bytes (0 if the geometry is refused).
 int gan_attention_fwd_bf16_smem_bytes(int L, int Dh) {
   if (L < 1 || L > kMaxLen || Dh < 1 || Dh > kWidths[2]) return 0;
-  return 3 * round_up(L, 16) * (kWidths[width_index(Dh)] + 8) * (int)sizeof(bf16_t);
+  const int Lp = round_up(L, 16);
+  return kScratchBytes + (3 * Lp * (kWidths[width_index(Dh)] + 8) + Lp * (Lp + 8)) *
+                             (int)sizeof(bf16_t);
 }
 
 // q, k, v, out: (B, H, L, Dh) bf16, contiguous, on the current device;
@@ -164,14 +169,14 @@ int gan_attention_fwd_bf16(const bf16_t* q, const bf16_t* k, const bf16_t* v, bf
   const int smem = gan_attention_fwd_bf16_smem_bytes(L, Dh);
   if (smem == 0 || B < 1 || H < 1 || valid_len == nullptr || (dropout && seed_base == nullptr))
     return (int)cudaErrorInvalidValue;
-  const KernelFn kernel = kKernels[dropout != 0][width_index(Dh)];
+  const KernelFn kernel = kKernels[dropout != 0][L > kTwoBlockRows][width_index(Dh)];
   const cudaError_t e = tf32::configure(kernel, smem);
   if (e != cudaSuccess) return (int)e;
   const void* const ptrs[] = {q, k, v, out};
   const int vec = bf16::copy_width(Dh, ptrs, 4);
   const philox::DropoutArg drop{{seed_base, seed_index}, threshold, drop_scale};
-  kernel<<<B * H, 2 * round_up(L, 16), smem, stream>>>(q, k, v, out, L, Dh, valid_len, scale, vec,
-                                                        drop);
+  kernel<<<B * H, block_threads(L), smem, stream>>>(q, k, v, out, L, Dh, valid_len, scale, vec,
+                                                     drop);
   return (int)cudaGetLastError();
 }
 

@@ -1,8 +1,9 @@
-// bf16 helpers for the bf16 forward kernels: one bf16 mma.sync pass with f32
+// bf16 helpers for the bf16 kernels: one bf16 mma.sync pass with f32
 // accumulation per k step, which is what the TPU's MXU does with bf16
-// operands (no 3x split as in f32), and ldmatrix fragment loads, for
-// attention_fwd_bf16.cu; bf16 staging with cp.async, bf16 pair stores and
-// dropout mask pairs, for it and mlp_fwd_bf16.cu.
+// operands (no 3x split as in f32), the exact sum of those k steps as an
+// f32 pair (Acc), and ldmatrix fragment loads, for the attention kernels
+// (attention_bf16.cuh); bf16 staging with cp.async, bf16 pair stores and
+// dropout mask pairs, for them and the MLP kernels (mlp_bf16_tile.cuh).
 //
 // mma.sync.m16n8k16 (bf16 in, f32 accumulate) fragment layout, with
 // g = lane / 4 and t = lane % 4 (PTX ISA, "Matrix Fragments for mma.m16n8k16"),
@@ -12,10 +13,7 @@
 //                a2 = A[g][2t+8, 2t+9],   a3 = A[g+8][2t+8, 2t+9]
 //   B (16 x 8):  b0 = B[2t, 2t+1][g],     b1 = B[2t+8, 2t+9][g]
 //   C (16 x 8):  c0 = C[g][2t], c1 = C[g][2t+1], c2 = C[g+8][2t], c3 = C[g+8][2t+1]
-// C is laid out as in m16n8k8 (mma_tf32.cuh), so two neighbouring C tiles
-// (keys 8n .. 8n + 15) are, rounded to bf16 pairs, the A fragment of the next
-// product with k = those 16 keys, in order: (c0 c1 | c2 c3) of tile n, then
-// of tile n + 1 (acc_pair_as_a).
+// C is laid out as in m16n8k8 (mma_tf32.cuh).
 //
 // ldmatrix.x4 loads four 8 x 8 bf16 matrices; lane l gives the address of
 // row l % 8 of matrix l / 8, and each row is 16 bytes, so a shared tile's
@@ -48,18 +46,56 @@ __device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4], uint3
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// d += a b: the k step's bf16 product from the tensor cores (f32, from 0),
-// added to d in f64.  Over many k steps the sum stays within about one f32
-// ulp of the exact one (an f32 accumulator would drift by several), so a
-// result rounded to f32 once, then to bf16, does not depend on the order of
-// the k steps: it matches a plain version that sums the same products
-// exactly (ops/*.py at bf16) in all but a few outputs in 10^5.
-__device__ __forceinline__ void mma_add(double (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+// hi + lo += x, exactly: Knuth's TwoSum puts the rounding error of hi + x,
+// itself an f32, into lo (six adds, whatever the order of |hi| and |x|), and
+// lo takes it with a seventh.  Rounded adds written out, so that nothing is
+// reassociated or contracted.
+__device__ __forceinline__ void two_sum(float& hi, float& lo, float x) {
+  const float s = __fadd_rn(hi, x);
+  const float xs = __fsub_rn(s, hi);  // the part of x that s holds
+  const float hs = __fsub_rn(s, xs);  // and the part of hi
+  lo = __fadd_rn(lo, __fadd_rn(__fsub_rn(hi, hs), __fsub_rn(x, xs)));
+  hi = s;
+}
+
+// A sum over k steps of one accumulator tile (the C layout): element e is the
+// f32 pair hi[e] + lo[e].  Each k step is one bf16 mma.sync from a zeroed f32
+// accumulator, and the steps are added with two_sum, never by the tensor
+// cores (which truncate a running sum): the pair carries about 48
+// significant bits, so over the few steps of an attention sum (at most 8)
+// hi + lo rounded to f32 once is the f32 nearest the exact sum of the
+// steps, as an f64 sum of them rounded once is, except where that sum lies
+// within about 2^-40 of its terms' magnitude from a rounding midpoint
+// (tests/test_torch_attention_bf16_sums.py).  So the result does not depend
+// on the order of the k steps, and a plain version that sums the same
+// products exactly (ops/attention.py at bf16) rounds to the same bits in all
+// but a few outputs in 10^5.  lo starts at +0 and never becomes -0, so a sum
+// of zeros rounds to +0, as an f64 sum from +0 does.
+struct Acc {
+  float hi[4], lo[4];
+};
+
+// acc = a b (the first k step) or acc += a b: the k step's bf16 product
+// from the tensor cores (f32, from 0), added exactly.  `first` is known once
+// the k loop is unrolled.
+__device__ __forceinline__ void mma_add(Acc& acc, bool first, const uint32_t (&a)[4], uint32_t b0,
                                         uint32_t b1) {
   float c[4] = {0.f, 0.f, 0.f, 0.f};
   mma(c, a, b0, b1);
 #pragma unroll
-  for (int e = 0; e < 4; ++e) d[e] += (double)c[e];
+  for (int e = 0; e < 4; ++e) {
+    if (first) {
+      acc.hi[e] = c[e];
+      acc.lo[e] = 0.f;
+    } else {
+      two_sum(acc.hi[e], acc.lo[e], c[e]);
+    }
+  }
+}
+
+// Element e of the sum, rounded to f32 once.
+__device__ __forceinline__ float value(const Acc& acc, int e) {
+  return __fadd_rn(acc.hi[e], acc.lo[e]);
 }
 
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const bf16_t* p) {
@@ -89,6 +125,15 @@ __device__ __forceinline__ void load_b_nk(uint32_t (&b)[4], const bf16_t* s, int
   ldmatrix_x4(b, s + (n0 + (lane & 7) + ((lane >> 4) << 3)) * ld + k0 + (((lane >> 3) & 1) << 3));
 }
 
+// The B fragment of one n tile, B[k][n] = s[n0 + n][k0 + k] for n in 0 ..
+// 7 (s stored [n][k]): b[0], b[1]; lanes 0 .. 15 give the row addresses.
+__device__ __forceinline__ void load_b_nk8(uint32_t (&b)[2], const bf16_t* s, int ld, int n0,
+                                           int k0, int lane) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];"
+               : "=r"(b[0]), "=r"(b[1])
+               : "r"(smem_addr(s + (n0 + (lane & 7)) * ld + k0 + (((lane >> 3) & 1) << 3))));
+}
+
 // B fragments of two n tiles, B[k][n] = s[k0 + k][n0 + n] (s stored [k][n],
 // as V in P V and the weights of x W): b[0], b[1] for columns n0 .. n0 + 7,
 // b[2], b[3] for n0 + 8 .. n0 + 15.
@@ -97,20 +142,28 @@ __device__ __forceinline__ void load_b_kn(uint32_t (&b)[4], const bf16_t* s, int
   ldmatrix_x4_trans(b, s + (k0 + (lane & 15)) * ld + n0 + ((lane >> 4) << 3));
 }
 
+// The B fragment of one n tile, B[k][n] = s[k0 + k][n0 + n] for n in 0 ..
+// 7 (s stored [k][n]): b[0], b[1]; lanes 0 .. 15 give the row addresses.
+__device__ __forceinline__ void load_b_kn8(uint32_t (&b)[2], const bf16_t* s, int ld, int k0,
+                                           int n0, int lane) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];"
+               : "=r"(b[0]), "=r"(b[1])
+               : "r"(smem_addr(s + (k0 + (lane & 15)) * ld + n0)));
+}
+
+// The A fragment of A[m][k] = s[k][m] for m in m0 .. m0 + 15, k in k0 ..
+// k0 + 15 (s stored [k][m], row stride ld): ldmatrix.trans of the four
+// 8 x 8 blocks in the order a0 .. a3 wants them.
+__device__ __forceinline__ void load_a_t(uint32_t (&a)[4], const bf16_t* s, int ld, int m0,
+                                         int k0, int lane) {
+  const int i = lane >> 3;
+  ldmatrix_x4_trans(a, s + (k0 + (lane & 7) + ((i >> 1) << 3)) * ld + m0 + ((i & 1) << 3));
+}
+
 // Two floats as a bf16 pair (x in the lower half), each rounded to nearest even.
 __device__ __forceinline__ uint32_t pack(float x, float y) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(x, y);
   return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// Accumulator tiles n and n + 1 (rows g, g + 8; columns 2t, 2t + 1 of each),
-// rounded to bf16, as the A fragment of a product over their 16 columns.
-__device__ __forceinline__ void acc_pair_as_a(uint32_t (&a)[4], const float (&c0)[4],
-                                              const float (&c1)[4]) {
-  a[0] = pack(c0[0], c0[1]);
-  a[1] = pack(c0[2], c0[3]);
-  a[2] = pack(c1[0], c1[1]);
-  a[3] = pack(c1[2], c1[3]);
 }
 
 // ---------------------------------------------------------------- staging --

@@ -90,7 +90,9 @@ def _nvcc() -> str:
 
 
 build_seconds: Dict[str, float] = {}  # library -> wall seconds of its last nvcc in this process
-build_logs: Dict[str, str] = {}  # library -> that nvcc's output (ptxas -v resource lines)
+# library -> the output of the nvcc that built it (ptxas -v resource lines),
+# kept beside the library as <library>.log, so a library built earlier has one too
+build_logs: Dict[str, str] = {}
 
 
 def _compile(name: str, src: Path, target: Path) -> Tuple[str, int, str, float]:
@@ -101,6 +103,7 @@ def _compile(name: str, src: Path, target: Path) -> Tuple[str, int, str, float]:
                           stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     seconds = time.perf_counter() - t0
     if proc.returncode == 0:
+        target.with_suffix(".log").write_text(proc.stdout)
         os.replace(tmp, target)  # atomic: a concurrent build never sees half a file
     return name, proc.returncode, proc.stdout, seconds
 
@@ -109,8 +112,9 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, Path]:
     """Compile the named kernels (default: all) whose library is missing.
 
     One ``nvcc`` process per source, all started together; returns
-    name -> library path.  Each compiled library's wall seconds and
-    ``ptxas`` resource lines land in :data:`build_seconds` and
+    name -> library path.  Each compiled library's wall seconds land in
+    :data:`build_seconds`, and every library's ``ptxas`` resource lines (of
+    this build or, from its ``.log``, of the one that made it) in
     :data:`build_logs`.  Raises ``RuntimeError`` with the compiler's output
     if any build fails.
     """
@@ -120,6 +124,10 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, Path]:
     if missing:
         raise KeyError(f"no CUDA source for {missing} in {CSRC}")
     jobs = [(name, srcs[name], _library_path(srcs[name])) for name in wanted]
+    for name, _, target in jobs:
+        log = target.with_suffix(".log")
+        if target.exists() and log.exists():
+            build_logs.setdefault(name, log.read_text())
     jobs = [job for job in jobs if not job[2].exists()]
     errors = []
     if jobs:

@@ -52,7 +52,8 @@ which recomputes the weights through the forward kernel's own code
 kernel is held to its plain version within 2^-8 * max(1, max |ref|) with
 at least 99% of the elements identical.  At bf16 both sides take each sum
 (the products, the softmax's row sum, D) exactly, rounded to f32 once
-(:func:`exact_matmul`; f64 in the kernels): summed in f32 in two orders,
+(:func:`exact_matmul`; in the kernels each k step added into an exact f32
+pair, the row sums and D in f64): summed in f32 in two orders,
 the two put 0.02-0.04% of the outputs a bf16 ulp apart, and one such ulp at
 the largest outputs is past that limit, which is half an ulp there.  A bf16
 call with a gradient runs through :class:`_FusedAttention` on either device

@@ -251,6 +251,40 @@ def test_non_cpu_tensors_never_take_the_plain_path():
         TM.fused_mlp(x, w1, torch.zeros(16, device="meta"), w2, torch.zeros(8, device="meta"))
 
 
+def test_build_keeps_each_librarys_ptxas_log(tmp_path, monkeypatch):
+    """build() writes the compiler's output beside each library it makes
+    and, for a library built earlier, reads it back into build_logs, so
+    chip_smoke.py reports registers and spills of a cached library too."""
+    import stat
+
+    from gan_ffn_tpu_torch.ops import _build
+
+    fake = tmp_path / "nvcc"  # writes its -o target and prints a ptxas line
+    fake.write_text("#!/bin/sh\nwhile [ $# -gt 0 ]; do [ \"$1\" = -o ] && out=$2; shift; done\n"
+                    "echo binary > \"$out\"\n"
+                    "echo \"ptxas info    : Compiling entry function 'k_kernel' for 'sm_90a'\"\n"
+                    "echo \"ptxas info    : Function properties for k_kernel\"\n"
+                    "echo \"    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\"\n"
+                    "echo \"ptxas info    : Used 72 registers, used 1 barriers\"\n")
+    fake.chmod(fake.stat().st_mode | stat.S_IEXEC)
+    csrc, build_dir = tmp_path / "csrc", tmp_path / "build"
+    csrc.mkdir()
+    (csrc / "k.cu").write_text("int f();\n")
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    monkeypatch.setattr(_build, "BUILD_DIR", build_dir)
+    monkeypatch.setattr(_build, "_nvcc", lambda: str(fake))
+    monkeypatch.setattr(_build, "build_logs", {})
+    monkeypatch.setattr(_build, "build_seconds", {})
+    lib = _build.build(["k"])["k"]
+    assert lib.read_text() == "binary\n" and lib.with_suffix(".log").exists()
+    assert _build.ptxas_resources(_build.build_logs["k"]) == [
+        {"kernel": "k_kernel", "registers": 72, "spill_stores": 0, "spill_loads": 0}]
+    monkeypatch.setattr(_build, "build_logs", {})
+    monkeypatch.setattr(_build, "_nvcc", lambda: pytest.fail("a built library was compiled again"))
+    assert _build.build(["k"])["k"] == lib
+    assert "Used 72 registers" in _build.build_logs["k"]
+
+
 def test_library_path_follows_the_included_headers(tmp_path):
     """A kernel library's name covers its source, every header it includes
     from csrc (directly or through another header) and the flags: editing an
