@@ -12,7 +12,8 @@ Phases, each printing JSON lines; any failure exits non-zero:
                mlp_fwd_bf16, mlp_bwd_bf16), one process each, all at once;
                prints each library's nvcc seconds and each kernel's
                registers and spill bytes; fails if a variant of the bf16
-               attention kernels spills or takes more than 128 registers.
+               attention kernels spills or takes more than 128 registers,
+               or one of the bf16 MLP kernels spills.
 3. kernels  -- each kernel against its plain PyTorch version on the card, at
                the training paths' shapes (L=112 bucket; B=32 on the
                flagship path, B=30 on the DialogueRNN path): attention
@@ -139,15 +140,18 @@ Phases, each printing JSON lines; any failure exits non-zero:
                where the JAX kernel does) at the serving shapes: attention
                (32,10,112,10) and (32,8,112,64) at valid_len 112/90/1/0 (and
                at the DialogueRNN path's (30,10,112,10), (30,8,112,64)), MLP
-               at M=3584 for the four geometries (phase 3's inputs rounded
-               to bf16), each at rate 0 and the path's rate: max |diff| <=
+               at M=3584 and the DialogueRNN path's 3360 for the four
+               geometries (phase 3's inputs rounded to bf16), each at rate 0 and the path's rate: max |diff| <=
                2^-8 * max(1, max |ref|), at least 99% of the outputs
                identical (+0 and -0 as one), two calls identical in bits.  Times as in phase 3
                (rate 0 rows make the kernels line) beside the f32 kernel's
                on the same values, the plain version's and, for attention,
                SDPA's bf16 forward; bound_ms = max(bytes / 3.35 TB/s, flops
                / 989 TFLOP/s), 2-byte elements, 989 the H100 SXM data
-               sheet's dense bf16 rate.  Then phase 4's 8-layer model
+               sheet's dense bf16 rate; for the MLP also its TFLOP/s on
+               the f64 tensor cores it multiplies on (f64_tflops) and their
+               floor, the exact work at 67 TFLOP/s (f64_floor_ms).  Then
+               phase 4's 8-layer model
                exported as f32, bf16 and bf16 with int8 weights (bytes of
                each), each served on the card with 24 attention and 27 MLP
                launches per forward by its own kernels (bf16 kernels for
@@ -170,9 +174,12 @@ Phases, each printing JSON lines; any failure exits non-zero:
                bits).  Times as in phase 3 at the path's rates (and rate 0
                at B=32) beside the f32 kernel on the same values, the plain
                version and, for attention, SDPA's bf16 backward; bound_ms
-               at 989 TFLOP/s and 2-byte elements.  The bf16 kernels take
-               the same relu branches (mlp_relu_branches_bf16: no column of
-               db1 may differ, over 786,432 z1 near the kink).  One stage-B and one
+               at 989 TFLOP/s and 2-byte elements; for the MLP also
+               f64_tflops and f64_floor_ms as in phase 8.  The bf16 kernels
+               take the same relu branches (mlp_relu_branches_bf16: no column of
+               db1 may differ, over 786,432 z1 near the kink at H=512 and
+               196,608 at each of M=3584 and 3360 for K=100 and 512 at
+               H=2048, where the two kernels' d_ff splits differ).  One stage-B and one
                stage-A step at B=32, L=112, depth 8, every dropout on, bf16
                and f32 in turns: the bf16 twins at 24 / 24 / 27 / 27 and 240
                / 192 / 252 / 198 launches per step and no f32 kernel, host
@@ -253,10 +260,9 @@ SITE_RATE = {"ffn": 0.1, "head": 0.2}
 # two orders up to a few 1e-6 apart.  Where z1 lies that close to relu's kink
 # the two take different branches of relu' and their gradients differ by
 # O(1) there, so those comparisons draw FFN inputs that keep every z1 at
-# least this far from 0.  The kernels agree with each other there: both
-# compute z1 through the same tile code, which mlp_relu_branches checks at
-# inputs built to lie on the kink.
-RELU_KINK = 2e-5
+# least RELU_KINK = 2e-5 from 0 (mlp_inputs).  The kernels agree with each
+# other there: both compute z1 through the same tile code, which
+# mlp_relu_branches checks at inputs built to lie on the kink.
 STEP_LAUNCHES = {"attention_fwd": 24, "attention_bwd": 24, "mlp_fwd": 27, "mlp_bwd": 27}
 # One stage-A step: an encoder pass launches 8 attention and 8 FFN kernels, a
 # generator's head one more MLP; a disc duel runs 3 forward and 2 backward
@@ -302,6 +308,10 @@ BF16_E2E_TOL = 5e-2  # bf16 artifact on the card against the CPU (gan_ffn_tpu/cl
 # (14 warps a block at L = 112); the forward's variants up to L = 112 take 72,
 # two blocks an SM (csrc/attention_fwd_bf16.cu)
 ATTN_BF16_MAX_REGISTERS = 128
+# the bf16 MLP kernels multiply on the f64 tensor cores (csrc/mlp_bf16_tile.cuh):
+# 67 TFLOP/s on the H100 SXM, dense; their TFLOP/s and floor (exact work / 67)
+# beside the bf16 bound
+PEAK_F64_TENSOR_FLOPS = 67e12
 INT8_TOL = 1e-3  # int8 artifact against its dequantized live model
 
 
@@ -383,13 +393,14 @@ def phase_build():
                  for name, log in _build.build_logs.items()}
     emit({"phase": "build", "seconds": secs, "libraries": {k: str(v.relative_to(REPO)) for k, v in libs.items()},
           "nvcc_seconds": dict(_build.build_seconds), "kernels": resources})
-    for name in ("attention_fwd_bf16", "attention_bwd_bf16"):
+    for name in ("attention_fwd_bf16", "attention_bwd_bf16", "mlp_fwd_bf16", "mlp_bwd_bf16"):
         variants = resources.get(name, [])
         if not variants:
             fail(f"no ptxas resources for {name} (build/kernels holds its library without its .log)")
+        limit = ATTN_BF16_MAX_REGISTERS if name.startswith("attention") else 255
         for r in variants:
-            if (r["registers"] or 0) > ATTN_BF16_MAX_REGISTERS or r["spill_stores"] or r["spill_loads"]:
-                fail(f"{name}: {r}: more than {ATTN_BF16_MAX_REGISTERS} registers or spills")
+            if (r["registers"] or 0) > limit or r["spill_stores"] or r["spill_loads"]:
+                fail(f"{name}: {r}: more than {limit} registers or spills")
     return resources
 
 
@@ -525,20 +536,12 @@ def _mlp_bytes_flops(M, K, H, N, post, backward):
 
 def mlp_inputs(torch, gen, M, K, Hd, N, site):
     """``(x, w1, b1, w2, b2)`` and ``dout`` of an MLP comparison at ``M``
-    rows, drawn from ``gen`` with torch's default init scales; for the relu
-    FFN, no z1 within RELU_KINK of relu's kink (see RELU_KINK)."""
-    x = torch.randn(M, K, device="cuda", generator=gen)
-    w1 = (torch.rand(K, Hd, device="cuda", generator=gen) * 2 - 1) * K ** -0.5
-    b1 = (torch.rand(Hd, device="cuda", generator=gen) * 2 - 1) * K ** -0.5
-    w2 = (torch.rand(Hd, N, device="cuda", generator=gen) * 2 - 1) * Hd ** -0.5
-    b2 = (torch.rand(N, device="cuda", generator=gen) * 2 - 1) * Hd ** -0.5
-    dout = torch.randn(M, N, device="cuda", generator=gen)
-    while site == "ffn":
-        near = ((x.double() @ w1.double() + b1.double()).abs() < RELU_KINK).any(1)
-        if not near.any():
-            break
-        x[near] = torch.randn(int(near.sum().item()), K, device="cuda", generator=gen)
-    return (x, w1, b1, w2, b2), dout
+    rows, drawn from ``gen`` (``gan_ffn_tpu_torch.cli.kernel_bits``'s
+    ``mlp_inputs``, which compares two checkouts' kernels on the same
+    inputs)."""
+    from gan_ffn_tpu_torch.cli.kernel_bits import mlp_inputs as draw
+
+    return draw(gen, M, K, Hd, N, site)
 
 
 def phase_kernels_mlp(torch, rows: Rows):
@@ -1600,21 +1603,28 @@ def bf16_bound_ms(n_bytes: float, flops: float):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def f64_rate(t: dict, flops: float) -> None:
+    """A bf16 MLP kernel's timing row gets its TFLOP/s on the f64 tensor
+    cores and their floor, the exact work at 67 TFLOP/s."""
+    t["f64_tflops"] = flops / (t["ms"] * 1e-3) / 1e12
+    t["f64_floor_ms"] = flops / PEAK_F64_TENSOR_FLOPS * 1e3
+
+
 def _bf16_kernels(torch) -> dict:
     """Each bf16 kernel against its plain version at the serving shapes
-    (B=32, L=112; M=3584), at rate 0 and the path's rates, timed beside the
-    f32 kernel on the same values and (attention) SDPA's bf16 forward; the
-    attention forward also at the DialogueRNN path's shapes (B=30).  Returns
-    {kernel: [(launches per serving forward, rate-0 timing row)]}, the
-    attention forward's rows at the path's rate per train step (B=32) and
-    per DialogueRNN step (B=30), and the worst max |diff| of each."""
+    (B=32, L=112; M=3584) and the DialogueRNN path's (B=30; M=3360), at rate
+    0 and the path's rates, timed beside the f32 kernel on the same values
+    and (attention) SDPA's bf16 forward.  Returns {kernel: [(launches per
+    serving forward, rate-0 timing row)]}, each kernel's rows at the path's
+    rate per train step (B=32) and per DialogueRNN step (B=30), and the
+    worst max |diff| of each."""
     import torch.nn.functional as F
 
     from gan_ffn_tpu_torch.ops import attention as A
     from gan_ffn_tpu_torch.ops import mlp as Mo
 
     rows = {name: [] for name in BF16_SOURCES}
-    train_rows = {"step": [], "drnn": []}  # attention_fwd_bf16 at the path's rate
+    train_rows = {name: {"step": [], "drnn": []} for name in BF16_SOURCES}  # at the path's rate
     err = dict.fromkeys(BF16_SOURCES, 0.0)
     gen = torch.Generator(device="cuda").manual_seed(8)
     for (B, H, L, Dh), count in {**ATTN_SHAPES, **DRNN_ATTN_SHAPES}.items():
@@ -1647,21 +1657,23 @@ def _bf16_kernels(torch) -> dict:
                     if rate == 0.0 and B == 32:
                         rows["attention_fwd_bf16"].append((count, t))
                     elif rate > 0.0:
-                        train_rows["step" if B == 32 else "drnn"].append((count, t))
+                        train_rows["attention_fwd_bf16"]["step" if B == 32 else "drnn"].append(
+                            (count, t))
                 emit(line)
     gen = torch.Generator(device="cuda").manual_seed(9)
-    for (K, Hd, N, site), count in MLP_SHAPES.items():
-        args32, _ = mlp_inputs(torch, gen, MLP_ROWS, K, Hd, N, site)
+    for M, ((K, Hd, N, site), count) in itertools.product((MLP_ROWS, DRNN_MLP_ROWS),
+                                                          MLP_SHAPES.items()):
+        args32, _ = mlp_inputs(torch, gen, M, K, Hd, N, site)
         args = [t.bfloat16() for t in args32]
         for rate in (0.0, SITE_RATE[site]):
             cfg, seed = site_cfg(site, rate), 5000 + K + N
             got = Mo.fused_mlp(*args, **cfg, dropout_seed=seed)
             again = Mo.fused_mlp(*args, **cfg, dropout_seed=seed)
             torch.cuda.synchronize()
-            line = {"phase": "bf16_kernel", "name": "mlp_fwd_bf16", "shape": [MLP_ROWS, K, Hd, N],
+            line = {"phase": "bf16_kernel", "name": "mlp_fwd_bf16", "shape": [M, K, Hd, N],
                     "site": site, "rate": rate,
                     **_bf16_check(torch, got, again, Mo.mlp_plain(*args, **cfg, dropout_seed=seed),
-                                  f"mlp_fwd_bf16 {K}->{Hd}->{N} ({site}) rate={rate}")}
+                                  f"mlp_fwd_bf16 {M}x{K}->{Hd}->{N} ({site}) rate={rate}")}
             err["mlp_fwd_bf16"] = max(err["mlp_fwd_bf16"], line["max_abs_err"])
             dseed = Mo.device_seed(seed, args[0].device)
             t = {"ms": device_time_ms(torch, lambda: Mo.fused_mlp(*args, **cfg, dropout_seed=dseed)),
@@ -1669,12 +1681,17 @@ def _bf16_kernels(torch) -> dict:
                      torch, lambda: Mo.fused_mlp(*args32, **cfg, dropout_seed=dseed)),
                  "plain_ms": device_time_ms(torch, lambda: Mo.mlp_plain(*args, **cfg, dropout_seed=seed)),
                  "library_ms": None,
-                 "workspace_bytes": 4 * Mo.fwd_workspace_floats(MLP_ROWS, K, Hd, N)}
-            n_bytes, flops = _mlp_bytes_flops(MLP_ROWS, K, Hd, N, site == "head", False)
+                 "workspace_bytes": 4 * Mo.fwd_bf16_workspace_floats(M, K, Hd, N),
+                 "launch": Mo.fwd_bf16_launch(M, K, Hd, N)}
+            n_bytes, flops = _mlp_bytes_flops(M, K, Hd, N, site == "head", False)
             t["bound_ms"], t["bound_by"] = bf16_bound_ms(n_bytes / 2, flops)  # 2-byte elements
+            f64_rate(t, flops)
             line["timing"] = t
             if rate == 0.0:
-                rows["mlp_fwd_bf16"].append((count, t))
+                if M == MLP_ROWS:
+                    rows["mlp_fwd_bf16"].append((count, t))
+            else:
+                train_rows["mlp_fwd_bf16"]["step" if M == MLP_ROWS else "drnn"].append((count, t))
             emit(line)
     return rows, train_rows, err
 
@@ -1891,6 +1908,7 @@ def _bf16_backward_kernels(torch) -> dict:
                  "split_launches": Mo.bwd_bf16_launches(M, K, Hd, N)}
             n_bytes, flops = _mlp_bytes_flops(M, K, Hd, N, site == "head", True)
             t["bound_ms"], t["bound_by"] = bf16_bound_ms(n_bytes / 2, flops)
+            f64_rate(t, flops)
             keep("mlp_bwd_bf16", M // 112, rate, count, t)
             emit({"phase": "bf16_train_kernel", "name": "mlp_bwd_bf16", "shape": [M, K, Hd, N],
                   "site": site, "rate": rate, "launches_per_step": count, "timing": t})
@@ -1903,43 +1921,82 @@ def mlp_relu_branches_bf16(torch, Mo) -> dict:
     relu' (mlp_bwd_bf16's recomputed z1 against mlp_fwd_bf16's).  Rows are
     x0 plus bf16 noise of 2^-7 (mlp_relu_branches' 1e-6 is lost in bf16),
     W1 as there, b1 = -(x0 W1) in f64 rounded to bf16, W2 = I, b2 = 0: out
-    > 0 exactly where the forward's z1 > 0.  Eight rows a call with dout =
-    2^r (r = 0 .. 7), so db1 = sum_r 2^r relu'(z1[r, j]), a whole number
-    below 256, is exact at bf16 and names the rows where relu' is 1.  K =
-    100 and 512, and K = 100 with the generator head's gelu pre chain."""
+    > 0 exactly where the forward's z1 > 0.  dout = 2^r on eight rows (r =
+    0 .. 7) and 0 on the others, so db1 = sum_r 2^r relu'(z1[r, j]), a
+    whole number below 256, is exact at bf16 and names the rows where relu'
+    is 1.  H = 512 on eight-row calls: K = 100 and 512, and K = 100 with the
+    generator head's gelu pre chain.  H = 2048 at the path's M = 3584 and
+    3360 (one x0 for all rows), K = 100 and 512, with windows of eight rows
+    across the row tiles, the partial last one included: there the
+    forward's and the recompute's d_ff splits may differ (each line has
+    both)."""
+    out = {}
+
+    def check(line, differ):
+        line["columns_fwd_bwd_differ"] = differ
+        emit(line)
+        if differ:
+            fail(f"bf16 relu branches {line}: mlp_bwd_bf16's z1 takes other branches than "
+                 "mlp_fwd_bf16's")
+        out[f"M={line['M']},K={line['K']},H={line['H']},pre={line['pre']}"] = line
+
+    def weights(rng, K, H):
+        w1 = torch.from_numpy((rng.standard_normal((K, H)) * K ** -0.5).astype(np.float32)).cuda()
+        return w1.bfloat16()
+
+    def at_kink(rng, w1, rows, pre):
+        """x at relu's kink and its b1, W1 (K, H)."""
+        K = w1.shape[0]
+        x0 = torch.from_numpy(rng.standard_normal(K).astype(np.float32)).cuda()
+        noise = torch.from_numpy(rng.standard_normal((rows, K)).astype(np.float32)).cuda()
+        x = (x0 + 2.0 ** -7 * noise).bfloat16()
+        t0 = x0.bfloat16().double()
+        if pre is not None:
+            t0 = torch.nn.functional.gelu(t0)
+        return x, (-(t0 @ w1.double())).bfloat16()
+
     H, groups = 512, 64
     eye = torch.eye(H, device="cuda", dtype=torch.bfloat16)
     zero = torch.zeros(H, device="cuda", dtype=torch.bfloat16)
     dout = (2.0 ** torch.arange(8, device="cuda"))[:, None].expand(8, H).bfloat16().contiguous()
-    out = {}
     for K, pre in ((100, None), (512, None), (100, "gelu")):
         cfg = dict(mid=("relu", "act_first", 0.0))
         if pre is not None:
             cfg["pre"] = (pre, 0.0)
         rng = np.random.default_rng(K + 3)
-        w1 = torch.from_numpy((rng.standard_normal((K, H)) * K ** -0.5).astype(np.float32)).cuda()
-        w1 = w1.bfloat16()
+        w1 = weights(rng, K, H)
         differ = positive = 0
         for _ in range(groups):
-            x0 = torch.from_numpy(rng.standard_normal(K).astype(np.float32)).cuda()
-            noise = torch.from_numpy(rng.standard_normal((8, K)).astype(np.float32)).cuda()
-            x = (x0 + 2.0 ** -7 * noise).bfloat16()
-            t0 = x0.bfloat16().double()
-            if pre is not None:
-                t0 = torch.nn.functional.gelu(t0)
-            b1 = (-(t0 @ w1.double())).bfloat16()
+            x, b1 = at_kink(rng, w1, 8, pre)
             fwd = Mo.fused_mlp(x, w1, b1, eye, zero, **cfg)
             db1 = Mo.fused_mlp_backward(x, w1, b1, eye, zero, dout, **cfg)[2]
             want = (dout.double() * (fwd > 0)).sum(0)
             differ += int((db1.double() != want).sum().item())
             positive += int((fwd > 0).sum().item())
-        line = {"phase": "bf16_relu_branches", "K": K, "H": H, "pre": pre,
-                "z1": groups * 8 * H, "z1_positive": positive, "columns_fwd_bwd_differ": differ}
-        emit(line)
-        if differ:
-            fail(f"bf16 relu branches {line}: mlp_bwd_bf16's z1 takes other branches than "
-                 "mlp_fwd_bf16's")
-        out[f"K={K},pre={pre}"] = line
+        check({"phase": "bf16_relu_branches", "M": 8, "K": K, "H": H, "pre": pre,
+               "z1": groups * 8 * H, "z1_positive": positive}, differ)
+
+    H, windows = 2048, 12
+    eye = torch.eye(H, device="cuda", dtype=torch.bfloat16)
+    zero = torch.zeros(H, device="cuda", dtype=torch.bfloat16)
+    cfg = dict(mid=("relu", "act_first", 0.0))
+    for M, K in itertools.product((MLP_ROWS, DRNN_MLP_ROWS), (100, 512)):
+        rng = np.random.default_rng(M + K)
+        w1 = weights(rng, K, H)
+        x, b1 = at_kink(rng, w1, M, None)
+        fwd = Mo.fused_mlp(x, w1, b1, eye, zero, **cfg)
+        differ = positive = 0
+        for r0 in np.linspace(0, M - 8, windows).astype(int).tolist():
+            dout = torch.zeros(M, H, device="cuda", dtype=torch.bfloat16)
+            dout[r0:r0 + 8] = (2.0 ** torch.arange(8, device="cuda"))[:, None].bfloat16()
+            db1 = Mo.fused_mlp_backward(x, w1, b1, eye, zero, dout, **cfg)[2]
+            want = (dout.double() * (fwd > 0)).sum(0)
+            differ += int((db1.double() != want).sum().item())
+            positive += int((fwd[r0:r0 + 8] > 0).sum().item())
+        check({"phase": "bf16_relu_branches", "M": M, "K": K, "H": H, "pre": None,
+               "z1": windows * 8 * H, "z1_positive": positive,
+               "fwd_split": list(Mo.fwd_bf16_split(M, K, H)),
+               "z1_split": list(Mo.z1_bf16_split(M, K, H))}, differ)
     return out
 
 
@@ -2230,18 +2287,21 @@ def main() -> None:
             "predict_bf16_launches": bf16["predict"]["bf16"]["launches"][name],
             "bf16_training_launches": bf16_train["runs"]["flagship"]["launches"][name],
         })
-        if name == "attention_fwd_bf16":  # per bf16 train step at the path's rate
-            step, drnn = (bf16["train_rows"][k] for k in ("step", "drnn"))
-            kernels[-1].update({
-                "step_kernel_ms": sum(n * r["ms"] for n, r in step),
-                "step_plain_ms": sum(n * r["plain_ms"] for n, r in step),
-                "step_bound_ms": sum(n * r["bound_ms"] for n, r in step),
-                "step_library_ms": sum(n * r["library_ms"] for n, r in step),
-                "dialoguernn_step_kernel_ms": sum(n * r["ms"] for n, r in drnn),
-                "dialoguernn_step_plain_ms": sum(n * r["plain_ms"] for n, r in drnn),
-                "dialoguernn_step_bound_ms": sum(n * r["bound_ms"] for n, r in drnn),
-                "dialoguernn_step_library_ms": sum(n * r["library_ms"] for n, r in drnn),
-            })
+        if name == "mlp_fwd_bf16":  # the f64 tensor cores' floor and rate over the forward's calls
+            kernels[-1]["f64_floor_ms"] = total("f64_floor_ms")
+            kernels[-1]["f64_tflops"] = PEAK_F64_TENSOR_FLOPS / 1e12 * total("f64_floor_ms") / total("ms")
+        step, drnn = (bf16["train_rows"][name][k] for k in ("step", "drnn"))  # at the path's rate
+        lib = name == "attention_fwd_bf16"
+        kernels[-1].update({
+            "step_kernel_ms": sum(n * r["ms"] for n, r in step),
+            "step_plain_ms": sum(n * r["plain_ms"] for n, r in step),
+            "step_bound_ms": sum(n * r["bound_ms"] for n, r in step),
+            "step_library_ms": sum(n * r["library_ms"] for n, r in step) if lib else None,
+            "dialoguernn_step_kernel_ms": sum(n * r["ms"] for n, r in drnn),
+            "dialoguernn_step_plain_ms": sum(n * r["plain_ms"] for n, r in drnn),
+            "dialoguernn_step_bound_ms": sum(n * r["bound_ms"] for n, r in drnn),
+            "dialoguernn_step_library_ms": sum(n * r["library_ms"] for n, r in drnn) if lib else None,
+        })
     runs = bf16_train["runs"]
     for name, source in BF16_TRAIN_SOURCES.items():
         r = bf16_train["rows"][name]
@@ -2268,6 +2328,9 @@ def main() -> None:
             "dialoguernn_step_bound_ms": drnn("bound_ms"),
             "dialoguernn_step_library_ms": drnn("library_ms") if lib else None,
         })
+        if not lib:  # mlp_bwd_bf16: the f64 tensor cores' floor and rate per stage-B step
+            kernels[-1]["f64_floor_ms"] = total("f64_floor_ms")
+            kernels[-1]["f64_tflops"] = PEAK_F64_TENSOR_FLOPS / 1e12 * total("f64_floor_ms") / total("ms")
     for entry in kernels:  # every variant's registers and spill bytes (ptxas)
         variants = resources.get(entry["name"], [])
         entry["variants"] = [{k: r[k] for k in ("registers", "spill_stores", "spill_loads")}

@@ -64,10 +64,11 @@ bf16 for dW1 = t1^T dz1 and dt1 = dz1 W1^T, db1 and db2 summed from the f32
 dz1 and g, dx rounded to bf16, and dW, db summed over every row in f32 and
 cast once to the weights' dtype.  :func:`mlp_plain` and
 :func:`mlp_backward_plain` round at the same points; on CUDA bf16 tensors
-:func:`mlp_fwd_bf16` launches ``csrc/mlp_fwd_bf16.cu`` (the same d_ff split
-as the f32 forward) and :func:`mlp_bwd_bf16` ``csrc/mlp_bwd_bf16.cu``,
-each held to its plain version within 2^-8 * max(1, max |ref|) with at
-least 99% of the elements identical.  All take every product's sum exactly,
+:func:`mlp_fwd_bf16` launches ``csrc/mlp_fwd_bf16.cu`` (its own d_ff
+split, :func:`fwd_bf16_split`, in whole waves of the card's SMs) and
+:func:`mlp_bwd_bf16` ``csrc/mlp_bwd_bf16.cu``, each held to its plain
+version within 2^-8 * max(1, max |ref|) with at least 99% of the elements
+identical.  All take every product's sum exactly,
 rounded to f32 once (``ops.attention.exact_matmul``; the kernels on the f64
 tensor cores), so their roundings do not depend on the order of the sums.
 The bf16 tensor cores truncate their sums, and a z1 one ulp off at a bf16
@@ -176,20 +177,29 @@ def bwd_workspace_floats(M: int, K: int, H: int, N: int) -> int:
 
 
 def bwd_bf16_launches(M: int, K: int, H: int, N: int) -> list:
-    """The bf16 backward's three launches that may split their reduction
+    """The bf16 backward's product launches that may split their reduction
     (csrc ``mlp_bwd_bf16.cu``), as :func:`bwd_launches` gives the f32 ones:
-    db1 and db2 are summed apart from the f32 dz1 and g, so the dW launches
-    carry no bias row."""
-    return _split_launches((("dx", M, K, H), ("dw1", K, H, M), ("dw2", H, N, M)))
+    z2 (which runs only with ``post``), dx, dw1 and dw2.  db1 and db2 are
+    summed apart from the f32 dz1 (in the da1 launch's epilogue, which does
+    not split) and g, so the dW launches carry no bias row."""
+    return _split_launches((("z2", M, N, H), ("dx", M, K, H), ("dw1", K, H, M),
+                            ("dw2", H, N, M)))
+
+
+# csrc/mlp_bwd_bf16.cu kColRows: the rows of one partial column sum (db1, db2)
+BF16_COLSUM_ROWS = 128
 
 
 def bwd_bf16_workspace_doubles(M: int, K: int, H: int, N: int) -> int:
     """Doubles of workspace the bf16 backward needs (csrc
     ``gan_mlp_bwd_bf16_workspace_doubles``): its split launches keep their
-    partial sums in f64, the largest chunks x outputs; 0 where none splits."""
+    partial sums in f64, the largest chunks x outputs; db1's column sums one
+    partial row of H per 64-row tile, db2's one of N per
+    :data:`BF16_COLSUM_ROWS` rows."""
     if min(M, K, H, N) < 1:
         return 0
-    return _split_workspace(bwd_bf16_launches(M, K, H, N))
+    return max(_split_workspace(bwd_bf16_launches(M, K, H, N)), -(-M // _TILE) * H,
+               -(-M // BF16_COLSUM_ROWS) * N)
 
 
 def fwd_split(M: int, H: int) -> Tuple[int, int]:
@@ -207,6 +217,48 @@ def fwd_split(M: int, H: int) -> Tuple[int, int]:
         s = max(s, min(WAVE_BLOCKS // rows, tiles))
     per = -(-tiles // s)
     return -(-tiles // per), per * _TILE
+
+
+def _bf16_split(name: str, symbol: str, M: int, K: int, H: int) -> Tuple[int, int]:
+    split = (ctypes.c_int * 2)()
+    fn = _build.function(name, symbol, [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    _build.check(fn(M, K, H, ctypes.addressof(split)), name)
+    return split[0], split[1]
+
+
+def fwd_bf16_split(M: int, K: int, H: int) -> Tuple[int, int]:
+    """``(S, chunk)``: the d_ff chunks the bf16 forward launches for ``M``
+    rows of ``K -> H`` on the current CUDA device (csrc
+    ``gan_mlp_fwd_bf16_split``, which reads the device's SMs and shared
+    memory): whole waves of the blocks its shared memory lets an SM hold."""
+    return _bf16_split("mlp_fwd_bf16", "gan_mlp_fwd_bf16_split", M, K, H)
+
+
+def z1_bf16_split(M: int, K: int, H: int) -> Tuple[int, int]:
+    """``(S, chunk)`` of the bf16 backward's z1 recompute on the current
+    CUDA device (csrc ``gan_mlp_bwd_bf16_z1_split``)."""
+    return _bf16_split("mlp_bwd_bf16", "gan_mlp_bwd_bf16_z1_split", M, K, H)
+
+
+def fwd_bf16_launch(M: int, K: int, H: int, N: int) -> dict:
+    """The bf16 forward's main launch on the current CUDA device, as
+    :func:`fwd_launch` gives the f32 one."""
+    S, chunk = fwd_bf16_split(M, K, H)
+    rows = -(-M // _TILE)
+    return {"row_tiles": rows, "chunks": S, "chunk": chunk, "blocks": rows * S,
+            "reduce": S > 1}
+
+
+def fwd_bf16_workspace_floats(M: int, K: int, H: int, N: int) -> int:
+    """Floats of workspace the bf16 forward needs on the current CUDA device
+    (csrc ``gan_mlp_fwd_bf16_workspace_floats``): ``S * M * N`` where d_ff
+    splits into ``S > 1`` chunks (:func:`fwd_bf16_split`), else 0."""
+    fn = _build.function("mlp_fwd_bf16", "gan_mlp_fwd_bf16_workspace_floats",
+                         [ctypes.c_int] * 4, ctypes.c_longlong)
+    n = fn(M, K, H, N)
+    if n < 0:
+        raise RuntimeError("mlp_fwd_bf16: the current CUDA device's attributes could not be read")
+    return n
 
 
 def fwd_launch(M: int, K: int, H: int, N: int) -> dict:
@@ -408,12 +460,11 @@ def mlp_fwd_bf16(x2, w1, b1, w2, b2, chain, seed) -> torch.Tensor:
     out = torch.empty((M, N), dtype=x2.dtype, device=x2.device)
     if M == 0:
         return out
-    workspace = _build.function("mlp_fwd_bf16", "gan_mlp_fwd_bf16_workspace_floats",
-                                [ctypes.c_int] * 4, ctypes.c_longlong)
-    ws = torch.empty(workspace(M, K, H, N), dtype=torch.float32, device=x2.device)
     fn = _build.function("mlp_fwd_bf16", "gan_mlp_fwd_bf16", _FWD_BF16_ARGTYPES)
     args, _keep = _chain_args(*chain, seed, x2.device)
     with torch.cuda.device(x2.device):
+        ws = torch.empty(fwd_bf16_workspace_floats(M, K, H, N), dtype=torch.float32,
+                         device=x2.device)
         code = fn(
             x2.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
             out.data_ptr(), ws.data_ptr(), M, K, H, N, *args,
@@ -584,8 +635,9 @@ def mlp_bwd_bf16(x, w1, b1, w2, b2, dout, chain, seed):
     :func:`fused_mlp_backward` has checked (``x (M, K)``, ``dout (M, N)``,
     ``chain`` the forward's ``(pre, mid, post)``, ``seed`` its seed);
     returns the bf16 (dx, dw1, db1, dw2, db2).  Allocates the scratch: t1
-    (with pre), a1, dz1 (f32) and its bf16 copy, g (f32) and its bf16 copy
-    (with post), and the f64 workspace of the split launches.  Counts its
+    (with pre), a1, act' of z1 (an f32 buffer, which holds bf16 for relu),
+    the bf16 dz1, g (f32) and its bf16 copy (with post), and the f64
+    workspace of the split launches and column sums.  Counts its
     launches."""
     M, K = x.shape
     H, N = w2.shape

@@ -462,15 +462,33 @@ def test_mlp_bf16_kernel_matches_plain(cuda, K, H, N, cfg, rows, rate):
     assert torch.equal(got, again), "two calls differ"
 
 
-def test_mlp_bf16_workspace_mirrors_the_split(cuda):
-    from gan_ffn_tpu_torch.ops import _build
-    import ctypes
+# The bf16 forward's and z1 recompute's d_ff splits at M = 3584 on an H100
+# SXM (132 SMs): (K, H) -> (S, chunk) of each
+H100_BF16_SPLITS = {
+    (100, 2048): ((7, 320), (7, 320)),  # 392 blocks: one wave at three an SM
+    (512, 2048): ((8, 256), (4, 512)),  # the a1 tile keeps two an SM; z1 has none
+    (100, 512): ((4, 128), (4, 128)),
+    (512, 1024): ((4, 256), (4, 256)),
+}
 
-    fn = _build.function("mlp_fwd_bf16", "gan_mlp_fwd_bf16_workspace_floats",
-                         [ctypes.c_int] * 4, ctypes.c_longlong)
+
+def test_mlp_bf16_workspace_mirrors_the_split(cuda):
+    """The bf16 forward's workspace is S * M * N of the split it launches,
+    every split covers d_ff in whole 64-column tiles, one row tile takes
+    single tiles, and on an H100 SXM the path's geometries split as
+    H100_BF16_SPLITS says (the forward's and the z1 recompute's differ at
+    512 -> 2048 -> 512)."""
     for M_, K, H, N in ((3584, 100, 2048, 100), (3584, 512, 1024, 100), (77, 37, 100, 33),
-                        (1, 512, 2048, 512)):
-        assert fn(M_, K, H, N) == M.fwd_workspace_floats(M_, K, H, N)
+                        (1, 512, 2048, 512), (3360, 512, 2048, 512)):
+        S, chunk = M.fwd_bf16_split(M_, K, H)
+        assert M.fwd_bf16_workspace_floats(M_, K, H, N) == (S * M_ * N if S > 1 else 0)
+        for S, chunk in (M.fwd_bf16_split(M_, K, H), M.z1_bf16_split(M_, K, H)):
+            assert S == -(-H // chunk) and chunk % 64 == 0
+    assert M.fwd_bf16_split(1, 512, 2048) == (32, 64)
+    props = torch.cuda.get_device_properties(cuda)
+    if "H100" in props.name and props.multi_processor_count == 132:
+        for (K, H), (fwd, z1) in H100_BF16_SPLITS.items():
+            assert (M.fwd_bf16_split(3584, K, H), M.z1_bf16_split(3584, K, H)) == (fwd, z1)
 
 
 def test_bf16_kernels_read_valid_len_and_seed_from_device_memory(cuda):
