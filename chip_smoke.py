@@ -196,10 +196,37 @@ Phases, each printing JSON lines; any failure exits non-zero:
                gradient within 5e-2 * max(1, max |ref|) (the CPU tests'
                limits against JAX) and 0.25 of its own max |ref|.
 
+10. families -- serving of the other two classifier families, and the MELD
+               trainer.  Path 1: phase 6's DialogueRNN checkpoint (8-layer
+               generators, D_g = D_p = 500, 2 parties) exported by
+               cli/export.py --model dialoguernn --verify --device cuda as
+               f32, bf16 and bf16+int8 (bytes of each), each served on the
+               card through ServingClassifier and the HTTP handler at (L=112,
+               B=30) and an off-grid (L=50, B=7), ragged umask: every
+               forward launches attention_fwd 24 and mlp_fwd 27 times (f32)
+               or their bf16 twins at those counts and no f32 kernel (bf16,
+               bf16+int8); log-probs against the same artifact on the CPU
+               within 1e-3 (bf16 5e-2); request ms at L=112, B=30 (median of
+               20) and the device's busy ms of one request (torch.profiler).
+               Path 2: cli/train_meld.py at its published widths (D_m 600,
+               D_e 300, 4-layer BiLSTM) at B=32 on a fixture whose batches
+               reach the 33 bucket: 10 epochs per batch, 1 with
+               --epoch-fused (traced by torch.profiler: no kernel of the
+               port by name), 1 with --bf16; finite train and test losses,
+               NaN valid metrics (valid 0.0), a float32 checkpoint, and none
+               of the eight kernels launched.  One deterministic MELD train
+               step (L=33, B=4, a fully padded column) on the card against
+               the CPU's, f32 (loss 1e-3 relative, gradients 1e-3 of max(1,
+               max |ref|), 0.25 of their own) and bf16 (1e-2, 5e-2, 0.25).
+               The per-batch run's checkpoint exported in the three variants
+               (--verify on the card) and served with warmup(lengths=(16,
+               33)) at exact lengths (33, 30) and (7, 3): no kernel, the CPU
+               limits above, request ms at L=33, B=30.
+
 The kernel counts are set to 0 just before the serving, the training, the
-DialogueRNN, the two epoch-fused, the bf16 serving and the bf16 trainers'
-paths run and are read just after; the comparisons of phases 3, 8 and 9 do
-not count.  The
+DialogueRNN, the two epoch-fused, the bf16 serving, the bf16 trainers' and
+the families' paths (each request and each MELD run) run and are read just
+after; the comparisons of phases 3, 8 and 9 do not count.  The
 kernels read ``valid_len`` and their dropout seed from device memory;
 phases 3 and 8 time them so, with both made once beforehand.  A ``graphs``
 line sums up phase 7.  The line before the last is the ``kernels`` summary (times
@@ -207,8 +234,9 @@ per stage-B train step at B=32, L=112, at the path's dropout rates, the same
 sums at the DialogueRNN step's B=30 shapes, and each kernel's launches per
 stage-A step and per DialogueRNN train step; the bf16 forwards' per bf16
 serving forward and, for attention_fwd_bf16, per bf16 train step too, the
-bf16 backwards' per bf16 stage-B train step; every kernel's registers and
-spill bytes by variant); the last
+bf16 backwards' per bf16 stage-B train step; the four forward kernels'
+launches per DialogueRNN-family serving forward of phase 10; every
+kernel's registers and spill bytes by variant); the last
 line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -806,6 +834,9 @@ def _steps(torch, model, deterministic=False):
     from gan_ffn_tpu_torch.train.optim import torch_adam
 
     device = next(model.parameters()).device
+    if type(model).__name__ == "MELDLSTMModel":  # the MELD trainer's Adam and unweighted loss
+        opt = torch_adam(model.parameters(), 3e-4, weight_decay=1e-4)
+        return make_classifier_steps(model, opt, model.n_classes, deterministic=deterministic)
     opt = torch_adam(model.parameters(), 1e-4, weight_decay=0.008)
     weights = torch.from_numpy(IEMOCAP_LOSS_WEIGHTS).to(device)
     return make_classifier_steps(model, opt, N_CLASSES, weights, deterministic=deterministic)
@@ -2194,6 +2225,245 @@ def phase_bf16_training(torch, tmp: str) -> dict:
     return {**kernels, "relu_branches": branches, "steps": steps, "runs": runs, "vs_cpu": vs_cpu}
 
 
+# Phase 10: serving of the DialogueRNN and MELD families, and the MELD trainer
+FAMILY_VARIANTS = {"f32": [], "bf16": ["--dtype", "bf16"],
+                   "bf16+int8": ["--dtype", "bf16", "--weights", "int8"]}
+# launches per DialogueRNN-family serving forward: the variant's own kernels
+FAMILY_LAUNCHES = {"f32": {"attention_fwd": 24, "mlp_fwd": 27},
+                   "bf16": {"attention_fwd_bf16": 24, "mlp_fwd_bf16": 27}}
+MELD_FIXTURE = dict(n_train=96, n_test=32, min_len=3, max_len=33, seed=0)
+MELD_WIDTHS = dict(D_m=600, D_e=300, D_h=600, n_classes=7)  # train_MELD.py:143-145
+
+
+def _family_request(clf, L, B, rng):
+    """Random inputs of ``clf``'s family: normal features, one-hot speakers
+    and a umask of ragged lengths (the first dialogue L long), both zero past
+    each dialogue."""
+    lengths = np.maximum(1, rng.integers(L // 2, L + 1, B))
+    lengths[0] = L
+    um = (np.arange(L)[None, :] < lengths[:, None]).astype(np.float32)
+    out = []
+    for s in clf.inputs:
+        if s["kind"] == "feat":
+            out.append(rng.standard_normal((L, B, s["dim"])).astype(np.float32))
+        elif s["kind"] == "qmask":
+            out.append(np.eye(s["dim"], dtype=np.float32)[rng.integers(0, s["dim"], (L, B))]
+                       * um.T[:, :, None])
+        else:
+            out.append(um)
+    return out
+
+
+def _serve_family(torch, name: str, path: str, shapes, warm_lengths, card: str) -> dict:
+    """One artifact served on the card through ServingClassifier and the
+    HTTP handler: the launches of every kernel per forward (counts set to 0
+    just before each request, read just after), log-probs against the same
+    artifact on the CPU at ``shapes`` (phase 4's 1e-3; bf16 5e-2), request
+    ms at the first shape (median of 20), and the device's busy ms of one
+    request (torch.profiler)."""
+    from http.server import ThreadingHTTPServer
+
+    from gan_ffn_tpu_torch.cli.serve import make_handler
+    from gan_ffn_tpu_torch.serving import ServingClassifier
+
+    clf = ServingClassifier.load(path, device="cuda")
+    cpu = ServingClassifier.load(path, device="cpu")
+    warm = clf.warmup(lengths=warm_lengths)
+    rng = np.random.default_rng(10)
+    requests = [_family_request(clf, L, B, rng) for L, B in shapes]
+    per_forward, errs = [], []
+    tol = E2E_TOL if clf.dtype == "float32" else BF16_E2E_TOL
+    server = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(clf))
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        for (L, B), xs in zip(shapes, requests):
+            for fn in _all_counters().values():
+                fn.launches = 0
+            resp = _post(f"http://127.0.0.1:{server.server_port}/predict",
+                         {n: x.tolist() for n, x in zip(clf.input_names, xs)})
+            per_forward.append({k: fn.launches for k, fn in _all_counters().items()})
+            if resp["classes"] != clf.predict(*xs).T.tolist():
+                fail(f"{name}: POST /predict (L={L}, B={B}) disagrees with log_probs")
+            card_lp, host_lp = clf.log_probs(*xs), cpu.log_probs(*xs)
+            if card_lp.shape != (L, B, clf.meta["n_classes"]) or not np.isfinite(card_lp).all():
+                fail(f"{name}: log-probs of shape {card_lp.shape} at L={L}, B={B}")
+            errs.append(float(np.abs(card_lp - host_lp).max()))
+            if not errs[-1] <= tol:
+                fail(f"{name}: card vs CPU log-probs at L={L}, B={B}: {errs[-1]} > {tol}")
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=60)
+    xs = requests[0]
+    req_ms = []
+    for _ in range(20):
+        t0 = time.perf_counter()
+        clf.log_probs(*xs)
+        req_ms.append((time.perf_counter() - t0) * 1e3)
+    _, n_kernels, busy = _profile_one(torch, lambda: clf.log_probs(*xs))
+    return {"card": card, "artifact": name, "dtype": clf.dtype, "weights": clf.weights,
+            "bytes": os.path.getsize(path), "warmup_shapes": [[L, B] for L, B, _ in warm],
+            "shapes": [list(s) for s in shapes], "launches_per_forward": per_forward,
+            "card_vs_cpu_max_abs_err": errs, "limit": tol,
+            "request_ms": statistics.median(req_ms), "request_ms_min": min(req_ms),
+            "request_shape": list(shapes[0]), "request_device_busy_ms": busy,
+            "request_device_kernels": n_kernels}
+
+
+def _export_family(torch, model: str, save_dir: str, out_dir: str, extra) -> dict:
+    """cli/export.py --model ``model`` --verify on the card in the three
+    variants; {variant: (path, the CLI's result)}."""
+    from gan_ffn_tpu_torch.cli import export as EXPORT
+
+    out = {}
+    for variant, flags in FAMILY_VARIANTS.items():
+        path = os.path.join(out_dir, f"{model}_{variant}.pt")
+        argv = ["--model", model, "--model-save-path", save_dir, "--output", path, "--verify",
+                "--device", "cuda"] + extra + flags
+        log = io.StringIO()
+        try:
+            with contextlib.redirect_stdout(log):
+                res = EXPORT.main(argv)
+        except SystemExit as e:
+            fail(f"cli/export.py {' '.join(argv)}: {e}\n{log.getvalue()}")
+        out[variant] = (path, res)
+    return out
+
+
+def _dialoguernn_family(torch, tmp: str, card: str) -> dict:
+    """Path 1: phase 6's checkpoint exported and served in three variants."""
+    save_dir = os.path.join(tmp, "GAN_save")
+    exported = _export_family(torch, "dialoguernn", save_dir, tmp, ["--num-layers", "8"])
+    lines = {}
+    for variant, (path, res) in exported.items():
+        line = _serve_family(torch, f"dialoguernn {variant}", path, ((112, 30), (50, 7)),
+                             (64, 112), card)
+        want = dict.fromkeys(_all_counters(), 0)
+        want.update(FAMILY_LAUNCHES["f32" if variant == "f32" else "bf16"])
+        if any(n != want for n in line["launches_per_forward"]):
+            fail(f"dialoguernn {variant}: launches per forward {line['launches_per_forward']}, "
+                 f"expected {want}")
+        line["verify"] = res["verify"]
+        emit({"phase": "families", "family": "gan_ffn_dialoguernn", **line})
+        lines[variant] = line
+    return lines
+
+
+def _meld_trainer_runs(torch, tmp: str, card: str) -> dict:
+    """cli/train_meld.py at its published widths, B=32, on a fixture whose
+    batches reach the 33 bucket: 10 epochs per batch, 1 with --epoch-fused
+    (traced by torch.profiler), 1 with --bf16; counts set to 0 just before
+    each run and read just after: no kernel of the port may launch."""
+    from gan_ffn_tpu_torch.cli import train_meld as CLI
+    from gan_ffn_tpu_torch.data import get_meld_loaders, write_synthetic_meld
+
+    data = write_synthetic_meld(os.path.join(tmp, "meld.pkl"), **MELD_FIXTURE)
+    lengths = {b.seq_len for loader in get_meld_loaders(data, batch_size=32, seed=0)
+               for b in loader}
+    if 33 not in lengths:
+        fail(f"the MELD fixture's batches have lengths {lengths}, none in the 33 bucket")
+    runs = {}
+    # per batch for 10 epochs: export --verify's argmax agreement (0.98 against
+    # the f32 model) means something only on a trained checkpoint, and after 2
+    # epochs the test loss is still near ln 7 (near-uniform log-probs)
+    for name, extra, epochs in (("per_batch", [], 10), ("epoch_fused", ["--epoch-fused"], 1),
+                                ("bf16", ["--bf16"], 1)):
+        save_dir = os.path.join(tmp, "GAN_save_meld" if name == "per_batch" else f"meld_{name}")
+        argv = ["--data-path", data, "--epochs", str(epochs), "--batch-size", "32", "--seed", "0",
+                "--device", "cuda", "--model-save-path", save_dir] + extra
+        log = io.StringIO()
+        profiled = None
+        for fn in _all_counters().values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        holder = {}
+        with contextlib.redirect_stdout(log):
+            if name == "epoch_fused":  # graph replays launch nothing the wrappers count
+                profiled, n_kernels, busy = _profile_one(
+                    torch, lambda: holder.update(result=CLI.main(argv)))
+            else:
+                holder["result"] = CLI.main(argv)
+        result = holder["result"]
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = {k: fn.launches for k, fn in _all_counters().items()}
+        epoch_lines = [l for l in log.getvalue().splitlines() if l.startswith("epoch ")]
+        fields = [dict(zip(l.split()[::2], l.split()[1::2])) for l in epoch_lines]
+        finite = all(math.isfinite(float(f[k])) for f in fields for k in ("train_loss", "test_loss"))
+        ckpt = os.path.join(save_dir, "meld_classifier_best.pt")
+        saved = torch.load(ckpt, weights_only=True) if os.path.isfile(ckpt) else {}
+        if (len(fields) != epochs or not finite or any(f["valid_loss"] != "nan" for f in fields)
+                or not saved or not all(v.dtype == torch.float32 for v in saved.values())):
+            fail(f"train_meld {name}: epochs {epoch_lines}, checkpoint {ckpt} "
+                 f"{'written' if saved else 'missing'}")
+        by_name = {} if profiled is None else _port_calls(profiled, tuple(_all_counters()))
+        if any(counts.values()) or any(by_name.values()):
+            fail(f"train_meld {name} launched a kernel of the port: {counts} {by_name}")
+        run = {"card": card, "phase": "meld_train", "run": name, "argv": argv[:8] + extra,
+               "epochs": epoch_lines, "f1": result["f1"], "best_loss": result["best_loss"],
+               "launches": counts, "seconds": seconds}
+        if profiled is not None:
+            run.update(profiled_port_calls=by_name, device_kernels=n_kernels,
+                       device_busy_ms=busy)
+        emit(run)
+        runs[name] = run
+    return runs
+
+
+def _meld_step_vs_cpu(torch, card: str) -> dict:
+    """One deterministic MELD train step (L=33, B=4, a fully padded column)
+    on the card against the CPU's from the same weights: f32 and bf16."""
+    from gan_ffn_tpu_torch.models import MELDLSTMModel
+
+    rng = np.random.default_rng(12)
+    L, B = 33, 4
+    lengths = np.array([33, 20, 7, 0])
+    umask = (np.arange(L)[None, :] < lengths[:, None]).astype(np.float32)
+    host_batch = {
+        "text": rng.standard_normal((L, B, 600)).astype(np.float32) * umask.T[:, :, None],
+        "qmask": np.eye(9, dtype=np.float32)[rng.integers(0, 9, (L, B))] * umask.T[:, :, None],
+        "umask": umask, "label": rng.integers(0, 7, (B, L)) * umask.astype(np.int64),
+    }
+    out = {}
+    for name, dtype, loss_tol, grad_tol in (("f32", None, E2E_TOL, E2E_TOL),
+                                            ("bf16", torch.bfloat16, BF16_STEP_LOSS_TOL,
+                                             BF16_STEP_GRAD_TOL)):
+        for fn in _all_counters().values():
+            fn.launches = 0
+        res = _step_vs_cpu(torch, MELDLSTMModel, dict(MELD_WIDTHS, dtype=dtype), host_batch,
+                           int(lengths.max()), seed=13, loss_tol=loss_tol, grad_tol=grad_tol)
+        if any(fn.launches for fn in _all_counters().values()):
+            fail(f"the MELD {name} step launched a kernel of the port")
+        out[name] = res
+        emit({"phase": "meld_step_vs_cpu", "card": card, "dtype": name, "L": L, "B": B,
+              "n_real": 3, "loss_limit": loss_tol, "grad_limit": grad_tol, **res})
+    return out
+
+
+def _meld_family(torch, tmp: str, card: str) -> dict:
+    """Path 2's serving: the per-batch run's checkpoint exported and served
+    in three variants at exact request lengths."""
+    exported = _export_family(torch, "meld", os.path.join(tmp, "GAN_save_meld"), tmp, [])
+    lines = {}
+    for variant, (path, res) in exported.items():
+        line = _serve_family(torch, f"meld {variant}", path, ((33, 30), (7, 3)), (16, 33), card)
+        if any(any(n.values()) for n in line["launches_per_forward"]):
+            fail(f"meld {variant}: a forward launched a kernel: {line['launches_per_forward']}")
+        line["verify"] = res["verify"]
+        emit({"phase": "families", "family": "meld_lstm", **line})
+        lines[variant] = line
+    return lines
+
+
+def phase_families(torch, tmp: str, card: str) -> dict:
+    drnn = _dialoguernn_family(torch, tmp, card)
+    runs = _meld_trainer_runs(torch, tmp, card)
+    step = _meld_step_vs_cpu(torch, card)
+    meld = _meld_family(torch, tmp, card)
+    return {"dialoguernn": drnn, "meld_runs": runs, "meld_step": step, "meld": meld}
+
+
 def main() -> None:
     import torch
 
@@ -2217,6 +2487,7 @@ def main() -> None:
         graphs = phase_graphs(torch, tmp)
         bf16 = phase_bf16_serving(torch, tmp)
         bf16_train = phase_bf16_training(torch, tmp)
+        families = phase_families(torch, tmp, info["nvidia_smi"][0])
 
     emit({"graphs": {
         "card": info["nvidia_smi"][0],
@@ -2261,6 +2532,9 @@ def main() -> None:
             "dialoguernn_step_library_ms": (None if any(r["library_ms"] is None for _, r in drnn)
                                             else sum(n * r["library_ms"] for n, r in drnn)),
         }
+        if name in FAMILY_LAUNCHES["f32"]:  # one DialogueRNN-family serving forward (phase 10)
+            entry["dialoguernn_serving_launches_per_forward"] = (
+                families["dialoguernn"]["f32"]["launches_per_forward"][0][name])
         if name in rows.serve:
             serve = rows.serve[name]
             entry["serving_launches"] = serve_counts[name]
@@ -2286,6 +2560,9 @@ def main() -> None:
             "bf16_int8_serving_launches": bf16["serving"]["variants"]["bf16+int8"]["launches"][name],
             "predict_bf16_launches": bf16["predict"]["bf16"]["launches"][name],
             "bf16_training_launches": bf16_train["runs"]["flagship"]["launches"][name],
+            "dialoguernn_serving_launches_per_forward": {
+                v: families["dialoguernn"][v]["launches_per_forward"][0][name]
+                for v in ("bf16", "bf16+int8")},
         })
         if name == "mlp_fwd_bf16":  # the f64 tensor cores' floor and rate over the forward's calls
             kernels[-1]["f64_floor_ms"] = total("f64_floor_ms")

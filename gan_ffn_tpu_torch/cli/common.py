@@ -47,13 +47,16 @@ LATER_FLAGS = {
 }
 
 
-def setup(parser: argparse.ArgumentParser, argv=None) -> Tuple[argparse.Namespace, torch.device]:
+def setup(parser: argparse.ArgumentParser, argv=None,
+          write_fixture: Callable[..., str] = write_synthetic_iemocap,
+          ) -> Tuple[argparse.Namespace, torch.device]:
     """A trainer's start: parse ``argv``, refuse the flags of
     :data:`LATER_FLAGS` that it has and that are set, pick the device
     (``--device``, or the CPU with ``--no-cuda``; a parser error where it
     asks for a card that is not there), turn TF32 off in cuBLAS and cuDNN
     and reduced precision off in cuBLAS's bf16 sums,
-    and write the synthetic fixture where ``--synthetic`` asks for it."""
+    and write the synthetic fixture where ``--synthetic`` asks for it, with
+    ``write_fixture`` (the IEMOCAP writer, or ``data.write_synthetic_meld``)."""
     args = parser.parse_args(argv)
     for flag, item in LATER_FLAGS.items():
         if getattr(args, flag, False):
@@ -72,7 +75,7 @@ def setup(parser: argparse.ArgumentParser, argv=None) -> Tuple[argparse.Namespac
     print(f"Running on {device}"
           + (f" ({torch.cuda.get_device_name(device)})" if device.type == "cuda" else ""))
     if args.synthetic and not os.path.exists(args.data_path):
-        write_synthetic_iemocap(
+        write_fixture(
             args.data_path, n_train=args.synthetic_train, n_test=args.synthetic_test,
             seed=args.seed,
         )

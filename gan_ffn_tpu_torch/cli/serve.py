@@ -6,15 +6,20 @@
 API (JSON over HTTP):
 - ``GET /healthz`` -> ``{"status": "ok", "model": ..., "family": ...,
   "inputs": [...], "buckets": [...], ...}``
-- ``POST /predict`` with ``audio``/``visual``/``text`` as nested (L, B, D)
-  lists plus optional ``valid_len`` -> ``{"classes": [[...]],
-  "class_names": [[...]]}`` with per-dialogue rows (length-B lists of
-  length-L lists).
+- ``POST /predict`` with the artifact's inputs by name (``audio``/``visual``
+  /``text`` as nested (L, B, D) lists for ``gan_ffn``; with ``qmask`` (L,
+  B, P) and ``umask`` (B, L) for ``gan_ffn_dialoguernn``; ``text``,
+  ``qmask``, ``umask`` for ``meld_lstm``) plus optional ``valid_len`` ->
+  ``{"classes": [[...]], "class_names": [[...]]}`` with per-dialogue rows
+  (length-B lists of length-L lists).
 
 ``--batch-grid 1,4,8,32`` pads a request's batch up to the next grid size
 instead of the artifact's batch size, so small requests run small batches.
 ``--warmup`` runs one request per grid shape before accepting connections
-(it builds the CUDA kernels on first use).  ``--device`` defaults to cuda.
+(it builds the CUDA kernels on first use); ``--warmup-lengths L1,L2,...``
+names the time lengths to warm, which an artifact that runs exact request
+lengths (the ``meld_lstm`` family) needs: it has no finite default grid.
+``--device`` defaults to cuda.
 The artifact may be any variant of ``cli/export.py`` (float32, bf16, either
 with int8 weights); its ``dtype`` and ``weights`` are printed at start and
 reported by ``/healthz``.
@@ -86,7 +91,7 @@ def make_handler(clf: ServingClassifier):
 
 
 def build_parser() -> argparse.ArgumentParser:
-    p = argparse.ArgumentParser(description="Serve a GAN_FFN artifact over HTTP")
+    p = argparse.ArgumentParser(description="Serve a classifier artifact over HTTP")
     p.add_argument("--artifact", default="gan_ffn.pt")
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--port", type=int, default=8000)
@@ -99,16 +104,28 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--warmup", action="store_true", default=False,
                    help="run one request per grid shape before accepting "
                         "connections")
+    p.add_argument("--warmup-lengths", default=None, metavar="L1,L2,...",
+                   help="the time lengths to warm: needed with --warmup for artifacts "
+                        "that run exact request lengths (time_quantize=False, the "
+                        "meld family), which have no finite default grid")
     return p
 
 
 def main(argv=None):
-    args = build_parser().parse_args(argv)
+    parser = build_parser()
+    args = parser.parse_args(argv)
     grid = [int(b) for b in args.batch_grid.split(",")] if args.batch_grid else None
     clf = ServingClassifier.load(args.artifact, device=args.device, batch_grid=grid)
-    print(f"artifact {args.artifact}: dtype {clf.dtype}, weights {clf.weights}")
+    print(f"artifact {args.artifact}: family {clf.family}, dtype {clf.dtype}, "
+          f"weights {clf.weights}")
     if args.warmup:
-        for L, B, secs in clf.warmup():
+        lengths = ([int(x) for x in args.warmup_lengths.split(",")]
+                   if args.warmup_lengths else None)
+        try:
+            timings = clf.warmup(lengths=lengths)
+        except ValueError as e:
+            parser.error(f"--warmup: {e}")
+        for L, B, secs in timings:
             print(f"warmup L={L} B={B}: {secs:.2f}s")
     server = ThreadingHTTPServer((args.host, args.port), make_handler(clf))
     print(f"serving {args.artifact} ({clf.meta.get('model')} on {clf.device}, "

@@ -1,6 +1,8 @@
-"""The IEMOCAP dialogue dataset over the reference's pickled feature schema
-(the port's own copy of the IEMOCAP parts of ``gan_ffn_tpu/data/datasets.py``,
-numpy only).
+"""The IEMOCAP and MELD dialogue datasets over the reference's pickled
+feature schemas (the port's own copy of the IEMOCAP and MELD parts of
+``gan_ffn_tpu/data/datasets.py``, numpy only).
+
+IEMOCAP:
 
 - **Dialogue-level min-max normalization** over each dialogue's *entire*
   feature array (one global min and max per dialogue per modality).
@@ -8,7 +10,11 @@ numpy only).
 - The constant-feature edge case (max == min, 0/0 in the reference) is
   epsilon-guarded unless ``strict_parity=True``.
 
-MELD, AVEC and DailyDialog come with their slices.
+MELD: no normalization, no visual features; the speakers are pre-one-hot
+9-party rows, passed through; emotion (7-class) or sentiment (3-class)
+labels.
+
+AVEC and DailyDialog are library-only (ROADMAP module note 16).
 """
 
 from __future__ import annotations
@@ -96,5 +102,48 @@ class IEMOCAPDataset:
             visual=np.asarray(self.videoVisual[vid], dtype=np.float32),
             audio=np.asarray(self.videoAudio[vid], dtype=np.float32),
             qmask=qmask,
+            label=np.asarray(self.videoLabels[vid], dtype=np.int32),
+        )
+
+
+class MELDDataset:
+    """MELD 9-tuple pickle dataset (reference dataloader.py:90-124).
+
+    ``classify`` selects the emotion (7-class) or sentiment (3-class) label
+    set.  MELD carries no visual features; speakers are pre-one-hot 9-party
+    row vectors.
+    """
+
+    n_parties = 9
+    emotion_names = ["neutral", "surprise", "fear", "sadness", "joy", "disgust", "anger"]
+    sentiment_names = ["neutral", "positive", "negative"]
+
+    def __init__(self, path: str, classify: str = "emotion", train: bool = True):
+        with open(path, "rb") as f:
+            (
+                self.videoIDs,
+                self.videoSpeakers,
+                self.emotion_labels,
+                self.videoText,
+                self.videoAudio,
+                self.videoSentence,
+                self.trainVid,
+                self.testVid,
+                self.sentiment_labels,
+            ) = pickle.load(f)
+        self.videoLabels = self.emotion_labels if classify == "emotion" else self.sentiment_labels
+        self.keys = list(self.trainVid if train else self.testVid)
+
+    def __len__(self) -> int:
+        return len(self.keys)
+
+    def __getitem__(self, index: int) -> Dialogue:
+        vid = self.keys[index]
+        return Dialogue(
+            vid=vid,
+            text=np.asarray(self.videoText[vid], dtype=np.float32),
+            visual=None,
+            audio=np.asarray(self.videoAudio[vid], dtype=np.float32),
+            qmask=np.asarray(self.videoSpeakers[vid], dtype=np.float32),
             label=np.asarray(self.videoLabels[vid], dtype=np.int32),
         )

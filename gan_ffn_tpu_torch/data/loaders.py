@@ -1,5 +1,5 @@
-"""Bucketed fixed-shape batching (the port's own copy of the IEMOCAP parts of
-``gan_ffn_tpu/data/loaders.py``, numpy only).
+"""Bucketed fixed-shape batching (the port's own copy of the IEMOCAP and MELD
+parts of ``gan_ffn_tpu/data/loaders.py``, numpy only).
 
 Every batch is padded to one of a few bucket lengths and to a fixed batch
 size, so the kernels see a handful of shapes.  Layout, as the reference's
@@ -181,6 +181,34 @@ def get_iemocap_loaders(
 
     trainset = IEMOCAPDataset(path, train=True, strict_parity=strict_parity)
     testset = IEMOCAPDataset(path, train=False, strict_parity=strict_parity)
+    train_idx, valid_idx = head_tail_split(len(trainset), valid)
+    train_loader = BucketedLoader(
+        trainset, train_idx, batch_size, buckets, shuffle=True, seed=seed
+    )
+    valid_loader = BucketedLoader(
+        trainset, valid_idx, batch_size, buckets, shuffle=True, seed=seed + 1
+    )
+    test_loader = BucketedLoader(
+        testset, None, batch_size, buckets, shuffle=False, seed=seed + 2
+    )
+    return train_loader, valid_loader, test_loader
+
+
+def get_meld_loaders(
+    path: str,
+    batch_size: int = 32,
+    valid: float = 0.0,
+    classify: str = "emotion",
+    buckets: Sequence[int] = (16, 24, 33),
+    seed: int = 3407,
+) -> Tuple[BucketedLoader, BucketedLoader, BucketedLoader]:
+    """(train, valid, test) loaders mirroring get_MELD_loaders
+    (train_MELD.py:24-47; the entry point calls valid=0.0, which gives an
+    empty valid loader)."""
+    from .datasets import MELDDataset
+
+    trainset = MELDDataset(path, classify=classify, train=True)
+    testset = MELDDataset(path, classify=classify, train=False)
     train_idx, valid_idx = head_tail_split(len(trainset), valid)
     train_loader = BucketedLoader(
         trainset, train_idx, batch_size, buckets, shuffle=True, seed=seed

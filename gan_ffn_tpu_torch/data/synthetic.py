@@ -1,12 +1,17 @@
-"""Synthetic IEMOCAP feature pickle (the port's own copy of the IEMOCAP part
-of ``gan_ffn_tpu/data/synthetic.py``, numpy only).
+"""Synthetic IEMOCAP and MELD feature pickles (the port's own copy of the
+IEMOCAP and MELD parts of ``gan_ffn_tpu/data/synthetic.py``, numpy only).
 
 The reference ships without its feature pickles, so fixtures are written
-with the exact 9-tuple schema the dataset loads: ``(videoIDs, videoSpeakers,
-videoLabels, videoText, videoAudio, videoVisual, videoSentence, trainVid,
-testVid)``.  Features are class-conditional Gaussian clusters, so a
-classifier trained on them can learn.  The same arguments and seed write
-the same pickle as the JAX package's writer.
+with the exact 9-tuple schemas the datasets load:
+
+- IEMOCAP: ``(videoIDs, videoSpeakers, videoLabels, videoText, videoAudio,
+  videoVisual, videoSentence, trainVid, testVid)``;
+- MELD: ``(videoIDs, videoSpeakers, emotion_labels, videoText, videoAudio,
+  videoSentence, trainVid, testVid, sentiment_labels)``.
+
+Features are class-conditional Gaussian clusters, so a classifier trained
+on them can learn.  The same arguments and seed write the same pickle as
+the JAX package's writer.
 """
 
 from __future__ import annotations
@@ -17,10 +22,15 @@ import pickle
 import numpy as np
 
 IEMOCAP_DIMS = {"text": 100, "audio": 100, "visual": 512}
+MELD_DIMS = {"text": 600, "audio": 300}  # train_MELD.py:143 D_m = 600
 
 IEMOCAP_N_CLASSES = 6
 
 IEMOCAP_MAX_LEN = 110
+
+MELD_N_EMOTIONS = 7
+MELD_N_SENTIMENTS = 3
+MELD_N_PARTIES = 9
 
 
 def _class_means(rng: np.random.Generator, n_classes: int, dim: int, spread: float):
@@ -163,6 +173,81 @@ def write_synthetic_iemocap(
         videoSentence,
         trainVid,
         testVid,
+    )
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    with open(path, "wb") as f:
+        pickle.dump(payload, f)
+    return path
+
+
+def write_synthetic_meld(
+    path: str,
+    n_train: int = 80,
+    n_test: int = 20,
+    min_len: int = 3,
+    max_len: int = 33,
+    seed: int = 3407,
+    class_spread: float = 2.0,
+    noise: float = 1.0,
+    label_noise: float = 0.0,
+) -> str:
+    """Write a synthetic MELD-schema feature pickle and return ``path``.
+
+    MELD speakers are pre-one-hot 9-party vectors (reference
+    dataloader.py:113 passes them straight to ``FloatTensor``); the MELD
+    pickle the reference reads has no visual features.
+
+    ``label_noise`` flips each OBSERVED emotion label to a different class
+    with the given probability (features stay conditioned on the true label;
+    sentiment labels are derived from the observed emotion, so the two label
+    sets stay consistent).
+    """
+    rng = np.random.default_rng(seed)
+    dims = MELD_DIMS
+    emo_means = {m: _class_means(rng, MELD_N_EMOTIONS, d, class_spread) for m, d in dims.items()}
+
+    videoIDs, videoSpeakers = {}, {}
+    emotion_labels, sentiment_labels = {}, {}
+    videoText, videoAudio, videoSentence = {}, {}, {}
+    # emotion -> sentiment, as MELD's semantics: neutral -> neutral; surprise,
+    # joy -> positive; fear, sadness, disgust, anger -> negative
+    emo2sent = np.array([0, 1, 2, 2, 1, 2, 2])
+
+    all_vids = list(range(n_train + n_test))
+    for vid in all_vids:
+        L = int(rng.integers(min_len, max_len + 1))
+        emos = rng.integers(0, MELD_N_EMOTIONS, size=L)
+        observed = emos.copy()
+        if label_noise > 0.0:
+            flip = rng.random(L) < label_noise
+            observed[flip] = (
+                emos[flip] + rng.integers(1, MELD_N_EMOTIONS, size=int(flip.sum()))
+            ) % MELD_N_EMOTIONS
+        emotion_labels[vid] = observed.tolist()
+        sentiment_labels[vid] = emo2sent[observed].tolist()
+        party = rng.integers(0, MELD_N_PARTIES, size=L)
+        speakers = np.zeros((L, MELD_N_PARTIES), dtype=np.float32)
+        speakers[np.arange(L), party] = 1.0
+        videoSpeakers[vid] = speakers
+        videoIDs[vid] = [f"dia{vid}_utt{t}" for t in range(L)]
+        videoText[vid] = (emo_means["text"][emos] + rng.normal(0, noise, (L, dims["text"]))).astype(
+            np.float32
+        )
+        videoAudio[vid] = (
+            emo_means["audio"][emos] + rng.normal(0, noise, (L, dims["audio"]))
+        ).astype(np.float32)
+        videoSentence[vid] = [f"synthetic meld utterance {t}" for t in range(L)]
+
+    payload = (
+        videoIDs,
+        videoSpeakers,
+        emotion_labels,
+        videoText,
+        videoAudio,
+        videoSentence,
+        all_vids[:n_train],
+        all_vids[n_train:],
+        sentiment_labels,
     )
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     with open(path, "wb") as f:

@@ -14,6 +14,9 @@ the fusion:
 ``INPUTS`` names the batch entries each model takes, in order, before
 ``valid_len`` (``train/classifier.py`` reads them); ``ATTENTIONS`` names the
 attention weights that follow the log-probabilities in its output.
+``CONFIG`` names the constructor arguments that a serving artifact records
+to rebuild the model, ``DROPOUTS`` the dropout rates that
+``serving.bf16_variant`` carries over (``serving.py``).
 """
 
 from __future__ import annotations
@@ -38,6 +41,8 @@ class GAN_FFN(nn.Module):
 
     INPUTS = ("audio", "visual", "text")
     ATTENTIONS = ()
+    CONFIG = ("n_classes", "D_h", "gen_num_layers")
+    DROPOUTS = ("dropout", "gen_dropout")
 
     def __init__(self, n_classes: int = 6, dropout: float = 0.2, D_h: int = 100,
                  gen_dropout: float = 0.2, gen_num_layers: int = 8, *,
@@ -72,6 +77,9 @@ class GAN_FFN_DialogueRNN(nn.Module):
 
     INPUTS = ("audio", "visual", "text", "qmask", "umask")
     ATTENTIONS = ("alpha", "alpha_f", "alpha_b")
+    CONFIG = ("D_m", "D_g", "D_p", "D_e", "D_h", "D_a", "n_classes", "listener_state",
+              "context_attention", "gen_num_layers")
+    DROPOUTS = ("dropout_rec", "dropout", "gen_dropout")
 
     def __init__(self, D_m: int = 100, D_g: int = 500, D_p: int = 500, D_e: int = 100,
                  D_h: int = 100, D_a: int = 100, n_classes: int = 6,
@@ -80,7 +88,10 @@ class GAN_FFN_DialogueRNN(nn.Module):
                  gen_num_layers: int = 8, *, generator: Optional[torch.Generator] = None,
                  device="cuda", dtype: Optional[torch.dtype] = None):
         super().__init__()
+        self.D_m, self.D_g, self.D_p, self.D_e, self.D_h, self.D_a = D_m, D_g, D_p, D_e, D_h, D_a
         self.n_classes, self.gen_num_layers, self.dtype = n_classes, gen_num_layers, dtype
+        self.listener_state, self.context_attention = listener_state, context_attention
+        self.dropout_rec, self.dropout, self.gen_dropout = dropout_rec, dropout, gen_dropout
         kw = dict(generator=generator, device=device)
         gen = dict(kw, dtype=dtype)
         self.acoustic_generator = AcousticGenerator(D_h, gen_dropout, gen_num_layers, **gen)

@@ -17,8 +17,9 @@ the JAX package's fixed-buffer semantics.  Both modules are thin layouts
 over :func:`simple_attention` and :func:`matching_attention`, which take
 their weights with a leading axis: the DialogueRNN scan runs both
 directions' context attentions through them as one batch of products
-(``models/dialogue_rnn.py``).  ``Attention`` and ``matching`` come with the
-MELD slice.
+(``models/dialogue_rnn.py``); ``MELDLSTMModel`` runs ``general2`` over all
+L queries in one call.  ``Attention`` and ``matching`` are library-only
+(ROADMAP module note 16).
 """
 
 from __future__ import annotations

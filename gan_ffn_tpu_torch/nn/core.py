@@ -68,6 +68,13 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x)
 
 
+def hardswish(x: torch.Tensor) -> torch.Tensor:
+    """``x * relu6(x + 3) / 6``, op by op as the JAX package writes it (each
+    op rounded to ``x``'s dtype), so that bf16 gives the JAX bits; torch's
+    ``F.hardswish`` rounds elsewhere."""
+    return x * torch.clamp(x + 3.0, 0.0, 6.0) / 6.0
+
+
 def uniform_parameter(
     shape: Sequence[int],
     bound: float,

@@ -15,9 +15,10 @@ scale of the "decay" schedule instead; it sets each group's lr to
 ``initial_lr * lr_scale`` before the update (``train.optim.set_lr_scale``,
 in place on a card), which scales the final update as the JAX step does.
 
-The steps serve both classifier families: a model's ``INPUTS`` names the
+The steps serve the three classifiers: a model's ``INPUTS`` names the
 batch entries it takes (``audio``, ``visual``, ``text`` for ``GAN_FFN``;
-with ``qmask`` and ``umask`` for ``GAN_FFN_DialogueRNN``), and its
+with ``qmask`` and ``umask`` for ``GAN_FFN_DialogueRNN``; ``text``,
+``qmask``, ``umask`` for ``MELDLSTMModel``), and its
 ``ATTENTIONS`` the attention weights that follow the log-probabilities in
 its output, which the eval step returns (the reference accumulates them on
 eval epochs, train_IEMOCAP_DialogueRNN.py:173-176).
@@ -95,7 +96,7 @@ def make_classifier_steps(
     gradients and returns ``(loss, preds)``, or ``(loss, preds, attentions)``
     for a model with ``ATTENTIONS``: a dict of its attention weights.
     ``train_step.seeds`` is the seed source it draws from (None where
-    ``deterministic``).
+    ``deterministic``, or where no module of ``model`` launches a kernel).
     """
     return _steps(model, optimizer, n_classes, loss_weights, deterministic, graphed=False)
 
@@ -120,7 +121,10 @@ def _steps(model, optimizer, n_classes, loss_weights, deterministic, graphed):
     for group in optimizer.param_groups:
         if "initial_lr" not in group:
             group["initial_lr"] = float(group["lr"])
-    seeds = None if deterministic else dropout_seeds_of([model])
+    # a model none of whose modules launches a kernel with dropout (the MELD
+    # model: every dropout is torch's own) needs no seed source
+    draws = any(hasattr(m, "dropout_seeds") for m in model.modules())
+    seeds = None if deterministic or not draws else dropout_seeds_of([model])
     if graphed and next(model.parameters()).device.type == "cuda":
         make_capturable(optimizer)
 

@@ -1,5 +1,5 @@
 """Weight bridge: JAX params -> the port's ``state_dict``s, for ``GAN_FFN``,
-``GAN_FFN_DialogueRNN`` and the six networks of stage A.
+``GAN_FFN_DialogueRNN``, ``MELDLSTMModel`` and the six networks of stage A.
 
 A JAX tree (nested dicts of arrays) maps onto the port's module tree name
 for name, with these rewrites:
@@ -8,7 +8,9 @@ for name, with these rewrites:
   ``transform``, ``scalar`` and ``vector_prod`` among them);
 - ``in_proj_kernel (E, 3E)`` -> ``in_proj_weight (3E, E)``;
 - GRU ``w_ih (D_in, 3H)`` -> ``weight_ih (3H, D_in)``, ``w_hh`` ->
-  ``weight_hh``, ``b_ih`` / ``b_hh`` -> ``bias_ih`` / ``bias_hh``;
+  ``weight_hh``, ``b_ih`` / ``b_hh`` -> ``bias_ih`` / ``bias_hh``, and so
+  the LSTM's per-layer ``w_ih_l{k}[_reverse] (in, 4H)`` -> ``weight_ih_l{k}
+  [_reverse] (4H, in)``, ``b_ih_l{k}[_reverse]`` -> ``bias_ih_l{k}[_reverse]``;
 - LayerNorm ``scale`` -> ``weight``;
 - ``layers_i`` -> ``layers.i``.
 
@@ -34,6 +36,7 @@ _LAYER = re.compile(r"layers_(\d+)")
 _TRANSPOSED = {"kernel": "weight", "in_proj_kernel": "in_proj_weight",
                "w_ih": "weight_ih", "w_hh": "weight_hh"}
 _RENAMED = {"scale": "weight", "b_ih": "bias_ih", "b_hh": "bias_hh"}
+_LSTM_LAYER = re.compile(r"(w_ih|w_hh|b_ih|b_hh)(_l\d+(?:_reverse)?)")  # an LSTM's per-layer name
 
 
 def _is_scanned_encoder(node) -> bool:
@@ -85,10 +88,12 @@ def state_dict_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
                 walk(value, path + (["layers", m.group(1)] if m else [key]))
                 continue
             arr = np.asarray(value, dtype=np.float32)
-            if key in _TRANSPOSED:
-                key, arr = _TRANSPOSED[key], arr.T
+            m = _LSTM_LAYER.fullmatch(key)
+            base, suffix = m.groups() if m else (key, "")
+            if base in _TRANSPOSED:
+                key, arr = _TRANSPOSED[base] + suffix, arr.T
             else:
-                key = _RENAMED.get(key, key)
+                key = _RENAMED.get(base, base) + suffix
             out[".".join(path + [key])] = torch.tensor(arr)  # a contiguous copy
 
     walk(unstack_layer_params(params), [])
@@ -97,6 +102,13 @@ def state_dict_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
 
 def gan_ffn_state_dict_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     """JAX ``GAN_FFN`` params -> the port's ``GAN_FFN`` ``state_dict``."""
+    return state_dict_from_jax(params)
+
+
+def meld_state_dict_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """JAX ``MELDLSTMModel`` params -> the port's ``MELDLSTMModel``
+    ``state_dict`` (the LSTM's ``w_ih_l0`` -> ``weight_ih_l0`` transposed,
+    and so on)."""
     return state_dict_from_jax(params)
 
 

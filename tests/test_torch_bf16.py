@@ -400,11 +400,32 @@ def test_export_cli_verifies_each_variant(trained, dtype, weights, capsys):
 
 
 @pytest.mark.parametrize("family", ["dialoguernn", "meld"])
-def test_export_cli_refuses_later_families(family, capsys):
-    with pytest.raises(SystemExit) as exc:
-        export_cli.main(["--model", family])
-    assert exc.value.code == 2
-    assert "not ported yet (ROADMAP Queue 1 item 4" in capsys.readouterr().err
+def test_export_cli_refuses_later_families(family, tmp_path, capsys):
+    """Neither of the other two families is refused: ``--model dialoguernn``
+    and ``--model meld`` export their trainer's checkpoint (here one of
+    seeded weights) and verify it in float32 on the CPU.  The variants and
+    the JAX comparisons are in tests/test_torch_serving_families.py."""
+    from gan_ffn_tpu_torch.models import GAN_FFN_DialogueRNN, MELDLSTMModel
+
+    gen = torch.Generator().manual_seed(0)
+    if family == "dialoguernn":
+        model = GAN_FFN_DialogueRNN(n_classes=6, gen_num_layers=1, generator=gen, device="cpu")
+        ckpt, served = "dialoguernn_classifier_best.pt", "gan_ffn_dialoguernn"
+    else:
+        model = MELDLSTMModel(D_m=600, D_e=300, D_h=600, n_classes=7, generator=gen, device="cpu")
+        ckpt, served = "meld_classifier_best.pt", "meld_lstm"
+    (tmp_path / "GAN_save").mkdir()
+    torch.save(model.state_dict(), tmp_path / "GAN_save" / ckpt)
+    out = tmp_path / f"{family}.pt"
+    res = export_cli.main(["--model", family, "--model-save-path", str(tmp_path / "GAN_save"),
+                           "--output", str(out), "--num-layers", "1", "--batch-size", "4",
+                           "--max-len", "16", "--buckets", "8", "16", "--verify",
+                           "--device", "cpu"])
+    assert "verify on cpu" in capsys.readouterr().out
+    assert res["family"] == served and res["bytes"] == out.stat().st_size
+    assert res["verify"]["max_abs_err"] <= 1e-4
+    assert res["verify"]["agree"] == res["verify"]["total"]
+    assert S.ServingClassifier.load(out, device="cpu").family == served
 
 
 # (h) cli/predict.py reproduces the trainer's best-epoch test F1

@@ -654,3 +654,90 @@ def test_mlp_bf16_forward_and_backward_take_the_same_relu_branches(cuda, K, pre)
         want = (dout.double() * (out > 0)).sum(0)
         flips += (db1.double() != want).sum().item()
     assert flips == 0, f"{flips} columns take other branches"
+
+
+# The DialogueRNN serving family and the MELD step on the card against the CPU
+
+
+def _family_request(rng, L, B, P, dims, lengths):
+    um = (np.arange(L)[None, :] < np.asarray(lengths)[:, None]).astype(np.float32)
+    feats = [rng.standard_normal((L, B, d)).astype(np.float32) for d in dims]
+    qm = np.eye(P, dtype=np.float32)[rng.integers(0, P, (L, B))] * um.T[:, :, None]
+    return feats + [qm, um]
+
+
+@pytest.mark.parametrize("variant", ["f32", "bf16", "bf16+int8"])
+def test_dialoguernn_family_artifact_matches_the_cpu(cuda, variant):
+    """A depth-1 GAN_FFN_DialogueRNN artifact served on the card and on the
+    CPU (plain versions): log-probs within 1e-3 (bf16 5e-2) on the grid
+    and off it, every forward launching the variant's own attention and MLP
+    forward kernels, 3 and 6 times (one encoder layer a generator, plus
+    each generator's head), and no other kernel."""
+    import io
+
+    from gan_ffn_tpu_torch import serving as S
+    from gan_ffn_tpu_torch.models import GAN_FFN_DialogueRNN
+
+    model = GAN_FFN_DialogueRNN(n_classes=6, gen_num_layers=1,
+                                generator=torch.Generator().manual_seed(0), device="cpu")
+    if variant != "f32":
+        model = S.bf16_variant(model)
+    buf = io.BytesIO()
+    S.export_dialoguernn_classifier(model.eval(), buf, weights_int8=variant == "bf16+int8")
+    card = S.ServingClassifier.loads(buf.getvalue(), device="cuda")
+    host = S.ServingClassifier.loads(buf.getvalue(), device="cpu")
+    bf16 = variant != "f32"
+    counters = {"attention_fwd": A.fused_attention, "mlp_fwd": M.fused_mlp,
+                "attention_fwd_bf16": A.attention_fwd_bf16, "mlp_fwd_bf16": M.mlp_fwd_bf16,
+                "attention_bwd": A.fused_attention_backward, "mlp_bwd": M.fused_mlp_backward}
+    want = dict.fromkeys(counters, 0)
+    want.update({("attention_fwd_bf16" if bf16 else "attention_fwd"): 3,
+                 ("mlp_fwd_bf16" if bf16 else "mlp_fwd"): 6})
+    rng = np.random.default_rng(3)
+    for L, B, lengths in ((32, 30, [32] * 30), (21, 5, [21, 3, 17, 1, 9])):
+        xs = _family_request(rng, L, B, 2, (100, 512, 100), lengths)
+        before = {k: fn.launches for k, fn in counters.items()}
+        got = card.log_probs(*xs)
+        assert {k: fn.launches - before[k] for k, fn in counters.items()} == want
+        err = np.abs(got - host.log_probs(*xs)).max()
+        assert np.isfinite(got).all() and err <= (5e-2 if bf16 else 1e-3), (L, B, err)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_meld_train_step_matches_the_cpu(cuda, dtype):
+    """One deterministic MELD train step at the published widths (L=33,
+    B=4, a fully padded column) on the card against the CPU from the same
+    weights: loss within 1e-3 relative and every gradient within 1e-3 of
+    max(1, max |ref|) in float32, 1e-2 and 5e-2 at bf16.  No kernel of the
+    port launches."""
+    from gan_ffn_tpu_torch.models import MELDLSTMModel
+    from gan_ffn_tpu_torch.train.classifier import make_classifier_steps
+    from gan_ffn_tpu_torch.train.optim import torch_adam
+
+    bf16 = dtype == "bfloat16"
+    rng = np.random.default_rng(4)
+    L, B = 33, 4
+    text, qm, um = _family_request(rng, L, B, 9, (600,), [33, 20, 7, 0])
+    batch = {"text": text * um.T[:, :, None], "qmask": qm, "umask": um,
+             "label": rng.integers(0, 7, (B, L)) * um.astype(np.int64)}
+    kw = dict(D_m=600, D_e=300, D_h=600, n_classes=7, dtype=getattr(torch, dtype) if bf16 else None)
+    host = MELDLSTMModel(**kw, generator=torch.Generator().manual_seed(5), device="cpu")
+    card = MELDLSTMModel(**kw, device="cuda")
+    card.load_state_dict(host.state_dict())
+    launches = (A.fused_attention.launches, M.fused_mlp.launches,
+                A.attention_fwd_bf16.launches, M.mlp_fwd_bf16.launches)
+    out = {}
+    for name, model in (("cpu", host), ("cuda", card)):
+        tensors = {k: torch.from_numpy(v).to(name) for k, v in batch.items()}
+        tensors["valid_len"] = L
+        step, _ = make_classifier_steps(model, torch_adam(model.parameters(), 3e-4), 7,
+                                        deterministic=True)
+        loss, _ = step(tensors)
+        out[name] = (loss.item(), {k: p.grad.cpu() for k, p in model.named_parameters()})
+    assert launches == (A.fused_attention.launches, M.fused_mlp.launches,
+                        A.attention_fwd_bf16.launches, M.mlp_fwd_bf16.launches)
+    loss_tol, grad_tol = (1e-2, 5e-2) if bf16 else (1e-3, 1e-3)
+    assert abs(out["cuda"][0] - out["cpu"][0]) <= loss_tol * abs(out["cpu"][0])
+    for k, g in out["cpu"][1].items():
+        err = (out["cuda"][1][k] - g).abs().max().item()
+        assert err <= grad_tol * max(1.0, g.abs().max().item()), (k, err)

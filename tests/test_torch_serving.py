@@ -143,8 +143,8 @@ def test_rejects_what_the_jax_classifier_rejects(clf, jax_blob):
 def test_loader_rejects_bad_artifacts(clf, blob):
     with pytest.raises(ValueError, match="version"):
         ServingClassifier({**clf.meta, "version": 999}, clf.model.state_dict(), device="cpu")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        ServingClassifier({**clf.meta, "family": "meld_lstm"}, clf.model.state_dict(), device="cpu")
+    with pytest.raises(ValueError, match="unknown serving family 'bogus'"):
+        ServingClassifier({**clf.meta, "family": "bogus"}, clf.model.state_dict(), device="cpu")
     for junk in (b"NOT_AN_ARTIFACT", blob[: len(blob) // 2]):
         with pytest.raises(ValueError, match="serving artifact"):
             ServingClassifier.loads(junk, device="cpu")
