@@ -223,10 +223,40 @@ Phases, each printing JSON lines; any failure exits non-zero:
                33)) at exact lengths (33, 30) and (7, 3): no kernel, the CPU
                limits above, request ms at L=33, B=30.
 
+11. sweeps -- the GAN-epoch sweep, the multi-seed sweep and --dp, at full
+               width on phase 5's fixture (B=32, L=112) and networks.
+               cli/sweep.py --gan-epochs 1 3 1 --epochs 2 with --epoch-fused
+               AUTO (one bucket: fused), traced whole by torch.profiler:
+               every batch its shape's eager first batch or a replay, the
+               wrappers counting the eager ones and the profiler every one
+               (stage-A steps x 240 / 192 / 252 / 198 plus the points'
+               train steps x 24 / 24 / 27 / 27 and eval forwards x 24 / 27);
+               three reports, a 3-row GAN_loss.csv, device memory after each
+               point within 16 MB of the first's; snapshot 2's generators
+               equal to one uninterrupted 2-epoch stage A on the card in
+               bits, snapshot 1 unequal to snapshot 3; stage A's and each
+               point's seconds.  cli/seed_sweep.py --seeds 0 1 --epochs 2
+               --use-trained-GAN from phase 5's GAN_save/, then each seed
+               alone: each seed's best test loss and F1 equal to its run
+               alone in bits, the two seeds' unequal, the launches of every
+               train step and eval forward, host seconds per epoch.
+               cli/train_iemocap.py --dp under python -m
+               torch.distributed.run --standalone --nproc-per-node 1 (the
+               rank runs ``chip_smoke.py --dp-rank ARGS``, which calls the
+               trainer's main with the counts set to 0 before and printed
+               after): an NCCL group of world size 1 on cuda:0, the JAX
+               trainer's single-chip message, the launches of its stage A
+               and stage B, and its stage-A loss rows and six networks equal
+               to phase 5's run without --dp in bits.  One card: cross-card
+               equivalence is not shown here (the CPU tests hold two gloo
+               ranks to one process and to the JAX mesh).  Last, one stage-A
+               step without a group and with an NCCL group of one (this
+               process), in turns: launches, host ms, busy ms.
+
 The kernel counts are set to 0 just before the serving, the training, the
-DialogueRNN, the two epoch-fused, the bf16 serving, the bf16 trainers' and
-the families' paths (each request and each MELD run) run and are read just
-after; the comparisons of phases 3, 8 and 9 do not count.  The
+DialogueRNN, the two epoch-fused, the bf16 serving, the bf16 trainers', the
+families' paths (each request and each MELD run) and phase 11's runs run
+and are read just after; the comparisons of phases 3, 8 and 9 do not count.  The
 kernels read ``valid_len`` and their dropout seed from device memory;
 phases 3 and 8 time them so, with both made once beforehand.  A ``graphs``
 line sums up phase 7.  The line before the last is the ``kernels`` summary (times
@@ -235,13 +265,14 @@ sums at the DialogueRNN step's B=30 shapes, and each kernel's launches per
 stage-A step and per DialogueRNN train step; the bf16 forwards' per bf16
 serving forward and, for attention_fwd_bf16, per bf16 train step too, the
 bf16 backwards' per bf16 stage-B train step; the four forward kernels'
-launches per DialogueRNN-family serving forward of phase 10; every
-kernel's registers and spill bytes by variant); the last
+launches per DialogueRNN-family serving forward of phase 10, and per
+phase 11 run; every kernel's registers and spill bytes by variant); the last
 line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import ast
 import contextlib
 import io
 import itertools
@@ -2464,6 +2495,309 @@ def phase_families(torch, tmp: str, card: str) -> dict:
     return {"dialoguernn": drnn, "meld_runs": runs, "meld_step": step, "meld": meld}
 
 
+SWEEP_POINTS = (1, 3, 1)  # --gan-epochs START STOP STEP of phase 11's GAN-epoch sweep
+SWEEP_EPOCHS = 2
+SWEEP_MEMORY_SLACK = 16 * 2**20  # bytes a later point may hold over the first's
+
+
+def _per_step_counts(modes: dict) -> dict:
+    """Each f32 kernel's calls over ``modes`` ({mode: steps}): stage A's
+    per-step counts, a train step's, an eval forward's."""
+    per = {"stage_a": GAN_STEP_LAUNCHES, "train": STEP_LAUNCHES,
+           "eval": {k: n * k.endswith("fwd") for k, n in STEP_LAUNCHES.items()}}
+    return {k: sum(per[m][k] * n for m, n in modes.items()) for k in STEP_LAUNCHES}
+
+
+def _gan_epoch_sweep(torch, tmp: str, card: str) -> dict:
+    """cli/sweep.py --gan-epochs 1 3 1 --epochs 2 at full width on phase 5's
+    fixture, --epoch-fused AUTO (one bucket: fused, one CUDA graph per
+    shape), traced whole by torch.profiler with the counts set to 0 just
+    before it and read just after; its snapshots against one uninterrupted
+    2-epoch stage A on the card."""
+    from gan_ffn_tpu_torch.cli import sweep as S
+    from gan_ffn_tpu_torch.cli.common import generator_weights, train_gan
+    from gan_ffn_tpu_torch.data import get_iemocap_loaders
+    from gan_ffn_tpu_torch.train import graphs as G
+    from gan_ffn_tpu_torch.train.gan import GANConfig
+    from gan_ffn_tpu_torch.utils.artifacts import load_gan_loss_csv
+
+    data, out_dir = os.path.join(tmp, "iemocap.pkl"), os.path.join(tmp, "output_sweep")
+    start, stop, stride = SWEEP_POINTS
+    points = list(range(start, stop + 1, stride))
+    argv = ["--gan-epochs", str(start), str(stop), str(stride), "--epochs", str(SWEEP_EPOCHS),
+            "--num-layers", "8", "--seed", "0", "--device", "cuda", "--data-path", data,
+            "--output-dir", out_dir]
+    # each dispatcher call is its shape's eager first batch (a new graph) or
+    # a replay; counted without holding the dispatchers, whose graph pools
+    # the sweep frees after each point
+    batches_seen = {"eager": dict.fromkeys(("stage_a", "train", "eval"), 0),
+                    "replays": dict.fromkeys(("stage_a", "train", "eval"), 0)}
+    snapshots, holder = {}, {}
+    call, real = G.ShapeGraphs.__call__, S.stage_a_snapshots
+
+    def counting_call(self, batch):
+        before = len(self.graphs)
+        out = call(self, batch)
+        batches_seen["eager" if len(self.graphs) > before else "replays"][self.mode] += 1
+        return out
+
+    def capture(*args, **kw):
+        snaps, history = real(*args, **kw)
+        snapshots.update(snaps)
+        return snaps, history
+
+    G.ShapeGraphs.__call__, S.stage_a_snapshots = counting_call, capture
+    log = io.StringIO()
+    try:
+        _reset_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(log):
+            port, n_kernels, busy = _profile_one(torch, lambda: holder.update(r=S.main(argv)))
+        seconds = time.perf_counter() - t0
+        counts = _read_counts()
+    finally:
+        G.ShapeGraphs.__call__, S.stage_a_snapshots = call, real
+    results, lines = holder["r"], log.getvalue().splitlines()
+    gan_train = get_iemocap_loaders(data, batch_size=32, valid=0.1, seed=0)[0]
+    train, _, test = get_iemocap_loaders(data, batch_size=32, valid=0.1, seed=0)
+    batches = {"stage_a": stop * len(gan_train),
+               "train": len(points) * SWEEP_EPOCHS * len(train),
+               "eval": len(points) * SWEEP_EPOCHS * len(test)}
+    eager, replays = batches_seen["eager"], batches_seen["replays"]
+    want_counts, want_port = _per_step_counts(eager), _per_step_counts(batches)
+    profiled = _port_calls(port)
+    history = load_gan_loss_csv(os.path.join(out_dir, "GAN_loss.csv"))
+    reports = sorted(os.listdir(os.path.join(out_dir, "history")))
+    memory = [int(l.split(" device memory ")[1].split(" B ")[0]) for l in lines
+              if " device memory " in l]
+    stage_a_s = [float(l.split(" in ")[1].rstrip("s")) for l in lines if l.startswith("stage A: ")]
+    point_s = [float(l.split("(")[1].split("s)")[0]) for l in lines if l.startswith("GAN-epochs=")
+               and "F1=" in l]
+    if not any("-> fused" in l for l in lines if l.startswith("--epoch-fused AUTO")):
+        fail(f"sweep: AUTO did not fuse phase 5's one-bucket fixture: {lines[:6]}")
+    if sorted(results) != points or len(reports) != len(points) or [
+            r["epoch"] for r in history] != list(range(stop)):
+        fail(f"sweep: results {results}, reports {reports}, GAN_loss.csv epochs "
+             f"{[r['epoch'] for r in history]}")
+    if any(eager[m] + replays[m] != batches[m] for m in batches) or counts != want_counts \
+            or profiled != want_port:
+        fail(f"sweep: {eager} eager first batches and {replays} replays of {batches} batches; "
+             f"the wrappers counted {counts} (expected {want_counts}), the profiler {profiled} "
+             f"(expected {want_port})")
+    if len(memory) != len(points) or memory[-1] > memory[0] + SWEEP_MEMORY_SLACK:
+        fail(f"sweep: device memory after each point {memory}: not flat")
+
+    # snapshot 2 against one uninterrupted 2-epoch stage A (the sweep seeds
+    # torch with --seed + 1 before its stage A, as this does)
+    torch.manual_seed(1)
+    with contextlib.redirect_stdout(io.StringIO()):
+        state, _ = train_gan(GANConfig(num_layers=8, seed=0), gan_train, 2, device="cuda",
+                             epoch_fused=True)
+    want = generator_weights(state)
+    del state
+    same = {g: all(torch.equal(snapshots[g][k], v) for k, v in want.items()) for g in points}
+    differs_1_3 = not all(torch.equal(snapshots[1][k], v) for k, v in snapshots[3].items())
+    line = {"card": card, "phase": "sweep", "cli": "gan_ffn_tpu_torch.cli.sweep", "argv": argv[:6],
+            "results": results, "reports": reports, "gan_loss_csv_epochs": len(history),
+            "stage_a_seconds": stage_a_s, "point_seconds": point_s, "seconds_profiled": seconds,
+            "eager_first_batches": eager, "replays": replays, "wrapper_launches": counts,
+            "profiled_calls": profiled, "device_kernels": n_kernels, "device_busy_ms": busy,
+            "memory_allocated_after_each_point": memory,
+            "snapshot_equals_uninterrupted_2_epochs": same, "snapshot_1_differs_from_3": differs_1_3}
+    emit(line)
+    if not (same[2] and differs_1_3):
+        fail(f"sweep: snapshot 2 equal to an uninterrupted 2-epoch stage A: {same[2]}; "
+             f"snapshot 1 differs from 3: {differs_1_3}")
+    del snapshots
+    torch.cuda.empty_cache()
+    return line
+
+
+def _seed_sweep(torch, tmp: str, card: str) -> dict:
+    """cli/seed_sweep.py --seeds 0 1 --epochs 2 --use-trained-GAN at full
+    width from phase 5's GAN_save/, then each seed alone: the same best test
+    loss and F1 per seed, in bits; the two seeds differ.  Counts set to 0
+    just before each run and read just after."""
+    from gan_ffn_tpu_torch.cli import seed_sweep as SS
+    from gan_ffn_tpu_torch.data import get_iemocap_loaders
+
+    data = os.path.join(tmp, "iemocap.pkl")
+    common = ["--epochs", "2", "--use-trained-GAN", "--num-layers", "8", "--seed", "0",
+              "--device", "cuda", "--data-path", data,
+              "--model-save-path", os.path.join(tmp, "GAN_save")]
+    train, _, test = get_iemocap_loaders(data, batch_size=32, valid=0.1, seed=0)
+    runs = {}
+    for seeds in ((0, 1), (0,), (1,)):
+        log = io.StringIO()
+        _reset_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(log):
+            results = SS.main(["--seeds", *map(str, seeds), *common])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = _read_counts()
+        lines = log.getvalue().splitlines()
+        epochs = [l for l in lines if l.startswith("epoch ")]
+        loss_line = next((l for l in lines if l.startswith("best test loss per seed:")), "")
+        want = _per_step_counts({"train": len(seeds) * 2 * len(train),
+                                 "eval": len(seeds) * 2 * len(test)})
+        runs[seeds] = {"results": results, "epochs": epochs, "launches": counts,
+                       "best_loss": (ast.literal_eval(loss_line.split(":", 1)[1].strip())
+                                     if loss_line else None),
+                       "epoch_seconds": [float(l.split(" time ")[1].rstrip("s")) for l in epochs],
+                       "seconds": seconds}
+        if len(epochs) != 2 or counts != want or runs[seeds]["best_loss"] is None:
+            fail(f"seed sweep {seeds}: epochs {epochs}, launches {counts} (expected {want})")
+    pair = runs[(0, 1)]
+    alone = {s: runs[(s,)] for s in (0, 1)}
+    same = {s: alone[s]["results"] == {s: pair["results"][s]}
+            and alone[s]["best_loss"] == {s: pair["best_loss"][s]} for s in (0, 1)}
+    line = {"card": card, "phase": "seed_sweep", "cli": "gan_ffn_tpu_torch.cli.seed_sweep",
+            "runs": {"+".join(map(str, k)): v for k, v in runs.items()},
+            "each_seed_equals_its_run_alone": same,
+            "host_s_per_epoch_two_seeds": pair["epoch_seconds"],
+            "host_s_per_epoch_one_seed": {s: alone[s]["epoch_seconds"] for s in (0, 1)}}
+    emit(line)
+    if not all(same.values()) or pair["best_loss"][0] == pair["best_loss"][1]:
+        fail(f"seed sweep: each seed equal to its run alone {same}; best losses {pair['best_loss']}")
+    return line
+
+
+def dp_rank_main(argv) -> None:
+    """``chip_smoke.py --dp-rank ARGS``: one rank of python -m
+    torch.distributed.run running ``cli/train_iemocap.main(ARGS)``, the
+    counts set to 0 just before and printed (a ``dp_rank`` line) just after."""
+    import torch
+
+    sys.path.insert(0, REPO)
+    from gan_ffn_tpu_torch.cli import train_iemocap as CLI
+
+    _reset_counts()
+    result = CLI.main(argv)
+    torch.cuda.synchronize()
+    emit({"dp_rank": int(os.environ.get("RANK", -1)), "launches": _read_counts(),
+          "f1": None if result is None else result["f1"]})
+
+
+def _dp_trainer(torch, tmp: str, card: str) -> dict:
+    """cli/train_iemocap.py --dp under python -m torch.distributed.run
+    --standalone --nproc-per-node 1 (NCCL, world size 1) on phase 5's
+    fixture: its stage-A loss rows and six networks equal phase 5's run
+    without --dp, in bits."""
+    from gan_ffn_tpu_torch.data import get_iemocap_loaders
+    from gan_ffn_tpu_torch.train.gan import DISC_NAMES, GEN_NAMES
+    from gan_ffn_tpu_torch.utils.artifacts import load_gan_loss_csv
+
+    data = os.path.join(tmp, "iemocap.pkl")
+    save_dir, out_dir = os.path.join(tmp, "GAN_save_dp"), os.path.join(tmp, "output_dp")
+    argv = ["--dp", "--GAN-epochs", "1", "--epochs", "1", "--num-layers", "8", "--batch-size",
+            "32", "--seed", "0", "--device", "cuda", "--data-path", data, "--output-dir", out_dir,
+            "--model-save-path", save_dir]
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")}
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                          "--nproc-per-node", "1", os.path.abspath(__file__), "--dp-rank", *argv],
+                         cwd=tmp, env=env, capture_output=True, text=True, timeout=300)
+    seconds = time.perf_counter() - t0
+    if res.returncode != 0:
+        fail(f"--dp under torch.distributed.run exited {res.returncode}:\n{res.stdout[-3000:]}\n"
+             f"{res.stderr[-3000:]}")
+    lines = res.stdout.splitlines()
+    group = [l for l in lines if l.startswith("stage A data parallelism over ")]
+    rank_line = next((json.loads(l) for l in lines if l.startswith('{"dp_rank"')), None)
+    train, valid, test = get_iemocap_loaders(data, batch_size=32, valid=0.1, seed=0)
+    want = _per_step_counts({"stage_a": len(train), "train": len(train),
+                             "eval": len(valid) + len(test)})
+    rows = load_gan_loss_csv(os.path.join(out_dir, "GAN_loss.csv"))
+    plain_rows = load_gan_loss_csv(os.path.join(tmp, "output", "GAN_loss.csv"))
+    differ = [n for n in GEN_NAMES + DISC_NAMES
+              if not _same_state(torch, os.path.join(save_dir, f"{n}.pt"),
+                                 os.path.join(tmp, "GAN_save", f"{n}.pt"))]
+    line = {"card": card, "phase": "dp", "argv": argv[:3], "group": group,
+            "single_chip_message": "--dp requested but only one device present; running "
+                                   "single-chip" in lines,
+            "launches": rank_line and rank_line["launches"], "expected_launches": want,
+            "gan_loss_rows": rows, "rows_equal_without_dp": rows == plain_rows,
+            "networks_differing_from_without_dp": differ, "seconds": seconds,
+            "note": "one card: the NCCL group has one rank, so cross-card equivalence is not "
+                    "shown here (the CPU tests hold two gloo ranks to one process and to JAX)"}
+    emit(line)
+    if (group != ["stage A data parallelism over 1 process(es): rank 0 on cuda:0, backend nccl"]
+            or not line["single_chip_message"] or rank_line is None
+            or rank_line["launches"] != want or not line["rows_equal_without_dp"] or differ):
+        fail(f"--dp under torch.distributed.run: {line}")
+    return line
+
+
+def _same_state(torch, a: str, b: str) -> bool:
+    x, y = (torch.load(p, map_location="cpu", weights_only=True) for p in (a, b))
+    return x.keys() == y.keys() and all(torch.equal(x[k], y[k]) for k in x)
+
+
+def _dp_step(torch, tmp: str, card: str) -> dict:
+    """One stage-A step at B=32, L=112, every dropout on, without a group
+    and with an NCCL group of one process (this process as rank 0 of 1), in
+    turns (3 steps each, twice): launches, host ms (median of 6) and the
+    device's busy ms."""
+    import socket
+
+    from gan_ffn_tpu_torch.cli.common import gan_batch_from
+    from gan_ffn_tpu_torch.data import get_iemocap_loaders
+    from gan_ffn_tpu_torch.parallel.mesh import init_data_parallel, leave
+    from gan_ffn_tpu_torch.train.gan import make_gan_train_step
+    from gan_ffn_tpu_torch.train.loop import batch_to_tensors
+
+    train = get_iemocap_loaders(os.path.join(tmp, "iemocap.pkl"), batch_size=32, valid=0.1,
+                                seed=0)[0]
+    batch = gan_batch_from(batch_to_tensors(next(iter(train)), "cuda"))
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0", "MASTER_ADDR": "127.0.0.1",
+           "MASTER_PORT": str(port)}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        dp = init_data_parallel("cuda")
+        steps = {}
+        for name in ("plain", "nccl_world_1"):
+            state, _ = _gan_state(torch, "cuda", seed=21)
+            steps[name] = make_gan_train_step(state.modules, state.opts,
+                                              dp=dp if name != "plain" else None)
+        out = {name: {"launches": _launches_per_step(torch, lambda s=step: s(batch), n=1)[0],
+                      "host_ms": []} for name, step in steps.items()}
+        for name in ("plain", "nccl_world_1", "nccl_world_1", "plain"):
+            out[name]["host_ms"] += _host_ms(torch, lambda: steps[name](batch), 3)[0]
+        for name, step in steps.items():
+            _, kernels, busy = _profile_one(torch, lambda s=step: s(batch))
+            out[name].update(device_busy_ms=busy, device_kernels=kernels,
+                             host_ms_median=statistics.median(out[name]["host_ms"]))
+        backend = dp.backend
+        leave(dp)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    del steps
+    torch.cuda.empty_cache()
+    line = {"card": card, "phase": "dp_step", "B": 32, "L": 112, "backend": backend, **out,
+            "host_ratio": out["nccl_world_1"]["host_ms_median"] / out["plain"]["host_ms_median"]}
+    emit(line)
+    if backend != "nccl" or any(o["launches"] != GAN_STEP_LAUNCHES for o in out.values()):
+        fail(f"the stage-A step with an NCCL group of one: {line}")
+    return line
+
+
+def phase_sweeps(torch, tmp: str, card: str) -> dict:
+    """Phase 11: the GAN-epoch sweep, the multi-seed sweep and --dp, on
+    phase 5's fixture and networks."""
+    return {"sweep": _gan_epoch_sweep(torch, tmp, card), "seed_sweep": _seed_sweep(torch, tmp, card),
+            "dp": _dp_trainer(torch, tmp, card), "dp_step": _dp_step(torch, tmp, card)}
+
+
 def main() -> None:
     import torch
 
@@ -2488,6 +2822,7 @@ def main() -> None:
         bf16 = phase_bf16_serving(torch, tmp)
         bf16_train = phase_bf16_training(torch, tmp)
         families = phase_families(torch, tmp, info["nvidia_smi"][0])
+        sweeps = phase_sweeps(torch, tmp, info["nvidia_smi"][0])
 
     emit({"graphs": {
         "card": info["nvidia_smi"][0],
@@ -2532,6 +2867,13 @@ def main() -> None:
             "dialoguernn_step_library_ms": (None if any(r["library_ms"] is None for _, r in drnn)
                                             else sum(n * r["library_ms"] for n, r in drnn)),
         }
+        entry.update({  # phase 11: the GAN-epoch sweep (wrappers: eager first batches;
+            # profiler: every batch), the seed sweep, and --dp's rank
+            "sweep_launches": sweeps["sweep"]["wrapper_launches"][name],
+            "sweep_profiled_calls": sweeps["sweep"]["profiled_calls"][name],
+            "seed_sweep_launches": sweeps["seed_sweep"]["runs"]["0+1"]["launches"][name],
+            "dp_launches": sweeps["dp"]["launches"][name],
+        })
         if name in FAMILY_LAUNCHES["f32"]:  # one DialogueRNN-family serving forward (phase 10)
             entry["dialoguernn_serving_launches_per_forward"] = (
                 families["dialoguernn"]["f32"]["launches_per_forward"][0][name])
@@ -2635,9 +2977,15 @@ def main() -> None:
             fail(f"{entry['name']} was not launched in the DialogueRNN train step")
         if entry["epoch_fused_launches"] < 1:
             fail(f"{entry['name']} was not launched in the epoch-fused trainers' runs")
+        if min(entry["sweep_launches"], entry["sweep_profiled_calls"],
+               entry["seed_sweep_launches"], entry["dp_launches"]) < 1:
+            fail(f"{entry['name']} was not launched on every path of phase 11: {entry}")
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": info["name"], "count": info["count"]}})
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--dp-rank"]:
+        dp_rank_main(sys.argv[2:])
+    else:
+        main()

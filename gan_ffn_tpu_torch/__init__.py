@@ -8,5 +8,7 @@ Ported so far: the ``GAN_FFN`` serving path (``serving.py``,
 ``cli/serve.py``) and both IEMOCAP trainers, stage A and stage B
 (``cli/train_iemocap.py`` for ``GAN_FFN``,
 ``cli/train_iemocap_dialoguernn.py`` for ``GAN_FFN_DialogueRNN``), which
-run all four kernels, forward and backward.
+run all four kernels, forward and backward; their stage A data-parallel
+over ``torch.distributed`` (``--dp``, ``parallel/``); and the GAN-epoch and
+multi-seed sweeps (``cli/sweep.py``, ``cli/seed_sweep.py``).
 """

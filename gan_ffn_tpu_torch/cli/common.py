@@ -1,7 +1,7 @@
 """Shared wiring of the training entry points (counterpart of
 ``gan_ffn_tpu/cli/common.py``): stage A's epoch loop and its run as both
-IEMOCAP trainers drive it, the ``--epoch-fused`` AUTO policy, the class
-weights and the parameter count.
+IEMOCAP trainers drive it, the trainers' ``--dp``, the ``--epoch-fused``
+AUTO policy, the class weights and the parameter count.
 
 The JAX package's epoch-fused branch (one program per same-shape batch
 group) is here one CUDA graph per batch shape, replayed for every batch of
@@ -24,6 +24,7 @@ from ..data import get_iemocap_loaders, write_synthetic_iemocap
 from ..data.loaders import Batch, BucketedLoader, _bucket_for
 from ..nn.core import set_dropout_generator
 from ..ops.dropout import StepSeeds
+from ..parallel.mesh import DataParallel, fold_torch_seed, init_data_parallel, replicate
 from ..train.classifier import GENERATOR_GAN_KEYS, graft_generator_params
 from ..train.gan import (LOGGED_LOSS_KEYS, GANConfig, GANState, init_gan_state,
                          make_gan_epoch_step, make_gan_train_step)
@@ -40,7 +41,6 @@ IEMOCAP_N_CLASSES = 6
 
 # a trainer's flag -> the ROADMAP item that brings it
 LATER_FLAGS = {
-    "dp": "module note 13 (parallel and sweeps)",
     "scan_layers": "module note 15 (the scanned layer layout)",
     "tensorboard": "module note 15 (utilities)",
     "profile": "module note 15 (utilities)",
@@ -56,7 +56,8 @@ def setup(parser: argparse.ArgumentParser, argv=None,
     asks for a card that is not there), turn TF32 off in cuBLAS and cuDNN
     and reduced precision off in cuBLAS's bf16 sums,
     and write the synthetic fixture where ``--synthetic`` asks for it, with
-    ``write_fixture`` (the IEMOCAP writer, or ``data.write_synthetic_meld``)."""
+    ``write_fixture`` (the IEMOCAP writer, or ``data.write_synthetic_meld``;
+    None: the caller writes it)."""
     args = parser.parse_args(argv)
     for flag, item in LATER_FLAGS.items():
         if getattr(args, flag, False):
@@ -64,6 +65,9 @@ def setup(parser: argparse.ArgumentParser, argv=None,
     if getattr(args, "epoch_fused", False) and getattr(args, "gan_schedule", None) == "stepwise":
         parser.error("--epoch-fused runs the fused 12-duel step; it cannot honour "
                      "--gan-schedule stepwise's fast-compile promise: drop one of the two flags")
+    if getattr(args, "epoch_fused", False) and getattr(args, "dp", False):
+        parser.error("--epoch-fused is not wired for --dp (the stacked epoch is not "
+                     "mesh-sharded); use per-batch --dp, or --epoch-fused single-chip")
     print(args)
     device = torch.device("cpu" if args.no_cuda else args.device)
     if device.type == "cuda":
@@ -74,7 +78,7 @@ def setup(parser: argparse.ArgumentParser, argv=None,
         torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     print(f"Running on {device}"
           + (f" ({torch.cuda.get_device_name(device)})" if device.type == "cuda" else ""))
-    if args.synthetic and not os.path.exists(args.data_path):
+    if write_fixture is not None and args.synthetic and not os.path.exists(args.data_path):
         write_fixture(
             args.data_path, n_train=args.synthetic_train, n_test=args.synthetic_test,
             seed=args.seed,
@@ -94,12 +98,40 @@ def param_count(model: nn.Module) -> int:
     return sum(p.numel() for p in model.parameters())
 
 
-def graft_generators(model: nn.Module, gan_state: GANState) -> None:
+def data_parallel(args, device: torch.device) -> Tuple[Optional[DataParallel], torch.device]:
+    """A trainer's ``--dp`` (counterpart of the JAX trainers' stage-A mesh):
+    ``(dp, device)``, where ``dp`` is this process's data-parallel group
+    under ``python -m torch.distributed.run`` (``parallel.mesh.init_data_parallel``:
+    NCCL on ``cuda:LOCAL_RANK``, gloo on the CPU) and ``device`` the rank's
+    device.  Without ``--dp``, or without a torchrun environment: ``(None,
+    device)``.  A group of one process prints the JAX trainer's message and
+    keeps its hooks, which are the single-process step bit for bit."""
+    if not getattr(args, "dp", False):
+        return None, device
+    dp = init_data_parallel(device)
+    if dp.world == 1:
+        print("--dp requested but only one device present; running single-chip")
+    if dp.group is None:
+        return None, device
+    print(f"stage A data parallelism over {dp.world} process(es): rank {dp.rank} on "
+          f"{dp.device}, backend {dp.backend}")
+    return dp, dp.device
+
+
+def generator_weights(gan_state: GANState) -> Dict[str, torch.Tensor]:
+    """Stage A's three generators' weights under their stage-A names
+    (``acoustic_gen.*``, ...), cloned: a snapshot that later training does
+    not touch."""
+    return {f"{name}.{k}": v.detach().clone() for name in GENERATOR_GAN_KEYS
+            for k, v in gan_state.modules[name].state_dict().items()}
+
+
+def graft_generators(model: nn.Module, gan_state) -> None:
     """Load stage A's three generators into ``model``'s (reference: the
     trained generator objects passed into the classifier,
-    train_IEMOCAP.py:629-635)."""
-    gan_weights = {f"{name}.{k}": v for name in GENERATOR_GAN_KEYS
-                   for k, v in gan_state.modules[name].state_dict().items()}
+    train_IEMOCAP.py:629-635), from a :class:`GANState` or a
+    :func:`generator_weights` snapshot."""
+    gan_weights = generator_weights(gan_state) if isinstance(gan_state, GANState) else gan_state
     model.load_state_dict(graft_generator_params(model.state_dict(), gan_weights))
 
 
@@ -128,6 +160,22 @@ def resolve_epoch_fused_auto(loader: BucketedLoader) -> bool:
     return fused
 
 
+def make_stage_a_step(cfg: GANConfig, state: GANState, epoch_fused: bool = False,
+                      dp: Optional[DataParallel] = None) -> Callable:
+    """Stage A's step over ``state``, as :func:`train_gan` builds it: one
+    seed source over a CPU generator seeded with ``cfg.seed + 1``, set on
+    all six networks, and :func:`train.gan.make_gan_train_step` (with ``dp``)
+    or, with ``epoch_fused``, :func:`train.gan.make_gan_epoch_step`.  Build
+    it once to train in segments (``train_gan(step=...)``): the segments
+    then continue one seed stream."""
+    seeds = StepSeeds(torch.Generator().manual_seed(cfg.seed + 1))
+    for module in state.modules.values():
+        set_dropout_generator(module, seeds)
+    if epoch_fused:
+        return make_gan_epoch_step(state.modules, state.opts)
+    return make_gan_train_step(state.modules, state.opts, dp=dp)
+
+
 def train_gan(
     cfg: GANConfig,
     train_loader: Iterable[Batch],
@@ -140,6 +188,7 @@ def train_gan(
     log_every_batch: bool = True,
     epoch_fused: bool = False,
     step: Optional[Callable] = None,
+    dp: Optional[DataParallel] = None,
 ) -> Tuple[GANState, LossHistory]:
     """Adversarial pre-training (reference train_GAN, train_IEMOCAP.py:255-393):
     ``epochs`` epochs of the 12-duel step over ``train_loader``, numbered from
@@ -167,11 +216,10 @@ def train_gan(
     if history is None:
         history = []
     if step is None:
-        seeds = StepSeeds(torch.Generator().manual_seed(cfg.seed + 1))
-        for module in state.modules.values():
-            set_dropout_generator(module, seeds)
-        make = make_gan_epoch_step if epoch_fused else make_gan_train_step
-        step = make(state.modules, state.opts)
+        step = make_stage_a_step(cfg, state, epoch_fused, dp)
+    if dp is not None:
+        replicate(state.modules.values(), state.opts.values(), dp)
+        fold_torch_seed(dp)
 
     log("=" * 15 + " start training GAN " + "=" * 15)
     for epoch in range(start_epoch, start_epoch + epochs):
@@ -202,7 +250,8 @@ def train_gan(
     return state, history
 
 
-def stage_a(args, device, load: bool, continue_epochs: int) -> GANState:
+def stage_a(args, device, load: bool, continue_epochs: int,
+            dp: Optional[DataParallel] = None) -> GANState:
     """Stage A as the reference's trainers run it, on loaders of its own
     (batch 32, valid 0.1): train the six GAN networks for
     ``args.GAN_epochs`` epochs, or, with ``load``, load them from
@@ -214,14 +263,18 @@ def stage_a(args, device, load: bool, continue_epochs: int) -> GANState:
     fused (:func:`train_gan`), and ``args.bf16`` at bf16
     (:func:`compute_dtype`); the checkpoints hold the float32 parameters
     either way.  torch's RNG is seeded with ``args.seed + 1`` for stage A's
-    dropouts outside the kernels."""
+    dropouts outside the kernels.  ``dp`` trains data-parallel
+    (:func:`train_gan`); rank 0 alone writes the files.  Where ``args`` has
+    no ``output_dir`` (the seed sweep), no loss history is written."""
     gan_cfg = GANConfig(num_layers=args.num_layers, dtype=compute_dtype(args),
                         seed=args.seed)  # lr 1e-4, betas (0.5, 0.6)
     gan_train_loader, _, _ = get_iemocap_loaders(
         args.data_path, batch_size=32, valid=0.1, seed=args.seed,
-        strict_parity=args.strict_parity,
+        strict_parity=getattr(args, "strict_parity", False),
     )
-    loss_csv = os.path.join(args.output_dir, "GAN_loss.csv")
+    output_dir = getattr(args, "output_dir", None)
+    loss_csv = os.path.join(output_dir or ".", "GAN_loss.csv")
+    epoch_fused = getattr(args, "epoch_fused", False)
     torch.manual_seed(args.seed + 1)
     if load:
         gan_state = load_gan_state(args.model_save_path, *init_gan_state(gan_cfg, device),
@@ -229,18 +282,21 @@ def stage_a(args, device, load: bool, continue_epochs: int) -> GANState:
         print("=" * 15, args.model_save_path + " loaded trained GAN", "=" * 15)
         if continue_epochs <= 0:
             return gan_state
-        history = load_gan_loss_csv(loss_csv) if os.path.exists(loss_csv) else []
+        history = (load_gan_loss_csv(loss_csv) if output_dir and os.path.exists(loss_csv)
+                   else [])
         print("=" * 15, "continue train GAN", "=" * 15)
         gan_state, history = train_gan(
             gan_cfg, gan_train_loader, continue_epochs, state=gan_state,
             history=history, start_epoch=(history[-1]["epoch"] + 1) if history else 0,
-            device=device, epoch_fused=args.epoch_fused,
+            device=device, epoch_fused=epoch_fused, dp=dp,
         )
     else:
         gan_state, history = train_gan(gan_cfg, gan_train_loader, args.GAN_epochs, device=device,
-                                       epoch_fused=args.epoch_fused)
-    save_gan_loss_csv(history, loss_csv)
-    draw_gan_loss(history, os.path.join(args.output_dir, "GAN_loss.png"))
-    save_gan_state(args.model_save_path, gan_state)
+                                       epoch_fused=epoch_fused, dp=dp)
+    if dp is None or dp.rank == 0:
+        if output_dir:
+            save_gan_loss_csv(history, loss_csv)
+            draw_gan_loss(history, os.path.join(output_dir, "GAN_loss.png"))
+        save_gan_state(args.model_save_path, gan_state)
     print("=" * 15, "finished training GAN", "=" * 15)
     return gan_state

@@ -32,6 +32,16 @@ parameters (and checkpoints) cast to bf16 at each use, the kernels' bf16
 forwards and backwards, LayerNorm, the log-softmax and Adam in float32.  ``--device`` (default ``cuda``) picks the device; ``--no-cuda`` is the
 reference's way to ask for the CPU.
 
+``--dp`` runs stage A data-parallel, as the JAX trainer's ``--dp`` shards
+it over the local devices: one process per card, launched by ``python -m
+torch.distributed.run --nproc-per-node N -m gan_ffn_tpu_torch.cli.train_iemocap
+--dp ...`` (NCCL; gloo with ``--device cpu``), each rank training on its
+slice of every batch with the gradients summed (``cli/common.train_gan``).
+Then rank 0 alone runs stage B and writes every file; the other ranks leave
+the group and exit.  Without a group of more than one process it prints the
+JAX trainer's "only one device" message and runs as one process.
+``--dp --epoch-fused`` is refused, as the JAX trainer refuses it.
+
 Seeds: ``--seed`` draws the weights of both stages (CPU ``torch.Generator``s)
 and seeds torch's RNG for stage B's dropouts outside the kernels (positional
 encoding, residuals); ``--seed + 1`` seeds torch's RNG for stage A's and the
@@ -56,11 +66,12 @@ from ..evaluation.metrics import f1_score
 from ..evaluation.reports import format_test_report, write_test_report
 from ..models import GAN_FFN
 from ..nn.core import set_dropout_generator
+from ..parallel.mesh import leave
 from ..train.classifier import make_classifier_epoch_steps, make_classifier_steps
 from ..train.loop import run_epoch, run_epoch_fused
 from ..train.optim import torch_adam
-from .common import (IEMOCAP_LOSS_WEIGHTS, IEMOCAP_N_CLASSES, compute_dtype, graft_generators,
-                     param_count, setup, stage_a)
+from .common import (IEMOCAP_LOSS_WEIGHTS, IEMOCAP_N_CLASSES, compute_dtype, data_parallel,
+                     graft_generators, param_count, setup, stage_a)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -100,7 +111,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "graph per shape replayed for its batches (eager on the CPU); each "
                         "batch keeps the per-batch loop's dropout draws, and where an epoch "
                         "spans several shapes, updates reorder across the groups")
-    p.add_argument("--dp", action="store_true", default=False, help="refused for now")
+    p.add_argument("--dp", action="store_true", default=False,
+                   help="stage A data-parallel over the ranks of python -m "
+                        "torch.distributed.run (one process per card; rank 0 runs stage B)")
     p.add_argument("--lr-schedule", choices=("reference", "decay"), default="reference",
                    help="reference: constant lr (the reference's LambdaLR re-creation "
                         "quirk); decay: 0.98^epoch")
@@ -120,7 +133,12 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None) -> dict:
     parser = build_parser()
     args, device = setup(parser, argv)
-    gan_state = stage_a(args, device, args.use_trained_GAN, args.continue_train_GAN_step)
+    dp, device = data_parallel(args, device)
+    gan_state = stage_a(args, device, args.use_trained_GAN, args.continue_train_GAN_step, dp)
+    leave(dp)
+    if dp is not None and dp.rank != 0:
+        print(f"rank {dp.rank}: stage A done; rank 0 runs stage B")
+        return None
 
     # ---- Stage B: GAN_FFN with the trained generators ----
     torch.manual_seed(args.seed)

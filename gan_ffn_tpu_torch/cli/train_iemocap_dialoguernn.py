@@ -22,7 +22,11 @@ Pipeline, as the reference's:
 Reference defaults that differ from the flagship trainer: batch 30, 100
 epochs, ``--l2 1e-5``, ``--rec-dropout 0.1``, ``--dropout 0.6``,
 ``--attention general`` (the context attention), ``--active-listener``
-off.  ``--dp``, ``--scan-layers`` and ``--tensorboard`` are refused with
+off.  ``--dp`` runs a stage A that trains (``--fresh-GAN``, or no
+``acoustic_gen.pt`` to load) data-parallel, as the flagship trainer's
+``--dp`` does: launched by ``python -m torch.distributed.run``, rank 0
+alone runs stage B, and ``--dp --epoch-fused`` is refused.
+``--scan-layers`` and ``--tensorboard`` are refused with
 the ROADMAP item that brings them; ``--tb-grad-histograms`` is accepted for
 ``--tensorboard``'s sake, as in the flagship trainer.  ``--epoch-fused``
 runs both stages' epochs fused, as the flagship trainer's does, and
@@ -59,11 +63,12 @@ from ..data import get_iemocap_loaders
 from ..evaluation.metrics import classification_report, confusion_matrix, f1_score
 from ..models import GAN_FFN_DialogueRNN
 from ..nn.core import set_dropout_generator
+from ..parallel.mesh import leave
 from ..train.classifier import make_classifier_epoch_steps, make_classifier_steps
 from ..train.loop import run_epoch, run_epoch_fused
 from ..train.optim import torch_adam
-from .common import (IEMOCAP_LOSS_WEIGHTS, IEMOCAP_N_CLASSES, compute_dtype, graft_generators,
-                     param_count, setup, stage_a)
+from .common import (IEMOCAP_LOSS_WEIGHTS, IEMOCAP_N_CLASSES, compute_dtype, data_parallel,
+                     graft_generators, param_count, setup, stage_a)
 
 # DialogueRNN widths (train_IEMOCAP_DialogueRNN.py:635-641)
 D_m, D_g, D_p, D_e, D_h, D_a = 100, 500, 500, 100, 100, 100
@@ -110,7 +115,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--lr-schedule", choices=("reference", "decay"), default="reference",
                    help="reference: constant lr (the reference's LambdaLR re-creation "
                         "quirk); decay: 0.98^epoch")
-    p.add_argument("--dp", action="store_true", default=False, help="refused for now")
+    p.add_argument("--dp", action="store_true", default=False,
+                   help="a training stage A data-parallel over the ranks of python -m "
+                        "torch.distributed.run (rank 0 runs stage B)")
     p.add_argument("--bf16", action="store_true", default=False,
                    help="bfloat16 compute in both stages: float32 parameters cast at each "
                         "use, the kernels at bf16, LayerNorm, log-softmaxes and Adam in float32")
@@ -125,9 +132,14 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None) -> dict:
     parser = build_parser()
     args, device = setup(parser, argv)
+    dp, device = data_parallel(args, device)
     load = args.use_trained_GAN and os.path.exists(
         os.path.join(args.model_save_path, "acoustic_gen.pt"))
-    gan_state = stage_a(args, device, load, continue_epochs=0)
+    gan_state = stage_a(args, device, load, continue_epochs=0, dp=dp)
+    leave(dp)
+    if dp is not None and dp.rank != 0:
+        print(f"rank {dp.rank}: stage A done; rank 0 runs stage B")
+        return None
 
     # ---- Stage B: GAN_FFN_DialogueRNN with the trained generators ----
     torch.manual_seed(args.seed)

@@ -31,6 +31,12 @@ whose device side is ``csrc/philox.cuh`` and whose plain twin is this module.
   same masks from the same generator state.  A host int seed is the seed
   itself, as before; the plain versions take either and give the kernels'
   masks bit for bit, the derivation included, without reading the device.
+- **Ranks.**  Under data parallelism every rank draws the same bases from
+  the same generator, and a rank's rows would get rank 0's masks, since
+  the index is the element's index in the rank's own slice.  So a rank
+  ``r > 0`` draws :func:`fold_rank` ``(base, r)``, Philox of counter ``(r,
+  0, STREAM_RANK, 0)`` under the key ``base`` (host only), and rank 0 the
+  base itself: one process draws what it drew before.
 """
 
 from __future__ import annotations
@@ -43,6 +49,7 @@ import torch
 
 # stream ids (csrc/philox.cuh Stream)
 STREAM_ATTENTION, STREAM_PRE, STREAM_MID, STREAM_POST, STREAM_DERIVE = 0, 1, 2, 3, 4
+STREAM_RANK = 5  # host only: a data-parallel rank's base (fold_rank)
 
 _M0, _M1 = 0xD2511F53, 0xCD9E8D57  # Philox4x32 multipliers
 _W0, _W1 = 0x9E3779B9, 0xBB67AE85  # Weyl key increments
@@ -90,6 +97,16 @@ def derive_seed(base, index: int):
     if index < 0:
         return base
     x, y, _, _ = philox4x32((index, 0, STREAM_DERIVE, 0), (base & _MASK32, (base >> 32) & _MASK32))
+    return ((y & _SEED_BITS) << 32) | x
+
+
+def fold_rank(base: int, rank: int) -> int:
+    """Data-parallel rank ``rank``'s 63-bit seed base for the host int
+    ``base``: ``base`` itself on rank 0, else Philox of counter ``(rank, 0,
+    STREAM_RANK, 0)`` under the key ``base``."""
+    if rank == 0:
+        return base
+    x, y, _, _ = philox4x32((rank, 0, STREAM_RANK, 0), (base & _MASK32, (base >> 32) & _MASK32))
     return ((y & _SEED_BITS) << 32) | x
 
 
@@ -157,15 +174,19 @@ class StepSeeds:
     :meth:`step`: there the k-th call of :meth:`next` returns ``SeedRef(base,
     k)``.  A CUDA graph records ``k`` and the base's address, so each
     replay draws from whatever base the step copied in.  Outside a step
-    (a module called on its own) each call draws a fresh host seed."""
+    (a module called on its own) each call draws a fresh host seed.
+    ``rank`` (a data-parallel step sets it) folds the rank into every draw
+    (:func:`fold_rank`); each draw takes one value from ``generator`` on
+    every rank, so the ranks' generators stay in step."""
 
-    def __init__(self, generator: Optional[torch.Generator] = None):
+    def __init__(self, generator: Optional[torch.Generator] = None, rank: int = 0):
         self.generator = generator
+        self.rank = rank
         self.base: Optional[torch.Tensor] = None
         self.calls = 0
 
     def draw(self) -> int:
-        return draw_seed(self.generator)
+        return fold_rank(draw_seed(self.generator), self.rank)
 
     def draw_tensor(self, device) -> torch.Tensor:
         return host_to_device(torch.tensor(self.draw(), dtype=torch.int64), device)

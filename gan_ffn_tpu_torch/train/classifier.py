@@ -30,6 +30,15 @@ source (``ops.dropout.StepSeeds``), unless the batch carries it as
 through ``train.graphs.ShapeGraphs``: one CUDA graph per batch shape on a
 card, eager on the CPU.
 
+``make_classifier_steps(..., dp=...)`` gives the data-parallel train step
+(the library DP of the JAX package's mesh, ``parallel/mesh.py``): on the
+whole batch it computes the masked NLL's global denominator, runs the
+forward and backward on its rank's slice, sums the gradients over the group
+between ``backward`` and the Adam step, and returns the summed loss and
+every rank's predictions in batch order.  Its eval step runs the whole
+batch on every rank.  Without a group the steps are the single-process
+ones, bit for bit.
+
 ``graft_generator_params`` moves adversarially trained generators into a
 classifier's ``state_dict``, by key prefix.
 """
@@ -42,7 +51,9 @@ from typing import Callable, Dict, Mapping, Optional, Tuple
 import torch
 
 from ..nn.core import dropout_seeds_of
-from ..nn.losses import masked_nll_loss
+from ..nn.losses import masked_nll_loss, nll_denominator
+from ..parallel.mesh import (DataParallel, active, all_gather_cat, all_reduce_grads,
+                             all_reduce_sum, shard_batch)
 from .graphs import ShapeGraphs
 from .optim import make_capturable, set_lr_scale
 
@@ -73,11 +84,14 @@ def loss_and_preds(
     batch: Mapping,
     n_classes: int,
     loss_weights: Optional[torch.Tensor] = None,
+    denominator: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Masked NLL and argmax over ``log_prob (L, B, C)`` transposed
-    batch-first and flattened to ``(B*L, C)``, as the reference does."""
+    batch-first and flattened to ``(B*L, C)``, as the reference does
+    (``denominator``: the whole batch's, under data parallelism)."""
     lp = log_prob.transpose(0, 1).reshape(-1, n_classes)
-    loss = masked_nll_loss(lp, batch["label"].reshape(-1), batch["umask"], loss_weights)
+    loss = masked_nll_loss(lp, batch["label"].reshape(-1), batch["umask"], loss_weights,
+                           denominator)
     return loss, lp.argmax(dim=1)
 
 
@@ -87,6 +101,7 @@ def make_classifier_steps(
     n_classes: int,
     loss_weights: Optional[torch.Tensor] = None,
     deterministic: bool = False,
+    dp: Optional[DataParallel] = None,
 ) -> Tuple[Callable, Callable]:
     """``(train_step, eval_step)`` over batches of ``train.loop.batch_to_tensors``.
 
@@ -97,8 +112,13 @@ def make_classifier_steps(
     for a model with ``ATTENTIONS``: a dict of its attention weights.
     ``train_step.seeds`` is the seed source it draws from (None where
     ``deterministic``, or where no module of ``model`` launches a kernel).
+    ``dp`` (``parallel.mesh.DataParallel`` with a group) makes the train
+    step data-parallel (module docstring); the model and ``optimizer`` must
+    start equal on every rank (``parallel.mesh.replicate``), and the seed
+    source folds the rank into its draws.
     """
-    return _steps(model, optimizer, n_classes, loss_weights, deterministic, graphed=False)
+    return _steps(model, optimizer, n_classes, loss_weights, deterministic, graphed=False,
+                  dp=active(dp))
 
 
 def make_classifier_epoch_steps(
@@ -117,7 +137,7 @@ def make_classifier_epoch_steps(
     return _steps(model, optimizer, n_classes, loss_weights, deterministic, graphed=True)
 
 
-def _steps(model, optimizer, n_classes, loss_weights, deterministic, graphed):
+def _steps(model, optimizer, n_classes, loss_weights, deterministic, graphed, dp=None):
     for group in optimizer.param_groups:
         if "initial_lr" not in group:
             group["initial_lr"] = float(group["lr"])
@@ -125,6 +145,8 @@ def _steps(model, optimizer, n_classes, loss_weights, deterministic, graphed):
     # model: every dropout is torch's own) needs no seed source
     draws = any(hasattr(m, "dropout_seeds") for m in model.modules())
     seeds = None if deterministic or not draws else dropout_seeds_of([model])
+    if dp is not None and seeds is not None:
+        seeds.rank = dp.rank
     if graphed and next(model.parameters()).device.type == "cuda":
         make_capturable(optimizer)
 
@@ -137,9 +159,16 @@ def _steps(model, optimizer, n_classes, loss_weights, deterministic, graphed):
     def train_body(batch):
         model.train(not deterministic)
         with seeds.step(batch.get("seed")) if seeds is not None else contextlib.nullcontext():
-            loss, preds = loss_and_preds(forward(batch)[0], batch, n_classes, loss_weights)
+            local = batch if dp is None else shard_batch(batch, dp.rank, dp.world)
+            log_prob = forward(local)[0]
+            whole = None if dp is None else nll_denominator(
+                batch["label"], batch["umask"], loss_weights, log_prob.dtype)
+            loss, preds = loss_and_preds(log_prob, local, n_classes, loss_weights, whole)
             optimizer.zero_grad(set_to_none=True)
             loss.backward()
+            if dp is not None:
+                all_reduce_grads(model.parameters(), dp)
+                loss, preds = all_reduce_sum(loss, dp), all_gather_cat(preds, dp)
             optimizer.step()
         return loss.detach(), preds
 

@@ -37,6 +37,14 @@ shape on a card (``train.graphs.ShapeGraphs``), eager on the CPU.  The six
 networks share one dropout seed source (``ops.dropout.StepSeeds``), from
 which a step draws one base per batch unless the batch carries it as
 ``seed``.
+
+``make_gan_train_step(..., dp=...)`` is the data-parallel step (counterpart
+of ``make_gan_train_step(cfg, mesh=...)``; ``parallel/mesh.py``): it takes
+the whole batch, computes the whole batch's BCE denominators, runs the
+duels on its rank's slice, sums each duel's gradients over the group
+before that net's Adam step (twelve all-reduces: each duel's update feeds
+the next duel) and sums the twelve losses once at the end.  Without a
+group the step is the single-process one, bit for bit.
 """
 
 from __future__ import annotations
@@ -57,7 +65,8 @@ from ..models import (
     VisualGenerator,
 )
 from ..nn.core import dropout_seeds_of
-from ..nn.losses import bce_loss
+from ..nn.losses import bce_denominator, bce_loss
+from ..parallel.mesh import DataParallel, active, all_reduce_grads, all_reduce_sum, shard_batch
 from .graphs import ShapeGraphs
 from .optim import make_capturable, torch_adam
 
@@ -161,7 +170,8 @@ def duel_mask(batch: Mapping) -> torch.Tensor:
 
 
 def make_gan_train_step(modules: Mapping[str, nn.Module], opts: Mapping[str, torch.optim.Adam],
-                        deterministic: bool = False) -> Callable[[Mapping], Dict[str, torch.Tensor]]:
+                        deterministic: bool = False, dp: Optional[DataParallel] = None,
+                        ) -> Callable[[Mapping], Dict[str, torch.Tensor]]:
     """``step(batch) -> losses`` over batches of ``train.loop.batch_to_tensors``
     (``text``, ``visual``, ``audio``, ``valid_len``, ``n_real``, and
     optionally ``seed``): the 12 duels, updating ``modules`` in place.
@@ -171,8 +181,13 @@ def make_gan_train_step(modules: Mapping[str, nn.Module], opts: Mapping[str, tor
     ``deterministic`` runs every net in eval mode (no dropout), with the
     same gradients and updates.  After a step each parameter's ``.grad``
     holds the gradient of its net's last update.  ``step.seeds`` is the
-    seed source the six networks share (None where ``deterministic``)."""
-    return _gan_step(modules, opts, deterministic, graphed=False)
+    seed source the six networks share (None where ``deterministic``).
+
+    ``dp`` (``parallel.mesh.DataParallel`` with a group) makes it the
+    data-parallel step of the module docstring, on the whole batch; the
+    states must start equal on every rank (``parallel.mesh.replicate``),
+    and the seed source folds the rank into its draws."""
+    return _gan_step(modules, opts, deterministic, graphed=False, dp=active(dp))
 
 
 def make_gan_epoch_step(modules: Mapping[str, nn.Module], opts: Mapping[str, torch.optim.Adam],
@@ -186,9 +201,11 @@ def make_gan_epoch_step(modules: Mapping[str, nn.Module], opts: Mapping[str, tor
     return _gan_step(modules, opts, deterministic, graphed=True)
 
 
-def _gan_step(modules, opts, deterministic, graphed):
+def _gan_step(modules, opts, deterministic, graphed, dp=None):
     params = {name: list(m.parameters()) for name, m in modules.items()}
     seeds = None if deterministic else dropout_seeds_of(modules.values())
+    if dp is not None and seeds is not None:
+        seeds.rank = dp.rank
     if graphed:
         for name, opt in opts.items():
             if params[name][0].device.type == "cuda":
@@ -198,10 +215,21 @@ def _gan_step(modules, opts, deterministic, graphed):
         grads = torch.autograd.grad(loss, params[net])
         for p, g in zip(params[net], grads):
             p.grad = g
+        if dp is not None:
+            all_reduce_grads(params[net], dp)
         opts[net].step()
 
     def body(batch: Mapping) -> Dict[str, torch.Tensor]:
         mask = duel_mask(batch)
+        bce = bce_loss
+        if dp is not None:  # the whole batch's denominators, this rank's slice
+            whole = mask
+            batch = shard_batch(batch, dp.rank, dp.world)
+            mask = duel_mask(batch)
+
+            def bce(pred, target, m):
+                shape = whole.shape[:2] + pred.shape[2:]
+                return bce_loss(pred, target, m, bce_denominator(whole, shape, pred.dtype))
         valid_len = batch["valid_len"]
         losses: Dict[str, torch.Tensor] = {}
         with seeds.step(batch.get("seed")) if seeds is not None else contextlib.nullcontext():
@@ -215,13 +243,17 @@ def _gan_step(modules, opts, deterministic, graphed):
                     with torch.no_grad():
                         fake = opponent(batch[REAL_INPUTS[opp_mod]], valid_len=valid_len)
                     fake_prob = trained(fake, valid_len=valid_len)
-                    loss = (bce_loss(real_prob, torch.ones_like(real_prob), mask)
-                            + bce_loss(fake_prob, torch.zeros_like(fake_prob), mask)) / 2.0
+                    loss = (bce(real_prob, torch.ones_like(real_prob), mask)
+                            + bce(fake_prob, torch.zeros_like(fake_prob), mask)) / 2.0
                 else:
                     prob = opponent(trained(real, valid_len=valid_len), valid_len=valid_len)
-                    loss = bce_loss(prob, torch.ones_like(prob), mask)
+                    loss = bce(prob, torch.ones_like(prob), mask)
                 update(net, loss)
                 losses[f"duel_{i}"] = losses[log_key] = loss.detach()
+        if dp is not None:  # the ranks' numerators over the global denominators, summed
+            total = all_reduce_sum(torch.stack([losses[f"duel_{i}"] for i in range(12)]), dp)
+            for i, duel in enumerate(DUEL_SCHEDULE):
+                losses[f"duel_{i}"] = losses[duel[5]] = total[i]
         return losses
 
     run = ShapeGraphs(body, "stage_a") if graphed else body

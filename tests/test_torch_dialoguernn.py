@@ -474,7 +474,7 @@ def test_cli_main_returns_the_best_epoch(tmp_path, monkeypatch, short_dialogues)
 
 @pytest.mark.parametrize("flags,item", [
     (["--epoch-fused", "--gan-schedule", "stepwise"], "--gan-schedule stepwise"),
-    (["--dp"], "module note 13"),
+    (["--dp", "--epoch-fused"], "not wired for --dp"),
     (["--scan-layers"], "module note 15"),
     (["--tensorboard"], "module note 15"),
 ])

@@ -268,7 +268,7 @@ def test_cli_trains_on_the_cpu(tmp_path):
 @pytest.mark.parametrize("flags,item", [
     (["--GAN-epochs", "0", "--epoch-fused", "--gan-schedule", "stepwise"],
      "--gan-schedule stepwise"),
-    (["--GAN-epochs", "0", "--dp"], "module note 13"),
+    (["--GAN-epochs", "0", "--dp", "--epoch-fused"], "not wired for --dp"),
 ])
 def test_cli_refuses_what_later_slices_bring(flags, item, capsys):
     with pytest.raises(SystemExit) as exc:
