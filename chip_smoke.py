@@ -60,7 +60,8 @@ Phases, each printing JSON lines; any failure exits non-zero:
                generators against the three discriminators), the six
                networks saved, the generators grafted into GAN_FFN, then 2
                epochs of stage B.  Checks: a 1-row GAN_loss.csv of finite
-               losses, the six checkpoints and their opt/ files, finite
+               losses, the six msgpack checkpoints (the JAX package's
+               format) and their opt/ files, finite
                stage-B losses, a report file, and exactly 240 / 192 / 252 /
                198 attention_fwd / attention_bwd / mlp_fwd / mlp_bwd calls
                per stage-A step plus 24 + 24 attention and 27 + 27 MLP
@@ -253,10 +254,40 @@ Phases, each printing JSON lines; any failure exits non-zero:
                step without a group and with an NCCL group of one (this
                process), in turns: launches, host ms, busy ms.
 
+12. checkpoints -- the JAX-format checkpoints, --tensorboard, --profile and
+               the data-parallel epoch-fused stage A.  Phase 5's six
+               networks with their Adams and best classifier, and phase 6's
+               best DialogueRNN classifier (msgpack, the JAX package's
+               format) load strictly into fresh full-width modules through
+               the port's reader, and the port's writer gives each file's
+               bytes back; a live full-width stage A after one step on the
+               card and a live 8-layer GAN_FFN are written and read back
+               equal in bits (parameters, Adam moments and steps), with the
+               host seconds of the six networks' write and read.  Then
+               cli/train_iemocap.py --use-trained-GAN
+               --continue-train-GAN-step 0 --tensorboard --profile DIR
+               --epochs 2 at full width from a copy of phase 5's files: the
+               wrappers' launches (24 / 24 / 27 / 27 per train step and, with
+               a TBWriter that writes, per epoch's sampled gradients; 24 / 27
+               per eval forward), the profiled epoch 1's four kernels by name
+               per train step, exactly 24 / 24 / 27 / 27, and every launch
+               of the trace with its kernel's record except in the trace's
+               warm-up (utils/profiling.py: the tracer can lose the records
+               of a session's first launches, which the warm-up takes; how
+               many it lost is printed), whether the TBWriter wrote (it is a
+               no-op without the tensorboard package) and its event file;
+               cli/predict.py on the run's classifier_best.msgpack gives its
+               best-epoch F1.  Last, make_gan_epoch_step(dp=<an NCCL group of
+               one>) for 3 graphed deterministic steps at depth 8 (the lr
+               scaled between them) against the per-batch DP step with the
+               same capturable Adams: NCCL's all-reduce captured in the
+               stage-A graph, the same bits.
+
 The kernel counts are set to 0 just before the serving, the training, the
 DialogueRNN, the two epoch-fused, the bf16 serving, the bf16 trainers', the
-families' paths (each request and each MELD run) and phase 11's runs run
-and are read just after; the comparisons of phases 3, 8 and 9 do not count.  The
+families' paths (each request and each MELD run), phase 11's runs and
+phase 12's trainer run and are read just after; the comparisons of
+phases 3, 8 and 9 do not count.  The
 kernels read ``valid_len`` and their dropout seed from device memory;
 phases 3 and 8 time them so, with both made once beforehand.  A ``graphs``
 line sums up phase 7.  The line before the last is the ``kernels`` summary (times
@@ -265,8 +296,9 @@ sums at the DialogueRNN step's B=30 shapes, and each kernel's launches per
 stage-A step and per DialogueRNN train step; the bf16 forwards' per bf16
 serving forward and, for attention_fwd_bf16, per bf16 train step too, the
 bf16 backwards' per bf16 stage-B train step; the four forward kernels'
-launches per DialogueRNN-family serving forward of phase 10, and per
-phase 11 run; every kernel's registers and spill bytes by variant); the last
+launches per DialogueRNN-family serving forward of phase 10, per phase 11
+run and in phase 12's trainer run, with phase 12's profiled calls per
+train step; every kernel's registers and spill bytes by variant); the last
 line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -906,7 +938,7 @@ def phase_training(torch, tmp: str):
     report_ok = os.path.isfile(result["report_path"]) and os.path.getsize(result["report_path"]) > 0
     ckpt_ok = os.path.isfile(result["checkpoint"])
     gan_history = load_gan_loss_csv(os.path.join(tmp, "output", "GAN_loss.csv"))
-    gan_files = [os.path.join(save_dir, sub, f"{name}.pt")
+    gan_files = [os.path.join(save_dir, sub, f"{name}.msgpack")
                  for name in GEN_NAMES + DISC_NAMES for sub in ("", "opt")]
     missing = [f for f in gan_files if not os.path.isfile(f)]
     batch = batch_to_tensors(next(iter(train)), "cuda")
@@ -1143,7 +1175,7 @@ def phase_dialoguernn(torch, tmp: str) -> dict:
     if not any("loaded trained GAN" in l for l in log):
         fail("the DialogueRNN trainer did not load the flagship trainer's GAN networks")
     if not (math.isfinite(result["best_loss"])
-            and os.path.isfile(os.path.join(save_dir, "dialoguernn_classifier_best.pt"))):
+            and os.path.isfile(os.path.join(save_dir, "dialoguernn_classifier_best.msgpack"))):
         fail(f"the DialogueRNN trainer wrote no checkpoint or lost its loss: {result}")
     attn = result["attentions"]
     shapes = {k: [a.shape for a in attn[k]] for k in ("alpha", "alpha_f", "alpha_b")}
@@ -1309,7 +1341,8 @@ def _graphs_cli(torch, tmp: str) -> dict:
             if name == "flagship":
                 history = load_gan_loss_csv(os.path.join(out_dir, "GAN_loss.csv"))
                 missing = [f for n in GEN_NAMES + DISC_NAMES for f in (
-                    os.path.join(save_dir, f"{n}.pt"), os.path.join(save_dir, "opt", f"{n}.pt"))
+                    os.path.join(save_dir, f"{n}.msgpack"),
+                    os.path.join(save_dir, "opt", f"{n}.msgpack"))
                     if not os.path.isfile(f)]
                 if (len(history) != 1 or missing
                         or not all(math.isfinite(v) for row in history for v in row.values())
@@ -2188,9 +2221,8 @@ def _bf16_trainer_runs(torch, tmp: str) -> dict:
                 fail("the DialogueRNN --bf16 trainer did not load the six networks")
             if name.startswith("flagship"):
                 missing = [n for n in GEN_NAMES + DISC_NAMES
-                           if not os.path.isfile(os.path.join(save_dir, f"{n}.pt"))]
-                saved = torch.load(result["checkpoint"], weights_only=True)
-                if missing or not all(v.dtype == torch.float32 for v in saved.values()):
+                           if not os.path.isfile(os.path.join(save_dir, f"{n}.msgpack"))]
+                if missing or not _all_f32(result["checkpoint"]):
                     fail(f"{name} --bf16: missing {missing} or a checkpoint not in f32")
             if not fused:
                 want = {k: sum(per[m][k] * n for m, n in batches.items()) for k in STEP_LAUNCHES}
@@ -2422,10 +2454,10 @@ def _meld_trainer_runs(torch, tmp: str, card: str) -> dict:
         epoch_lines = [l for l in log.getvalue().splitlines() if l.startswith("epoch ")]
         fields = [dict(zip(l.split()[::2], l.split()[1::2])) for l in epoch_lines]
         finite = all(math.isfinite(float(f[k])) for f in fields for k in ("train_loss", "test_loss"))
-        ckpt = os.path.join(save_dir, "meld_classifier_best.pt")
-        saved = torch.load(ckpt, weights_only=True) if os.path.isfile(ckpt) else {}
+        ckpt = os.path.join(save_dir, "meld_classifier_best.msgpack")
+        saved = os.path.isfile(ckpt)
         if (len(fields) != epochs or not finite or any(f["valid_loss"] != "nan" for f in fields)
-                or not saved or not all(v.dtype == torch.float32 for v in saved.values())):
+                or not saved or not _all_f32(ckpt)):
             fail(f"train_meld {name}: epochs {epoch_lines}, checkpoint {ckpt} "
                  f"{'written' if saved else 'missing'}")
         by_name = {} if profiled is None else _port_calls(profiled, tuple(_all_counters()))
@@ -2712,8 +2744,8 @@ def _dp_trainer(torch, tmp: str, card: str) -> dict:
     rows = load_gan_loss_csv(os.path.join(out_dir, "GAN_loss.csv"))
     plain_rows = load_gan_loss_csv(os.path.join(tmp, "output", "GAN_loss.csv"))
     differ = [n for n in GEN_NAMES + DISC_NAMES
-              if not _same_state(torch, os.path.join(save_dir, f"{n}.pt"),
-                                 os.path.join(tmp, "GAN_save", f"{n}.pt"))]
+              if not _same_state(torch, os.path.join(save_dir, f"{n}.msgpack"),
+                                 os.path.join(tmp, "GAN_save", f"{n}.msgpack"))]
     line = {"card": card, "phase": "dp", "argv": argv[:3], "group": group,
             "single_chip_message": "--dp requested but only one device present; running "
                                    "single-chip" in lines,
@@ -2730,8 +2762,17 @@ def _dp_trainer(torch, tmp: str, card: str) -> dict:
     return line
 
 
+def _all_f32(path: str) -> bool:
+    """Every leaf of the msgpack checkpoint ``path`` is float32."""
+    from gan_ffn_tpu_torch.utils.checkpoint import all_float32
+
+    return all_float32(path)
+
+
 def _same_state(torch, a: str, b: str) -> bool:
-    x, y = (torch.load(p, map_location="cpu", weights_only=True) for p in (a, b))
+    from gan_ffn_tpu_torch.utils.checkpoint import read_state_dict
+
+    x, y = (read_state_dict(p) for p in (a, b))
     return x.keys() == y.keys() and all(torch.equal(x[k], y[k]) for k in x)
 
 
@@ -2798,9 +2839,264 @@ def phase_sweeps(torch, tmp: str, card: str) -> dict:
             "dp": _dp_trainer(torch, tmp, card), "dp_step": _dp_step(torch, tmp, card)}
 
 
+CKPT_EPOCHS = 2  # phase 12: the flagship trainer's stage-B epochs from phase 5's files
+
+
+def _round_trip_files(torch, tmp: str) -> dict:
+    """Phase 5's six networks with their Adams and best classifier, and phase
+    6's best DialogueRNN classifier (msgpack, the JAX package's format): each
+    loads strictly into a fresh full-width module through the port's reader,
+    and the port's writer gives the file's bytes back from it.  Then a live
+    full-width stage A after one step on the card and a live 8-layer
+    ``GAN_FFN``: written, read back into fresh modules, equal in bits
+    (parameters, Adam moments and steps), with the host seconds of the six
+    networks' write and read."""
+    import shutil
+
+    from gan_ffn_tpu_torch.cli.common import gan_batch_from
+    from gan_ffn_tpu_torch.models import GAN_FFN, GAN_FFN_DialogueRNN
+    from gan_ffn_tpu_torch.train.gan import DISC_NAMES, GEN_NAMES, GANConfig, init_gan_state
+    from gan_ffn_tpu_torch.train.loop import batch_to_tensors
+    from gan_ffn_tpu_torch.utils import checkpoint as C
+    from gan_ffn_tpu_torch.utils.msgpack import to_bytes
+    from gan_ffn_tpu_torch.utils.weights import jax_params_from_state_dict
+
+    save_dir, again = os.path.join(tmp, "GAN_save"), os.path.join(tmp, "GAN_save_again")
+    state = init_gan_state(GANConfig(num_layers=8, seed=5), device="cuda")
+    C.load_gan_state(save_dir, *state, reset_opt=False)
+    C.save_gan_state(again, state)
+    files = {}
+    for name in GEN_NAMES + DISC_NAMES:
+        for sub in ("", "opt"):
+            a, b = (os.path.join(d, sub, f"{name}.msgpack") for d in (save_dir, again))
+            with open(a, "rb") as fa, open(b, "rb") as fb:
+                files[os.path.join(sub, name)] = (os.path.getsize(a), fa.read() == fb.read())
+    for fname, model in (("classifier_best.msgpack", GAN_FFN(n_classes=6, gen_num_layers=8,
+                                                              device="cuda")),
+                         ("dialoguernn_classifier_best.msgpack",
+                          GAN_FFN_DialogueRNN(n_classes=6, gen_num_layers=8, device="cuda"))):
+        path = os.path.join(save_dir, fname)
+        C.load_params_any_layout(path, model)
+        with open(path, "rb") as f:
+            same = f.read() == to_bytes(jax_params_from_state_dict(model))
+        files[fname] = (os.path.getsize(path), same)
+        del model
+    shutil.rmtree(again)
+
+    live, step = _gan_state(torch, "cuda", seed=31)
+    step(gan_batch_from(batch_to_tensors(next(iter(_fixture_loader(tmp))), "cuda")))
+    torch.cuda.synchronize()
+    live_dir = os.path.join(tmp, "GAN_save_live")
+    t0 = time.perf_counter()
+    C.save_gan_state(live_dir, live)
+    write_s = time.perf_counter() - t0
+    fresh = init_gan_state(GANConfig(num_layers=8, seed=32), device="cuda")
+    t0 = time.perf_counter()
+    C.load_gan_state(live_dir, *fresh, reset_opt=False)
+    torch.cuda.synchronize()
+    read_s = time.perf_counter() - t0
+    nbytes = sum(os.path.getsize(os.path.join(live_dir, sub, f"{n}.msgpack"))
+                 for n in GEN_NAMES + DISC_NAMES for sub in ("", "opt"))
+    differ = []
+    for name, module in live.modules.items():
+        got = dict(fresh.modules[name].named_parameters())
+        for k, p in module.named_parameters():
+            st, st2 = live.opts[name].state[p], fresh.opts[name].state[got[k]]
+            if not (torch.equal(got[k], p) and torch.equal(st["exp_avg"], st2["exp_avg"])
+                    and torch.equal(st["exp_avg_sq"], st2["exp_avg_sq"])
+                    and float(st["step"]) == float(st2["step"])):
+                differ.append(f"{name}.{k}")
+    model = GAN_FFN(n_classes=6, gen_num_layers=8, generator=torch.Generator().manual_seed(33),
+                    device="cuda")
+    path = C.save_params(os.path.join(live_dir, "classifier_best.msgpack"), model)
+    back = C.load_params_any_layout(path, GAN_FFN(n_classes=6, gen_num_layers=8, device="cuda"))
+    differ += [k for k, v in model.state_dict().items() if not torch.equal(back.state_dict()[k], v)]
+    shutil.rmtree(live_dir)
+    del live, fresh, model, back, step
+    torch.cuda.empty_cache()
+    line = {"phase": "checkpoint_files", "files": {k: {"bytes": b, "rewritten_in_bits": same}
+                                                   for k, (b, same) in files.items()},
+            "six_networks_bytes": nbytes, "six_networks_write_s": write_s,
+            "six_networks_read_s": read_s, "live_differing": differ}
+    emit(line)
+    if differ or not all(same for _, same in files.values()):
+        fail(f"the msgpack checkpoints did not come back in bits: {line}")
+    return line
+
+
+def _fixture_loader(tmp: str):
+    from gan_ffn_tpu_torch.data import get_iemocap_loaders
+
+    return get_iemocap_loaders(os.path.join(tmp, "iemocap.pkl"), batch_size=32, valid=0.1,
+                               seed=0)[0]
+
+
+def _trace_calls(prof_dir: str):
+    """The one torch.profiler trace file that ``--profile`` wrote into
+    ``prof_dir``: the port's four f32 kernels' calls (kernels by name), its
+    device kernels, its bytes, and its kernel launches (runtime and driver
+    API records) that have no kernel record, inside the warm-up span and
+    outside it."""
+    import collections
+
+    from gan_ffn_tpu_torch.utils.profiling import WARMUP
+
+    traces = [f for f in os.listdir(prof_dir) if f.endswith(".pt.trace.json")]
+    if len(traces) != 1:
+        fail(f"--profile wrote {traces} into {prof_dir}, expected one trace")
+    with open(os.path.join(prof_dir, traces[0])) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    recorded = {e.get("args", {}).get("correlation") for e in kernels}
+    unrecorded = [e for e in events if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                  and "Launch" in e.get("name", "")
+                  and e.get("args", {}).get("correlation") not in recorded]
+    spans = [(e["ts"], e["ts"] + e["dur"]) for e in events
+             if e.get("name") == WARMUP and e.get("cat") == "user_annotation"]
+    if len(spans) != 1:
+        fail(f"the --profile trace has {len(spans)} {WARMUP!r} spans, expected one")
+    [(a, b)] = spans
+    in_warmup = sum(a <= e["ts"] <= b for e in unrecorded)
+    lost = {"warmup": in_warmup, "region": len(unrecorded) - in_warmup}
+    names = collections.Counter(e["name"] for e in kernels)
+    return (_port_calls(names), len(kernels),
+            os.path.getsize(os.path.join(prof_dir, traces[0])), lost)
+
+
+def _checkpoint_trainer(torch, tmp: str, card: str) -> dict:
+    """cli/train_iemocap.py --use-trained-GAN --continue-train-GAN-step 0
+    --tensorboard --profile DIR --epochs 2 at full width from phase 5's
+    msgpack files (a copy): the wrappers' launches (the counts set to 0
+    before the run and read after), the profiled epoch 1's kernels by name
+    per train step, the TBWriter's state and event files; then cli/predict.py
+    on the run's classifier_best.msgpack reproduces its best-epoch F1."""
+    import shutil
+
+    from gan_ffn_tpu_torch.cli import predict as PREDICT
+    from gan_ffn_tpu_torch.cli import train_iemocap as CLI
+    from gan_ffn_tpu_torch.data import get_iemocap_loaders
+    from gan_ffn_tpu_torch.utils.tensorboard import TBWriter
+
+    run_dir = os.path.join(tmp, "checkpoint_run")
+    save_dir, out_dir, prof = (os.path.join(run_dir, d) for d in ("GAN_save", "output", "prof"))
+    shutil.copytree(os.path.join(tmp, "GAN_save"), save_dir)
+    data = os.path.join(tmp, "iemocap.pkl")
+    argv = ["--use-trained-GAN", "--continue-train-GAN-step", "0", "--tensorboard", "--profile",
+            prof, "--epochs", str(CKPT_EPOCHS), "--num-layers", "8", "--batch-size", "32",
+            "--seed", "0", "--device", "cuda", "--data-path", data, "--output-dir", out_dir,
+            "--model-save-path", save_dir]
+    probe = TBWriter(os.path.join(run_dir, "probe"), enabled=True)
+    tb_enabled = probe.enabled
+    probe.close()
+    train, valid, test = get_iemocap_loaders(data, batch_size=32, valid=0.1, seed=0)
+    n_steps, n_evals = CKPT_EPOCHS * len(train), CKPT_EPOCHS * (len(valid) + len(test))
+    grads = CKPT_EPOCHS if tb_enabled else 0  # one sampled batch's gradients per epoch
+    want = {k: per * (n_steps + grads + (n_evals if k.endswith("fwd") else 0))
+            for k, per in STEP_LAUNCHES.items()}
+    log = io.StringIO()
+    t0 = time.perf_counter()
+    _reset_counts()
+    with contextlib.chdir(run_dir), contextlib.redirect_stdout(log):
+        result = CLI.main(argv)
+    torch.cuda.synchronize()
+    counts = _read_counts()
+    seconds = time.perf_counter() - t0
+    lines = log.getvalue().splitlines()
+    epochs = _check_trainer_run(result, lines, CKPT_EPOCHS, "checkpoint trainer")
+    calls, kernels, trace_bytes, unrecorded = _trace_calls(prof)
+    per_step = {k: calls[k] / len(train) for k in calls}
+    events = [f for f in os.listdir(os.path.join(run_dir, "tensorboard"))
+              if f.startswith("events.out.tfevents")] if tb_enabled else []
+    reports = [p for p in os.listdir(out_dir) if p.startswith("test_out_")]
+    best_f1 = float(reports[0].split("F1-score=")[1][: -len(".txt")]) if len(reports) == 1 else None
+    plog = io.StringIO()
+    with contextlib.redirect_stdout(plog):
+        pred = PREDICT.main(["--data-path", data, "--model-save-path", save_dir, "--num-layers",
+                             "8", "--batch-size", "32", "--device", "cuda"])
+    line = {"card": card, "phase": "checkpoint_trainer", "argv": argv[:7], "epochs": epochs,
+            "loaded": any("loaded trained GAN" in l for l in lines), "seconds": seconds,
+            "launches": counts, "expected_launches": want,
+            "profiled_train_steps": len(train), "profiled_calls": calls,
+            "profiled_calls_per_train_step": per_step, "expected_per_train_step": STEP_LAUNCHES,
+            "profiled_device_kernels": kernels, "trace_bytes": trace_bytes,
+            "launches_without_kernel_record": unrecorded,
+            "tbwriter_enabled": tb_enabled,
+            "tbwriter_note": ("torch.utils.tensorboard imports here: event files written"
+                              if tb_enabled else "no tensorboard package on this machine: the "
+                              "TBWriter is a no-op, as the JAX one is without it"),
+            "event_files": events, "trainer_best_f1": best_f1, "predict_f1": pred["f1"]}
+    emit(line)
+    if (not line["loaded"] or counts != want or unrecorded["region"]
+            or any(calls[k] != STEP_LAUNCHES[k] * len(train) for k in STEP_LAUNCHES)
+            or (tb_enabled and len(events) != 1) or best_f1 is None or pred["f1"] != best_f1):
+        fail(f"the flagship trainer from the msgpack files: {line}")
+    return line
+
+
+def _dp_epoch_step(torch, card: str) -> dict:
+    """make_gan_epoch_step(dp=<an NCCL group of one>) for 3 graphed steps
+    at depth 8, deterministic, the lr scaled between them, against the
+    per-batch DP step with the same capturable Adams: NCCL's all-reduce is
+    captured in the stage-A graph and its replays give the same bits, or
+    the capture raises (the phase then fails with it)."""
+    import socket
+
+    from gan_ffn_tpu_torch.cli.step_profile import step_batch
+    from gan_ffn_tpu_torch.parallel.mesh import init_data_parallel, leave
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0", "MASTER_ADDR": "127.0.0.1",
+           "MASTER_PORT": str(port)}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        dp = init_data_parallel("cuda")
+        rng = np.random.default_rng(7)
+        batches = [step_batch("stage_a", rng) for _ in GRAPH_LR_SCALES]
+        t0 = time.perf_counter()
+        ref_losses, ref = _run_steps(torch, "stage_a", False, batches, capturable=True, dp=dp)
+        got_losses, got = _run_steps(torch, "stage_a", True, batches, dp=dp)
+        seconds = time.perf_counter() - t0
+        backend = dp.backend
+        leave(dp)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    identical = got_losses == ref_losses and all(torch.equal(got[k], v) for k, v in ref.items())
+    line = {"card": card, "phase": "dp_epoch_step", "backend": backend, "world": 1,
+            "torch": torch.__version__, "nccl": ".".join(map(str, torch.cuda.nccl.version())),
+            "steps": len(batches), "depth": 8, "lr_scales": GRAPH_LR_SCALES,
+            "outcome": "captured; replays equal the per-batch DP step in bits" if identical
+            else "captured; replays differ from the per-batch DP step",
+            "identical_bits": identical, "parameters": len(ref), "seconds": seconds,
+            "note": "one card: the group has one rank, so the all-reduce sums one slice; "
+                    "a capture across cards is not measured"}
+    emit(line)
+    if backend != "nccl" or not identical:
+        fail(f"the data-parallel epoch-fused stage A: {line}")
+    return line
+
+
+def phase_checkpoints(torch, tmp: str, card: str) -> dict:
+    """Phase 12: the msgpack checkpoints, --tensorboard and --profile in the
+    flagship trainer, and the data-parallel epoch-fused stage A's graph."""
+    t0 = time.perf_counter()
+    out = {"files": _round_trip_files(torch, tmp),
+           "trainer": _checkpoint_trainer(torch, tmp, card),
+           "dp_epoch_step": _dp_epoch_step(torch, card)}
+    emit({"phase": "checkpoints", "card": card, "seconds": time.perf_counter() - t0})
+    return out
+
+
 def main() -> None:
     import torch
 
+    started = time.perf_counter()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: no CUDA card to run on")
     if not os.path.isdir(os.path.join(REPO, "gan_ffn_tpu_torch", "csrc")):
@@ -2823,6 +3119,7 @@ def main() -> None:
         bf16_train = phase_bf16_training(torch, tmp)
         families = phase_families(torch, tmp, info["nvidia_smi"][0])
         sweeps = phase_sweeps(torch, tmp, info["nvidia_smi"][0])
+        checkpoints = phase_checkpoints(torch, tmp, info["nvidia_smi"][0])
 
     emit({"graphs": {
         "card": info["nvidia_smi"][0],
@@ -2836,6 +3133,8 @@ def main() -> None:
             "seconds_profiled", "eager_first_batches", "replays", "wrapper_launches",
             "profiled_calls", "graphs")} for name, run in graphs["cli"].items()},
     }})
+    emit({"phase": "total", "card": info["nvidia_smi"][0],
+          "seconds": time.perf_counter() - started})
     kernels = []
     for name, step_rows in rows.step.items():
         total = lambda key, rs=step_rows: sum(n * r[key] for n, r in rs)  # noqa: E731
@@ -2873,6 +3172,11 @@ def main() -> None:
             "sweep_profiled_calls": sweeps["sweep"]["profiled_calls"][name],
             "seed_sweep_launches": sweeps["seed_sweep"]["runs"]["0+1"]["launches"][name],
             "dp_launches": sweeps["dp"]["launches"][name],
+        })
+        entry.update({  # phase 12: the flagship trainer from msgpack files, --profile's epoch
+            "checkpoint_trainer_launches": checkpoints["trainer"]["launches"][name],
+            "profiled_calls_per_train_step":
+                checkpoints["trainer"]["profiled_calls_per_train_step"][name],
         })
         if name in FAMILY_LAUNCHES["f32"]:  # one DialogueRNN-family serving forward (phase 10)
             entry["dialoguernn_serving_launches_per_forward"] = (
@@ -2980,6 +3284,8 @@ def main() -> None:
         if min(entry["sweep_launches"], entry["sweep_profiled_calls"],
                entry["seed_sweep_launches"], entry["dp_launches"]) < 1:
             fail(f"{entry['name']} was not launched on every path of phase 11: {entry}")
+        if entry["checkpoint_trainer_launches"] < 1:
+            fail(f"{entry['name']} was not launched by the trainer of phase 12: {entry}")
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": info["name"], "count": info["count"]}})
 

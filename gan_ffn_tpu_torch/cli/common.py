@@ -1,7 +1,8 @@
 """Shared wiring of the training entry points (counterpart of
 ``gan_ffn_tpu/cli/common.py``): stage A's epoch loop and its run as both
-IEMOCAP trainers drive it, the trainers' ``--dp``, the ``--epoch-fused``
-AUTO policy, the class weights and the parameter count.
+IEMOCAP trainers drive it, the trainers' ``--dp`` and ``--tensorboard``,
+the ``--epoch-fused`` AUTO policy, the class weights and the parameter
+count.
 
 The JAX package's epoch-fused branch (one program per same-shape batch
 group) is here one CUDA graph per batch shape, replayed for every batch of
@@ -12,6 +13,7 @@ eagerly.
 from __future__ import annotations
 
 import argparse
+import copy
 import os
 import time
 from typing import Callable, Dict, Iterable, Mapping, Optional, Tuple
@@ -25,13 +27,14 @@ from ..data.loaders import Batch, BucketedLoader, _bucket_for
 from ..nn.core import set_dropout_generator
 from ..ops.dropout import StepSeeds
 from ..parallel.mesh import DataParallel, fold_torch_seed, init_data_parallel, replicate
-from ..train.classifier import GENERATOR_GAN_KEYS, graft_generator_params
+from ..train.classifier import GENERATOR_GAN_KEYS, graft_generator_params, make_grad_fn
 from ..train.gan import (LOGGED_LOSS_KEYS, GANConfig, GANState, init_gan_state,
                          make_gan_epoch_step, make_gan_train_step)
 from ..train.loop import batch_to_tensors, fused_order
 from ..utils.artifacts import (LossHistory, append_loss_row, draw_gan_loss, load_gan_loss_csv,
                                save_gan_loss_csv)
 from ..utils.checkpoint import load_gan_state, save_gan_state
+from ..utils.tensorboard import TBWriter
 
 # IEMOCAP 6-class weights (train_IEMOCAP.py:653)
 IEMOCAP_LOSS_WEIGHTS = np.array(
@@ -39,19 +42,12 @@ IEMOCAP_LOSS_WEIGHTS = np.array(
 )
 IEMOCAP_N_CLASSES = 6
 
-# a trainer's flag -> the ROADMAP item that brings it
-LATER_FLAGS = {
-    "scan_layers": "module note 15 (the scanned layer layout)",
-    "tensorboard": "module note 15 (utilities)",
-    "profile": "module note 15 (utilities)",
-}
-
 
 def setup(parser: argparse.ArgumentParser, argv=None,
           write_fixture: Callable[..., str] = write_synthetic_iemocap,
           ) -> Tuple[argparse.Namespace, torch.device]:
-    """A trainer's start: parse ``argv``, refuse the flags of
-    :data:`LATER_FLAGS` that it has and that are set, pick the device
+    """A trainer's start: parse ``argv``, refuse the flag combinations the
+    JAX trainers refuse, pick the device
     (``--device``, or the CPU with ``--no-cuda``; a parser error where it
     asks for a card that is not there), turn TF32 off in cuBLAS and cuDNN
     and reduced precision off in cuBLAS's bf16 sums,
@@ -59,15 +55,17 @@ def setup(parser: argparse.ArgumentParser, argv=None,
     ``write_fixture`` (the IEMOCAP writer, or ``data.write_synthetic_meld``;
     None: the caller writes it)."""
     args = parser.parse_args(argv)
-    for flag, item in LATER_FLAGS.items():
-        if getattr(args, flag, False):
-            parser.error(f"--{flag.replace('_', '-')} is not ported yet (ROADMAP {item})")
     if getattr(args, "epoch_fused", False) and getattr(args, "gan_schedule", None) == "stepwise":
         parser.error("--epoch-fused runs the fused 12-duel step; it cannot honour "
                      "--gan-schedule stepwise's fast-compile promise: drop one of the two flags")
     if getattr(args, "epoch_fused", False) and getattr(args, "dp", False):
         parser.error("--epoch-fused is not wired for --dp (the stacked epoch is not "
                      "mesh-sharded); use per-batch --dp, or --epoch-fused single-chip")
+    if (getattr(args, "epoch_fused", False) and getattr(args, "tensorboard", False)
+            and getattr(args, "tb_grad_histograms", None) == "batch"):
+        parser.error("--epoch-fused cannot honour --tb-grad-histograms batch: the per-batch "
+                     "grad hook is the dispatch pattern the fused epoch removes; use "
+                     "--tb-grad-histograms epoch, or drop --epoch-fused")
     print(args)
     device = torch.device("cpu" if args.no_cuda else args.device)
     if device.type == "cuda":
@@ -118,6 +116,48 @@ def data_parallel(args, device: torch.device) -> Tuple[Optional[DataParallel], t
     return dp, dp.device
 
 
+class TensorBoardLog:
+    """A trainer's ``--tensorboard`` (the JAX trainers' ``TBWriter`` use,
+    ``gan_ffn_tpu/cli/train_iemocap.py:234-330``): ``./tensorboard`` event
+    files with ``test: accuracy/loss`` and ``train: accuracy/loss`` per
+    epoch and one histogram per named parameter, by
+    ``--tb-grad-histograms``: ``epoch``, the gradients of one sampled batch
+    (the train loader's first, drawn without advancing its epochs) through
+    ``train.classifier.make_grad_fn`` after each epoch (its dropout seeds
+    from ``args.seed + 3``); ``batch``, the gradients each train step
+    applied, through ``train.loop.run_epoch``'s ``on_batch`` hook, tagged
+    with the epoch.  Both are gated on ``writer.enabled``, as in JAX: a
+    writer without the ``tensorboard`` package costs nothing."""
+
+    def __init__(self, args, model: nn.Module, train_loader: BucketedLoader, device,
+                 n_classes: int, loss_weights: Optional[torch.Tensor] = None):
+        self.writer = TBWriter("./tensorboard", enabled=args.tensorboard)
+        cadence = args.tb_grad_histograms if self.writer.enabled else None
+        self.model, self.per_batch = model, cadence == "batch"
+        self.grad_fn = self.sample = None
+        if cadence == "epoch":
+            self.grad_fn = make_grad_fn(model, n_classes, loss_weights, seed=args.seed + 3)
+            self.sample = batch_to_tensors(next(iter(copy.copy(train_loader))), device)
+
+    def run_kwargs(self, epoch: int) -> dict:
+        """The train epoch's ``on_batch`` hook, where the cadence is ``batch``."""
+        if not self.per_batch:
+            return {}
+        return {"on_batch": lambda i, batch, out: self.writer.add_param_histograms(
+            self.model, epoch)}
+
+    def end_epoch(self, epoch: int, train_res, test_res) -> None:
+        if self.grad_fn is not None:
+            self.writer.add_param_histograms(self.grad_fn(self.sample), epoch)
+        self.writer.add_scalar("test: accuracy/loss", test_res.avg_accuracy / test_res.avg_loss,
+                               epoch)
+        self.writer.add_scalar("train: accuracy/loss",
+                               train_res.avg_accuracy / train_res.avg_loss, epoch)
+
+    def close(self) -> None:
+        self.writer.close()
+
+
 def generator_weights(gan_state: GANState) -> Dict[str, torch.Tensor]:
     """Stage A's three generators' weights under their stage-A names
     (``acoustic_gen.*``, ...), cloned: a snapshot that later training does
@@ -164,16 +204,15 @@ def make_stage_a_step(cfg: GANConfig, state: GANState, epoch_fused: bool = False
                       dp: Optional[DataParallel] = None) -> Callable:
     """Stage A's step over ``state``, as :func:`train_gan` builds it: one
     seed source over a CPU generator seeded with ``cfg.seed + 1``, set on
-    all six networks, and :func:`train.gan.make_gan_train_step` (with ``dp``)
-    or, with ``epoch_fused``, :func:`train.gan.make_gan_epoch_step`.  Build
-    it once to train in segments (``train_gan(step=...)``): the segments
-    then continue one seed stream."""
+    all six networks, and :func:`train.gan.make_gan_train_step` or, with
+    ``epoch_fused``, :func:`train.gan.make_gan_epoch_step`, either with
+    ``dp``.  Build it once to train in segments (``train_gan(step=...)``):
+    the segments then continue one seed stream."""
     seeds = StepSeeds(torch.Generator().manual_seed(cfg.seed + 1))
     for module in state.modules.values():
         set_dropout_generator(module, seeds)
-    if epoch_fused:
-        return make_gan_epoch_step(state.modules, state.opts)
-    return make_gan_train_step(state.modules, state.opts, dp=dp)
+    make = make_gan_epoch_step if epoch_fused else make_gan_train_step
+    return make(state.modules, state.opts, dp=dp)
 
 
 def train_gan(
@@ -210,7 +249,11 @@ def train_gan(
     rows are logged in loader order.  On a card each shape is one CUDA
     graph, captured at its first batch and replayed for the others.  A
     single-shape epoch is the per-batch loop; where an epoch spans several
-    shapes, updates reorder across the groups."""
+    shapes, updates reorder across the groups.  With ``dp`` either step is
+    data-parallel (the JAX package's sharded epoch, ``make_gan_epoch_step(cfg,
+    mesh=mesh)``): each rank trains on its slice of every batch and the
+    gradients are summed before each update.  Both trainers still refuse
+    ``--dp --epoch-fused``, as the JAX trainers do."""
     if state is None:
         state = init_gan_state(cfg, device)
     if history is None:
@@ -257,7 +300,8 @@ def stage_a(args, device, load: bool, continue_epochs: int,
     ``args.GAN_epochs`` epochs, or, with ``load``, load them from
     ``args.model_save_path`` (fresh Adams, as the reference resumes) and
     train them ``continue_epochs`` more, numbered on from the loss CSV's
-    last.  Whatever was trained is saved with its loss history
+    last.  Whatever was trained is saved (``utils/checkpoint.py``, in the
+    stacked layout with ``args.scan_layers``) with its loss history
     (``{output_dir}/GAN_loss.{csv,png}``); loaded networks that train no
     more are returned as they are.  ``args.epoch_fused`` runs the epochs
     fused (:func:`train_gan`), and ``args.bf16`` at bf16
@@ -297,6 +341,7 @@ def stage_a(args, device, load: bool, continue_epochs: int,
         if output_dir:
             save_gan_loss_csv(history, loss_csv)
             draw_gan_loss(history, os.path.join(output_dir, "GAN_loss.png"))
-        save_gan_state(args.model_save_path, gan_state)
+        save_gan_state(args.model_save_path, gan_state,
+                       scan_layers=getattr(args, "scan_layers", False))
     print("=" * 15, "finished training GAN", "=" * 15)
     return gan_state

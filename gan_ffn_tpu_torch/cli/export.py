@@ -1,8 +1,9 @@
 """Export a trained classifier as the port's serving artifact (counterpart
 of ``gan_ffn_tpu/cli/export.py``).
 
-Train with one of the three trainers (each saves its best classifier under
-``--model-save-path``), then
+Train with one of the three trainers of either package (each saves its best
+classifier under ``--model-save-path`` as the JAX params tree in msgpack,
+``utils/checkpoint.py``, in either encoder layout), then
 
     python -m gan_ffn_tpu_torch.cli.export --model gan_ffn --model-save-path ./GAN_save/ \\
         --output gan_ffn.pt --dtype bf16 --weights int8 --verify
@@ -11,12 +12,12 @@ writes one ``torch.save`` file that ``cli/serve.py`` or
 ``serving.ServingClassifier.load`` serves.  Families (``--model``) and the
 checkpoints they load:
 
-- ``gan_ffn`` (default): ``classifier_best.pt`` from ``cli/train_iemocap``
+- ``gan_ffn`` (default): ``classifier_best.msgpack`` from ``cli/train_iemocap``
   (batch 32);
-- ``dialoguernn``: ``dialoguernn_classifier_best.pt`` from
+- ``dialoguernn``: ``dialoguernn_classifier_best.msgpack`` from
   ``cli/train_iemocap_dialoguernn`` (D_g = D_p = 500, D_e = D_h = 100,
   train_IEMOCAP_DialogueRNN.py:635-641; batch 30);
-- ``meld``: ``meld_classifier_best.pt`` from ``cli/train_meld`` (D_m 600,
+- ``meld``: ``meld_classifier_best.msgpack`` from ``cli/train_meld`` (D_m 600,
   D_e 300, D_h 600, train_MELD.py:143-145; ``--n-classes`` 7 by default;
   batch 30; no time buckets, see ``serving.export_meld_classifier``).
 
@@ -53,12 +54,13 @@ from ..models import GAN_FFN, GAN_FFN_DialogueRNN, MELDLSTMModel
 from ..serving import (ServingClassifier, bf16_variant, dequantize_weights, export_classifier,
                        export_dialoguernn_classifier, export_meld_classifier,
                        quantize_weights_int8)
+from ..utils.checkpoint import load_params_any_layout
 
 F32_TOL, BF16_TOL, MIN_AGREEMENT = 1e-4, 5e-2, 0.98  # gan_ffn_tpu/cli/export.py
 # --model -> (checkpoint, default --n-classes, default --batch-size)
-CHECKPOINTS = {"gan_ffn": ("classifier_best.pt", 6, 32),
-               "dialoguernn": ("dialoguernn_classifier_best.pt", 6, 30),
-               "meld": ("meld_classifier_best.pt", 7, 30)}
+CHECKPOINTS = {"gan_ffn": ("classifier_best.msgpack", 6, 32),
+               "dialoguernn": ("dialoguernn_classifier_best.msgpack", 6, 30),
+               "meld": ("meld_classifier_best.msgpack", 7, 30)}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -143,7 +145,7 @@ def load_model(args) -> nn.Module:
                                     device="cpu")
     else:
         model = MELDLSTMModel(D_m=600, D_e=300, D_h=600, n_classes=args.n_classes, device="cpu")
-    model.load_state_dict(torch.load(ckpt, map_location="cpu", weights_only=True))
+    load_params_any_layout(ckpt, model)  # written by either package, either layout
     print(f"loaded {args.model} classifier from {ckpt}")
     return model.eval()
 

@@ -4,10 +4,11 @@
     python -m gan_ffn_tpu_torch.cli.predict --data-path data/iemocap/IEMOCAP_features.pkl \\
         --model-save-path ./GAN_save/ --output predictions.json
 
-loads ``{model-save-path}/classifier_best.pt`` (written by
-``cli/train_iemocap``), classifies every utterance of the ``--split``, and
-prints the weighted F1, the classification report and the confusion
-matrix; ``--output`` writes each dialogue's predicted labels as JSON.
+loads ``{model-save-path}/classifier_best.msgpack`` (written by either
+package's ``cli/train_iemocap``, in either encoder layout), classifies
+every utterance of the ``--split``, and prints the weighted F1, the
+classification report and the confusion matrix; ``--output`` writes each
+dialogue's predicted labels as JSON.
 Batches are the trainer's test loader's: ``--batch-size`` dialogues in
 file order, no shuffle, each padded to its bucket, with the batch's longest
 dialogue as ``valid_len``.  A shorter dialogue's outputs depend on that
@@ -32,6 +33,7 @@ from ..evaluation.metrics import classification_report, confusion_matrix, f1_sco
 from ..models import GAN_FFN
 from ..serving import pin_full_f32
 from ..train.loop import batch_to_tensors
+from ..utils.checkpoint import load_params_any_layout
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -58,9 +60,8 @@ def main(argv=None) -> dict:
 
     model = GAN_FFN(n_classes=len(IEMOCAPDataset.label_names), gen_num_layers=args.num_layers,
                     device=device, dtype=torch.bfloat16 if args.bf16 else None)
-    ckpt = os.path.join(args.model_save_path, "classifier_best.pt")
-    model.load_state_dict(torch.load(ckpt, map_location=device, weights_only=True))
-    model.eval()
+    ckpt = os.path.join(args.model_save_path, "classifier_best.msgpack")
+    load_params_any_layout(ckpt, model).eval()
     print(f"loaded classifier from {ckpt} ({'bfloat16' if args.bf16 else 'float32'} on {device})")
     ds = IEMOCAPDataset(args.data_path, train=(args.split == "train"))
     loader = BucketedLoader(ds, batch_size=args.batch_size, shuffle=False)

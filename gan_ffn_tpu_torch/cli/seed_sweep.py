@@ -3,7 +3,8 @@ BASELINE.json config 5).
 
 Trains one ``GAN_FFN`` classifier per seed of ``--seeds`` on the same
 batches, from one stage A: the six networks of ``--model-save-path`` with
-``--use-trained-GAN`` where ``acoustic_gen.pt`` is there
+``--use-trained-GAN`` where ``acoustic_gen.msgpack`` is there (the port's
+trainers' or the JAX package's)
 (``cli/common.stage_a``), else ``--GAN-epochs`` of stage A, saved there.
 Seed ``s`` has its own model (weights from ``torch.Generator().manual_seed(s)``,
 the generators grafted), Adam, kernel seed source (a generator seeded
@@ -84,7 +85,7 @@ def main(argv=None) -> dict:
     dp = init_data_parallel(device)
     device, grid = dp.device, make_seed_mesh(dp)
     load = args.use_trained_GAN and os.path.exists(
-        os.path.join(args.model_save_path, "acoustic_gen.pt"))
+        os.path.join(args.model_save_path, "acoustic_gen.msgpack"))
     if load or dp.rank == 0:  # rank 0 trains and saves stage A; the others load it
         gan_state = stage_a(args, device, load, continue_epochs=0)
     if dp.group is not None:

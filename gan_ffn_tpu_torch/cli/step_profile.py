@@ -73,14 +73,15 @@ def step_batch(name: str, rng: np.random.Generator) -> dict:
 
 
 def build_step(name: str, graphed: bool, deterministic: bool = False, capturable: bool = False,
-               eps: float = 1e-8, dtype=None):
+               eps: float = 1e-8, dtype=None, dp=None):
     """``(step, named parameters, optimizers)`` of a full-width step from
     fixed weights: ``stage_b`` (``GAN_FFN``), ``dialoguernn``
     (``GAN_FFN_DialogueRNN``) or ``stage_a`` (the 12 duels), per batch or
     ``graphed`` (the epoch-fused step, whose Adams are capturable).
     ``capturable`` gives a per-batch step the capturable Adams too, so that
     it differs from the graphed step by the graph alone; ``eps`` is Adam's;
-    ``dtype`` the compute dtype (None: float32)."""
+    ``dtype`` the compute dtype (None: float32); ``dp`` (stage A only) a
+    ``parallel.mesh.DataParallel`` that makes the step data-parallel."""
     from gan_ffn_tpu_torch.cli.common import IEMOCAP_LOSS_WEIGHTS, IEMOCAP_N_CLASSES
     from gan_ffn_tpu_torch.models import GAN_FFN, GAN_FFN_DialogueRNN
     from gan_ffn_tpu_torch.nn.core import set_dropout_generator
@@ -100,7 +101,7 @@ def build_step(name: str, graphed: bool, deterministic: bool = False, capturable
             for group in opt.param_groups:
                 group["eps"] = eps
         make = make_gan_epoch_step if graphed else make_gan_train_step
-        step = make(state.modules, state.opts, deterministic=deterministic)
+        step = make(state.modules, state.opts, deterministic=deterministic, dp=dp)
         params = {f"{n}.{k}": p for n, m in state.modules.items() for k, p in m.named_parameters()}
     else:
         cls, l2 = {"stage_b": (GAN_FFN, 0.008), "dialoguernn": (GAN_FFN_DialogueRNN, 1e-5)}[name]

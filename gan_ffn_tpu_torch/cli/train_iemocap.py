@@ -8,7 +8,9 @@ Pipeline, as the reference's:
    (``cli/common.train_gan``), on loaders of its own (batch 32, valid 0.1).
    The loss history goes to ``{output_dir}/GAN_loss.csv`` and
    ``GAN_loss.png``, the six networks and their Adams to
-   ``{model_save_path}/{name}.pt`` and ``opt/{name}.pt``.  With
+   ``{model_save_path}/{name}.msgpack`` and ``opt/{name}.msgpack``, in the
+   JAX package's format (``utils/checkpoint.py``), so a directory written
+   by either package's trainer serves the other's.  With
    ``--use-trained-GAN`` the six are loaded instead (fresh Adams, as the
    reference resumes) and trained ``--continue-train-GAN-step`` more epochs,
    numbered on from the CSV's last, then saved again.
@@ -17,12 +19,20 @@ Pipeline, as the reference's:
    (coupled L2), per epoch on train, then evaluated on valid and test; the
    epoch with the lowest test loss is kept.  The report goes to
    ``{output_dir}/test_out_GAN-epochs={g}_F1-score={f1}.txt`` and the best
-   classifier's ``state_dict`` to ``{model_save_path}/classifier_best.pt``.
+   classifier's parameters to ``{model_save_path}/classifier_best.msgpack``
+   (the JAX tree of ``GAN_FFN``, which the JAX ``cli/predict.py`` and
+   ``cli/export.py`` read).
 
-The msgpack checkpoints of the JAX package are not read or written here
-(ROADMAP module note 8).  The flags of the JAX trainer are accepted by name;
-those that need a later slice are refused with the ROADMAP item that brings
-them.  ``--gan-schedule`` is accepted, and both values run the same step
+The flags of the JAX trainer are accepted by name.  ``--scan-layers``
+writes every checkpoint in the stacked encoder layout (one ``layers``
+subtree), as the JAX trainer does under it; every reader takes either
+layout.  ``--tensorboard`` writes ``./tensorboard`` event files: the
+``test: accuracy/loss`` and ``train: accuracy/loss`` scalars per epoch and
+gradient histograms per named parameter, of one sampled batch per epoch or,
+with ``--tb-grad-histograms batch``, of every step
+(``cli/common.TensorBoardLog``).  ``--profile LOGDIR`` traces stage B's
+train epoch 1 with torch.profiler into ``LOGDIR`` (``utils/profiling.py``).
+``--gan-schedule`` is accepted, and both values run the same step
 (``stepwise`` is refused with ``--epoch-fused``, as the JAX trainer refuses
 it).  ``--epoch-fused`` runs both stages' epochs fused: batches grouped by
 shape, one CUDA graph per shape on a card (eager on the CPU), as
@@ -40,7 +50,8 @@ slice of every batch with the gradients summed (``cli/common.train_gan``).
 Then rank 0 alone runs stage B and writes every file; the other ranks leave
 the group and exit.  Without a group of more than one process it prints the
 JAX trainer's "only one device" message and runs as one process.
-``--dp --epoch-fused`` is refused, as the JAX trainer refuses it.
+``--dp --epoch-fused`` is refused, as the JAX trainer refuses it, and so
+is ``--epoch-fused --tensorboard --tb-grad-histograms batch``.
 
 Seeds: ``--seed`` draws the weights of both stages (CPU ``torch.Generator``s)
 and seeds torch's RNG for stage B's dropouts outside the kernels (positional
@@ -70,8 +81,11 @@ from ..parallel.mesh import leave
 from ..train.classifier import make_classifier_epoch_steps, make_classifier_steps
 from ..train.loop import run_epoch, run_epoch_fused
 from ..train.optim import torch_adam
-from .common import (IEMOCAP_LOSS_WEIGHTS, IEMOCAP_N_CLASSES, compute_dtype, data_parallel,
-                     graft_generators, param_count, setup, stage_a)
+from ..utils.checkpoint import save_params
+from ..utils.profiling import trace
+from ..utils.weights import jax_params_from_state_dict
+from .common import (IEMOCAP_LOSS_WEIGHTS, IEMOCAP_N_CLASSES, TensorBoardLog, compute_dtype,
+                     data_parallel, graft_generators, param_count, setup, stage_a)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -90,9 +104,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--class-weight", action="store_true", default=True, help="use class weight")
     p.add_argument("--attention", action="store_true", default=False,
                    help="compat; unused by GAN_FFN")
-    p.add_argument("--tensorboard", action="store_true", default=False, help="refused for now")
+    p.add_argument("--tensorboard", action="store_true", default=False,
+                   help="write ./tensorboard event files (scalars per epoch, gradient "
+                        "histograms)")
     p.add_argument("--tb-grad-histograms", choices=("epoch", "batch"), default="epoch",
-                   help="compat; needs --tensorboard")
+                   help="with --tensorboard: one sampled batch's gradients per epoch, or "
+                        "every step's (the reference's cadence)")
     p.add_argument("--use-trained-GAN", action="store_true", default=False,
                    help="load the six GAN networks from --model-save-path")
     p.add_argument("--continue-train-GAN-step", type=int, default=5, metavar="E",
@@ -103,7 +120,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--output-dir", default="./output")
     p.add_argument("--model-save-path", default="./GAN_save/")
     p.add_argument("--num-layers", type=int, default=8, help="transformer encoder depth")
-    p.add_argument("--scan-layers", action="store_true", default=False, help="refused for now")
+    p.add_argument("--scan-layers", action="store_true", default=False,
+                   help="write the checkpoints in the stacked encoder layout (one layers "
+                        "subtree), as the JAX trainer does")
     p.add_argument("--gan-schedule", choices=("fused", "stepwise"), default="fused",
                    help="compat: both run stage A's one eager loop")
     p.add_argument("--epoch-fused", action="store_true", default=False,
@@ -123,7 +142,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--seed", type=int, default=3407)
     p.add_argument("--strict-parity", action="store_true", default=False,
                    help="replicate the reference's NaN on constant-feature normalization")
-    p.add_argument("--profile", default=None, metavar="LOGDIR", help="refused for now")
+    p.add_argument("--profile", default=None, metavar="LOGDIR",
+                   help="write a torch.profiler trace of stage B's train epoch 1 to LOGDIR")
     p.add_argument("--synthetic-train", type=int, default=120,
                    help="synthetic fixture train dialogues")
     p.add_argument("--synthetic-test", type=int, default=31)
@@ -159,6 +179,7 @@ def main(argv=None) -> dict:
     make_steps = make_classifier_epoch_steps if args.epoch_fused else make_classifier_steps
     train_step, eval_step = make_steps(model, optimizer, IEMOCAP_N_CLASSES, loss_weights)
     run = run_epoch_fused if args.epoch_fused else run_epoch
+    log = TensorBoardLog(args, model, train_loader, device, IEMOCAP_N_CLASSES, loss_weights)
 
     print("=" * 15, "data loaded", "=" * 15)
     best = None  # (loss, labels, preds, masks)
@@ -166,9 +187,12 @@ def main(argv=None) -> dict:
     for e in range(args.epochs):
         start_time = time.time()
         lr_scale = float(0.98**e) if args.lr_schedule == "decay" else None
-        train_res = run(train_loader, train_step, device, lr_scale=lr_scale)
+        with trace(args.profile if e == 1 else None, cuda=device.type == "cuda"):
+            train_res = run(train_loader, train_step, device, lr_scale=lr_scale,
+                            **log.run_kwargs(e))
         valid_res = run(valid_loader, eval_step, device)
         test_res = run(test_loader, eval_step, device)
+        log.end_epoch(e, train_res, test_res)
         if best is None or best[0] > test_res.avg_loss:
             best = (test_res.avg_loss, test_res.labels, test_res.preds, test_res.masks)
             best_state = copy.deepcopy(model.state_dict())
@@ -187,11 +211,11 @@ def main(argv=None) -> dict:
             )
         )
 
+    log.close()
     if best is None:
         parser.error("--epochs must be at least 1")
-    os.makedirs(args.model_save_path, exist_ok=True)
-    ckpt = os.path.join(args.model_save_path, "classifier_best.pt")
-    torch.save(best_state, ckpt)
+    ckpt = save_params(os.path.join(args.model_save_path, "classifier_best.msgpack"),
+                       jax_params_from_state_dict(model, best_state), args.scan_layers)
     print(f"saved best classifier to {ckpt}")
     best_loss, best_label, best_pred, best_mask = best
     print("Test performance..")

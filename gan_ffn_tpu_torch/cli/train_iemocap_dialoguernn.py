@@ -6,8 +6,9 @@ Pipeline, as the reference's:
 
 1. Stage A, as the flagship trainer runs it (``cli/common.stage_a``, batch
    32): with ``--use-trained-GAN`` (the default) the six networks are
-   loaded from ``{model_save_path}/*.pt`` where ``acoustic_gen.pt`` exists,
-   so the flagship trainer's checkpoints serve; otherwise, or with
+   loaded from ``{model_save_path}/*.msgpack`` where ``acoustic_gen.msgpack``
+   exists, so the flagship trainer's checkpoints (or the JAX package's)
+   serve; otherwise, or with
    ``--fresh-GAN``, they are trained for ``--GAN-epochs`` epochs and saved
    with their loss history.
 2. The three trained generators are grafted into ``GAN_FFN_DialogueRNN``
@@ -15,20 +16,21 @@ Pipeline, as the reference's:
 3. Stage B: per epoch, train, then evaluate on valid and test; the epoch
    with the lowest test loss is kept, with its test attention weights
    (att2's ``alpha`` and the two directions' ``alpha_f``, ``alpha_b``, cut
-   to each batch's real dialogues, with their ``vids``).  Its
-   ``state_dict`` goes to ``{model_save_path}/dialoguernn_classifier_best.pt``;
-   the metrics are printed (no report file, as the reference).
+   to each batch's real dialogues, with their ``vids``).  Its parameters
+   go to ``{model_save_path}/dialoguernn_classifier_best.msgpack``, in the
+   JAX package's format (``utils/checkpoint.py``); the metrics are printed
+   (no report file, as the reference).
 
 Reference defaults that differ from the flagship trainer: batch 30, 100
 epochs, ``--l2 1e-5``, ``--rec-dropout 0.1``, ``--dropout 0.6``,
 ``--attention general`` (the context attention), ``--active-listener``
 off.  ``--dp`` runs a stage A that trains (``--fresh-GAN``, or no
-``acoustic_gen.pt`` to load) data-parallel, as the flagship trainer's
+``acoustic_gen.msgpack`` to load) data-parallel, as the flagship trainer's
 ``--dp`` does: launched by ``python -m torch.distributed.run``, rank 0
 alone runs stage B, and ``--dp --epoch-fused`` is refused.
-``--scan-layers`` and ``--tensorboard`` are refused with
-the ROADMAP item that brings them; ``--tb-grad-histograms`` is accepted for
-``--tensorboard``'s sake, as in the flagship trainer.  ``--epoch-fused``
+``--scan-layers`` writes the checkpoints in the stacked encoder layout, and
+``--tensorboard`` with ``--tb-grad-histograms`` logs as the flagship
+trainer's (``cli/common.TensorBoardLog``).  ``--epoch-fused``
 runs both stages' epochs fused, as the flagship trainer's does, and
 ``--gan-schedule`` is accepted for stage A (both values run the same step;
 ``stepwise`` is refused with ``--epoch-fused``).  ``--bf16`` runs both
@@ -67,8 +69,10 @@ from ..parallel.mesh import leave
 from ..train.classifier import make_classifier_epoch_steps, make_classifier_steps
 from ..train.loop import run_epoch, run_epoch_fused
 from ..train.optim import torch_adam
-from .common import (IEMOCAP_LOSS_WEIGHTS, IEMOCAP_N_CLASSES, compute_dtype, data_parallel,
-                     graft_generators, param_count, setup, stage_a)
+from ..utils.checkpoint import save_params
+from ..utils.weights import jax_params_from_state_dict
+from .common import (IEMOCAP_LOSS_WEIGHTS, IEMOCAP_N_CLASSES, TensorBoardLog, compute_dtype,
+                     data_parallel, graft_generators, param_count, setup, stage_a)
 
 # DialogueRNN widths (train_IEMOCAP_DialogueRNN.py:635-641)
 D_m, D_g, D_p, D_e, D_h, D_a = 100, 500, 500, 100, 100, 100
@@ -91,9 +95,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--GAN-epochs", type=int, default=150, metavar="E")
     p.add_argument("--class-weight", action="store_true", default=True)
     p.add_argument("--active-listener", action="store_true", default=False)
-    p.add_argument("--tensorboard", action="store_true", default=False, help="refused for now")
+    p.add_argument("--tensorboard", action="store_true", default=False,
+                   help="write ./tensorboard event files (scalars per epoch, gradient "
+                        "histograms)")
     p.add_argument("--tb-grad-histograms", choices=("epoch", "batch"), default="epoch",
-                   help="compat; needs --tensorboard")
+                   help="with --tensorboard: one sampled batch's gradients per epoch, or "
+                        "every step's (the reference's cadence)")
     p.add_argument("--use-trained-GAN", action="store_true", default=True,
                    help="load the six GAN networks from --model-save-path where they exist")
     p.add_argument("--fresh-GAN", dest="use_trained_GAN", action="store_false",
@@ -104,7 +111,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--output-dir", default="./output")
     p.add_argument("--model-save-path", default="./GAN_save/")
     p.add_argument("--num-layers", type=int, default=8, help="transformer encoder depth")
-    p.add_argument("--scan-layers", action="store_true", default=False, help="refused for now")
+    p.add_argument("--scan-layers", action="store_true", default=False,
+                   help="write the checkpoints in the stacked encoder layout (one layers "
+                        "subtree), as the JAX trainer does")
     p.add_argument("--gan-schedule", choices=("fused", "stepwise"), default="fused",
                    help="compat: both run stage A's one eager loop")
     p.add_argument("--epoch-fused", action="store_true", default=False,
@@ -134,7 +143,7 @@ def main(argv=None) -> dict:
     args, device = setup(parser, argv)
     dp, device = data_parallel(args, device)
     load = args.use_trained_GAN and os.path.exists(
-        os.path.join(args.model_save_path, "acoustic_gen.pt"))
+        os.path.join(args.model_save_path, "acoustic_gen.msgpack"))
     gan_state = stage_a(args, device, load, continue_epochs=0, dp=dp)
     leave(dp)
     if dp is not None and dp.rank != 0:
@@ -163,15 +172,18 @@ def main(argv=None) -> dict:
     make_steps = make_classifier_epoch_steps if args.epoch_fused else make_classifier_steps
     train_step, eval_step = make_steps(model, optimizer, IEMOCAP_N_CLASSES, loss_weights)
     run = run_epoch_fused if args.epoch_fused else run_epoch
+    log = TensorBoardLog(args, model, train_loader, device, IEMOCAP_N_CLASSES, loss_weights)
 
     best = None  # (loss, labels, preds, masks, attentions)
     best_state = None
     for e in range(args.epochs):
         start_time = time.time()
         lr_scale = float(0.98**e) if args.lr_schedule == "decay" else None
-        train_res = run(train_loader, train_step, device, lr_scale=lr_scale)
+        train_res = run(train_loader, train_step, device, lr_scale=lr_scale,
+                        **log.run_kwargs(e))
         valid_res = run(valid_loader, eval_step, device)
         test_res = run(test_loader, eval_step, device)
+        log.end_epoch(e, train_res, test_res)
         if best is None or best[0] > test_res.avg_loss:
             best = (test_res.avg_loss, test_res.labels, test_res.preds, test_res.masks,
                     test_res.attentions)
@@ -190,11 +202,11 @@ def main(argv=None) -> dict:
             )
         )
 
+    log.close()
     if best is None:
         parser.error("--epochs must be at least 1")
-    os.makedirs(args.model_save_path, exist_ok=True)
-    ckpt = os.path.join(args.model_save_path, "dialoguernn_classifier_best.pt")
-    torch.save(best_state, ckpt)
+    ckpt = save_params(os.path.join(args.model_save_path, "dialoguernn_classifier_best.msgpack"),
+                       jax_params_from_state_dict(model, best_state), args.scan_layers)
     print(f"saved best classifier to {ckpt}")
     best_loss, best_label, best_pred, best_mask, best_attn = best
     final_f1 = round(

@@ -8,17 +8,19 @@ valid split 0.0, so the valid loader is empty and its metrics print as
 ``nan``.  Per epoch: train, then evaluate on valid and test; the epoch with
 the **highest test F1** is kept (train_MELD.py:175-177, unlike the IEMOCAP
 trainers' lowest test loss), with its test attention weights (``alpha``,
-cut to each batch's real dialogues, with their ``vids``).  Its
-``state_dict`` goes to ``{model_save_path}/meld_classifier_best.pt``, and
-its report and confusion matrix are printed.
+cut to each batch's real dialogues, with their ``vids``).  Its parameters
+go to ``{model_save_path}/meld_classifier_best.msgpack``, in the JAX
+package's format (``utils/checkpoint.py``), and its report and confusion
+matrix are printed.
 
 ``--epoch-fused`` runs the epochs as the IEMOCAP trainers' do: batches
 grouped by shape, one CUDA graph per shape replayed for its batches (eager
 on the CPU).  ``--bf16`` computes in bfloat16 from float32 parameters cast
 at each use (the LSTM at bf16, the attention's epilogue and the
 log-softmax in float32); the checkpoint stays float32.  ``--tensorboard``
-is refused with the ROADMAP item that brings it; ``--tb-grad-histograms``
-and ``--attention`` are accepted as the JAX trainer's are.  ``--device``
+with ``--tb-grad-histograms`` logs as the IEMOCAP trainers' do
+(``cli/common.TensorBoardLog``, the unweighted loss's gradients);
+``--attention`` is accepted as the JAX trainer's is.  ``--device``
 (default ``cuda``) picks the device; ``--no-cuda`` asks for the CPU.
 
 Seeds: ``--seed`` draws the weights (a CPU ``torch.Generator``), seeds
@@ -43,7 +45,9 @@ from ..models import MELDLSTMModel
 from ..train.classifier import make_classifier_epoch_steps, make_classifier_steps
 from ..train.loop import run_epoch, run_epoch_fused
 from ..train.optim import torch_adam
-from .common import compute_dtype, param_count, setup
+from ..utils.checkpoint import save_params
+from ..utils.weights import jax_params_from_state_dict
+from .common import TensorBoardLog, compute_dtype, param_count, setup
 
 D_m, D_e, D_h = 600, 300, 600  # train_MELD.py:143-145
 
@@ -60,9 +64,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--epochs", type=int, default=50, metavar="E")
     p.add_argument("--attention", action="store_true", default=True,
                    help="compat: the model always attends (att2)")
-    p.add_argument("--tensorboard", action="store_true", default=False, help="refused for now")
+    p.add_argument("--tensorboard", action="store_true", default=False,
+                   help="write ./tensorboard event files (scalars per epoch, gradient "
+                        "histograms)")
     p.add_argument("--tb-grad-histograms", choices=("epoch", "batch"), default="epoch",
-                   help="compat; needs --tensorboard")
+                   help="with --tensorboard: one sampled batch's gradients per epoch, or "
+                        "every step's (the reference's cadence)")
     p.add_argument("--classify", default="emotion", choices=("emotion", "sentiment"))
     p.add_argument("--epoch-fused", action="store_true", default=False,
                    help="batches grouped by shape, one CUDA graph per shape replayed for its "
@@ -101,14 +108,16 @@ def main(argv=None) -> dict:
     make_steps = make_classifier_epoch_steps if args.epoch_fused else make_classifier_steps
     train_step, eval_step = make_steps(model, optimizer, n_classes)
     run = run_epoch_fused if args.epoch_fused else run_epoch
+    log = TensorBoardLog(args, model, train_loader, device, n_classes)
 
     best = None  # (fscore, loss, labels, preds, masks, attentions)
     best_state = None
     for e in range(args.epochs):
         start_time = time.time()
-        train_res = run(train_loader, train_step, device)
+        train_res = run(train_loader, train_step, device, **log.run_kwargs(e))
         valid_res = run(valid_loader, eval_step, device)
         test_res = run(test_loader, eval_step, device)
+        log.end_epoch(e, train_res, test_res)
         if best is None or best[0] < test_res.avg_fscore:
             best = (test_res.avg_fscore, test_res.avg_loss, test_res.labels, test_res.preds,
                     test_res.masks, test_res.attentions)
@@ -129,11 +138,11 @@ def main(argv=None) -> dict:
         print(classification_report(test_res.labels, test_res.preds,
                                     sample_weight=test_res.masks, digits=4))
 
+    log.close()
     if best is None:
         parser.error("--epochs must be at least 1")
-    os.makedirs(args.model_save_path, exist_ok=True)
-    ckpt = os.path.join(args.model_save_path, "meld_classifier_best.pt")
-    torch.save(best_state, ckpt)
+    ckpt = save_params(os.path.join(args.model_save_path, "meld_classifier_best.msgpack"),
+                       jax_params_from_state_dict(model, best_state))
     print(f"saved best classifier to {ckpt}")
     best_fscore, best_loss, best_label, best_pred, best_mask, best_attn = best
     print("Test performance..")

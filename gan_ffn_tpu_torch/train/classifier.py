@@ -40,7 +40,8 @@ batch on every rank.  Without a group the steps are the single-process
 ones, bit for bit.
 
 ``graft_generator_params`` moves adversarially trained generators into a
-classifier's ``state_dict``, by key prefix.
+classifier's ``state_dict``, by key prefix.  :func:`make_grad_fn` takes one
+batch's gradients without an update, for ``--tensorboard``'s histograms.
 """
 
 from __future__ import annotations
@@ -52,6 +53,7 @@ import torch
 
 from ..nn.core import dropout_seeds_of
 from ..nn.losses import masked_nll_loss, nll_denominator
+from ..ops.dropout import draw_seed, host_to_device
 from ..parallel.mesh import (DataParallel, active, all_gather_cat, all_reduce_grads,
                              all_reduce_sum, shard_batch)
 from .graphs import ShapeGraphs
@@ -199,3 +201,45 @@ def _steps(model, optimizer, n_classes, loss_weights, deterministic, graphed, dp
     eval_step.graphs = eval_run if graphed else None
     return train_step, eval_step
 
+
+def make_grad_fn(
+    model: torch.nn.Module,
+    n_classes: int,
+    loss_weights: Optional[torch.Tensor] = None,
+    deterministic: bool = False,
+    seed: int = 0,
+) -> Callable[[Mapping], Dict[str, torch.Tensor]]:
+    """``grad_fn(batch) -> {name: gradient}`` (counterpart of
+    ``gan_ffn_tpu/train/classifier.py::make_grad_fn``): the gradient of one
+    batch's masked NLL with respect to every parameter of ``model``, keyed
+    by its ``named_parameters()`` name, in training mode (every dropout on
+    unless ``deterministic``), without an update and without touching
+    ``.grad``.  It backs ``--tensorboard``'s per-epoch gradient histograms
+    (the reference logs every parameter's ``.grad`` every batch,
+    train_IEMOCAP.py:166-168).  Its kernel dropout seeds come from a
+    generator of its own, seeded with ``seed``, and torch's RNG is restored
+    after it, so the training draws what it would draw without it."""
+    draws = any(hasattr(m, "dropout_seeds") for m in model.modules())
+    seeds = None if deterministic or not draws else dropout_seeds_of([model])
+    generator = torch.Generator().manual_seed(seed)
+    names, params = zip(*model.named_parameters())
+
+    def grad_fn(batch: Mapping) -> Dict[str, torch.Tensor]:
+        device = batch["label"].device
+        training = model.training
+        model.train(not deterministic)
+        base = (None if seeds is None else
+                host_to_device(torch.tensor(draw_seed(generator), dtype=torch.int64), device))
+        try:
+            with torch.random.fork_rng(devices=[device] if device.type == "cuda" else []), \
+                    seeds.step(base) if seeds is not None else contextlib.nullcontext():
+                out = model(*(batch[k] for k in model.INPUTS), valid_len=batch["valid_len"])
+                log_prob = out[0] if model.ATTENTIONS else out
+                loss, _ = loss_and_preds(log_prob, batch, n_classes, loss_weights)
+                grads = torch.autograd.grad(loss, params, allow_unused=True,
+                                            materialize_grads=True)
+        finally:
+            model.train(training)
+        return dict(zip(names, grads))
+
+    return grad_fn

@@ -45,6 +45,9 @@ duels on its rank's slice, sums each duel's gradients over the group
 before that net's Adam step (twelve all-reduces: each duel's update feeds
 the next duel) and sums the twelve losses once at the end.  Without a
 group the step is the single-process one, bit for bit.
+``make_gan_epoch_step(..., dp=...)`` is the same step for the
+epoch-fused stage A (counterpart of ``make_gan_epoch_step(cfg,
+mesh=mesh)``): on a card its CUDA graph records the all-reduces too.
 """
 
 from __future__ import annotations
@@ -191,14 +194,18 @@ def make_gan_train_step(modules: Mapping[str, nn.Module], opts: Mapping[str, tor
 
 
 def make_gan_epoch_step(modules: Mapping[str, nn.Module], opts: Mapping[str, torch.optim.Adam],
-                        deterministic: bool = False) -> Callable[[Mapping], Dict[str, torch.Tensor]]:
+                        deterministic: bool = False, dp: Optional[DataParallel] = None,
+                        ) -> Callable[[Mapping], Dict[str, torch.Tensor]]:
     """The step of :func:`make_gan_train_step` for the epoch-fused stage A
     (counterpart of ``gan_ffn_tpu/train/gan.py::make_gan_epoch_step``),
     dispatched through ``train.graphs.ShapeGraphs`` (mode ``stage_a``),
     which ``step.graphs`` holds: on a card one graph per batch shape, the
     12 duels, their ``torch.autograd.grad`` and the twelve updates of the
-    six Adams in it, made capturable in place (``train.optim.make_capturable``)."""
-    return _gan_step(modules, opts, deterministic, graphed=True)
+    six Adams in it, made capturable in place (``train.optim.make_capturable``).
+    ``dp`` makes it the data-parallel step of :func:`make_gan_train_step`,
+    whose graph then records the twelve gradient all-reduces and the loss
+    sum as well."""
+    return _gan_step(modules, opts, deterministic, graphed=True, dp=active(dp))
 
 
 def _gan_step(modules, opts, deterministic, graphed, dp=None):
@@ -216,6 +223,10 @@ def _gan_step(modules, opts, deterministic, graphed, dp=None):
         for p, g in zip(params[net], grads):
             p.grad = g
         if dp is not None:
+            # In a graphed step NCCL's all-reduce is captured with the rest: with
+            # an NCCL group of one on an H100 (torch 2.11, NCCL 2.28.9) capture
+            # and replays hold and give the per-batch step's bits over 3 depth-8
+            # steps (chip_smoke.py phase 12); across cards it is not measured.
             all_reduce_grads(params[net], dp)
         opts[net].step()
 

@@ -89,18 +89,24 @@ def run_epoch(
     step: Callable,
     device,
     lr_scale: Optional[float] = None,
+    on_batch: Optional[Callable[[int, Dict[str, object], tuple], None]] = None,
 ) -> EpochResult:
     """One epoch of ``step`` (a ``train_step`` or an ``eval_step`` of
     ``train.classifier.make_classifier_steps``) over ``loader``.
     ``lr_scale`` is handed to a train step; None leaves its lr.  An eval
     step that returns ``(loss, preds, attentions)`` fills
     ``EpochResult.attentions``.  A train step draws its dropout seed base
-    itself, in loader order."""
+    itself, in loader order.  ``on_batch(i, tensors, out)`` is called after
+    batch ``i``'s step (``--tb-grad-histograms batch``: a train step leaves
+    the gradients it applied in the parameters' ``.grad``); a hook that reads
+    them waits for the step."""
     batches, outs = [], []
-    for batch in loader:
+    for i, batch in enumerate(loader):
         tensors = batch_to_tensors(batch, device)
         outs.append(step(tensors) if lr_scale is None else step(tensors, lr_scale))
         batches.append(batch)
+        if on_batch is not None:
+            on_batch(i, tensors, outs[-1])
     return epoch_result(batches, outs)
 
 

@@ -51,6 +51,7 @@ from gan_ffn_tpu_torch.cli import serve as serve_cli
 from gan_ffn_tpu_torch.models import GAN_FFN
 from gan_ffn_tpu_torch.ops import attention as TA
 from gan_ffn_tpu_torch.ops import mlp as TM
+from gan_ffn_tpu_torch.utils.checkpoint import save_params
 from gan_ffn_tpu_torch.utils.weights import gan_ffn_state_dict_from_jax, state_dict_from_jax
 
 BF16_TOL = 2.0 ** -8  # relative to max(1, max |ref|)
@@ -410,12 +411,11 @@ def test_export_cli_refuses_later_families(family, tmp_path, capsys):
     gen = torch.Generator().manual_seed(0)
     if family == "dialoguernn":
         model = GAN_FFN_DialogueRNN(n_classes=6, gen_num_layers=1, generator=gen, device="cpu")
-        ckpt, served = "dialoguernn_classifier_best.pt", "gan_ffn_dialoguernn"
+        ckpt, served = "dialoguernn_classifier_best.msgpack", "gan_ffn_dialoguernn"
     else:
         model = MELDLSTMModel(D_m=600, D_e=300, D_h=600, n_classes=7, generator=gen, device="cpu")
-        ckpt, served = "meld_classifier_best.pt", "meld_lstm"
-    (tmp_path / "GAN_save").mkdir()
-    torch.save(model.state_dict(), tmp_path / "GAN_save" / ckpt)
+        ckpt, served = "meld_classifier_best.msgpack", "meld_lstm"
+    save_params(str(tmp_path / "GAN_save" / ckpt), model)
     out = tmp_path / f"{family}.pt"
     res = export_cli.main(["--model", family, "--model-save-path", str(tmp_path / "GAN_save"),
                            "--output", str(out), "--num-layers", "1", "--batch-size", "4",

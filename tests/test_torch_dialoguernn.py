@@ -45,6 +45,7 @@ from gan_ffn_tpu_torch.nn.recurrent import GRUCell
 from gan_ffn_tpu_torch.train.classifier import make_classifier_steps
 from gan_ffn_tpu_torch.train.loop import batch_to_tensors, run_epoch
 from gan_ffn_tpu_torch.train.optim import torch_adam
+from gan_ffn_tpu_torch.utils.checkpoint import read_state_dict
 from gan_ffn_tpu_torch.utils.weights import state_dict_from_jax
 
 REPO = Path(__file__).resolve().parents[1]
@@ -449,10 +450,9 @@ def test_cli_trains_on_the_cpu(tmp_path, short_dialogues):
     assert (tmp_path / "output" / "GAN_loss.csv").is_file()
     for name in ("acoustic", "visual", "text"):
         for kind in ("gen", "disc"):
-            assert (tmp_path / "GAN_save" / f"{name}_{kind}.pt").is_file()
-            assert (tmp_path / "GAN_save" / "opt" / f"{name}_{kind}.pt").is_file()
-    state = torch.load(tmp_path / "GAN_save" / "dialoguernn_classifier_best.pt",
-                       weights_only=True)
+            assert (tmp_path / "GAN_save" / f"{name}_{kind}.msgpack").is_file()
+            assert (tmp_path / "GAN_save" / "opt" / f"{name}_{kind}.msgpack").is_file()
+    state = read_state_dict(tmp_path / "GAN_save" / "dialoguernn_classifier_best.msgpack")
     assert set(state) == set(GAN_FFN_DialogueRNN(gen_num_layers=1, device="cpu").state_dict())
     again = _cli(tmp_path, *common, "--epochs", "1")
     assert again.returncode == 0, again.stderr
@@ -472,11 +472,42 @@ def test_cli_main_returns_the_best_epoch(tmp_path, monkeypatch, short_dialogues)
         assert [a.shape[1] for a in attn[key]] == [len(v) for v in attn["vids"]]
 
 
+@pytest.mark.parametrize("flag", ["--scan-layers", "--tensorboard"])
+def test_cli_takes_scan_layers_and_tensorboard(flag, tmp_path, monkeypatch, short_dialogues):
+    """The two flags that were refused before the JAX checkpoint slice:
+    ``--scan-layers`` writes the six networks, their Adams and the best
+    classifier in the stacked encoder layout (one ``layers`` subtree), which
+    the readers take back; ``--tensorboard`` writes the two scalars per epoch
+    and one gradient histogram per named parameter."""
+    from gan_ffn_tpu_torch.utils.checkpoint import load_params
+
+    monkeypatch.chdir(tmp_path)
+    CLI.main(["--data-path", short_dialogues, "--fresh-GAN", "--GAN-epochs", "0", "--epochs",
+              "1", "--num-layers", "1", "--device", "cpu", "--batch-size", "8", flag])
+    save = tmp_path / "GAN_save"
+    model = GAN_FFN_DialogueRNN(gen_num_layers=1, device="cpu")
+    if flag == "--scan-layers":
+        gen = load_params(save / "acoustic_gen.msgpack")["net"]["transformer_encoder"]
+        assert list(gen) == ["layers"] and gen["layers"]["linear1"]["kernel"].shape == (1, 100, 2048)
+        opt = load_params(save / "opt" / "acoustic_gen.msgpack")["0"]["mu"]
+        assert list(opt["net"]["transformer_encoder"]) == ["layers"]
+        clf = save / "dialoguernn_classifier_best.msgpack"
+        assert "layers" in load_params(clf)["text_generator"]["net"]["transformer_encoder"]
+        assert set(read_state_dict(clf)) == set(model.state_dict())
+    else:
+        pytest.importorskip("tensorboard")
+        from tb_events import read_events
+
+        scalars, hists = read_events(tmp_path / "tensorboard")
+        assert scalars == {"test: accuracy/loss": [0], "train: accuracy/loss": [0]}
+        assert hists == {n: [0] for n, _ in model.named_parameters()}
+
+
 @pytest.mark.parametrize("flags,item", [
     (["--epoch-fused", "--gan-schedule", "stepwise"], "--gan-schedule stepwise"),
     (["--dp", "--epoch-fused"], "not wired for --dp"),
-    (["--scan-layers"], "module note 15"),
-    (["--tensorboard"], "module note 15"),
+    (["--epoch-fused", "--tensorboard", "--tb-grad-histograms", "batch"],
+     "--tb-grad-histograms batch"),
 ])
 def test_cli_refuses_what_later_slices_bring(flags, item, capsys):
     with pytest.raises(SystemExit) as exc:

@@ -29,7 +29,7 @@ from gan_ffn_tpu_torch.data import get_iemocap_loaders, write_synthetic_iemocap
 from gan_ffn_tpu_torch.models import AcousticDiscriminator, TextDiscriminator, VisualDiscriminator
 from gan_ffn_tpu_torch.nn.losses import bce_loss
 from gan_ffn_tpu_torch.train import gan as TG
-from gan_ffn_tpu_torch.utils.checkpoint import load_gan_state, save_gan_state
+from gan_ffn_tpu_torch.utils.checkpoint import load_gan_state, read_state_dict, save_gan_state
 from gan_ffn_tpu_torch.utils.weights import gan_state_dicts_from_jax, state_dict_from_jax
 
 L, B, VALID_LEN, N_REAL = 16, 4, 12, 3
@@ -327,11 +327,12 @@ def test_cli_runs_stage_a_and_resumes(tmp_path, monkeypatch):
         assert [int(r["epoch"]) for r in rows] == list(range(run + 1))
         assert all(np.isfinite(float(v)) for r in rows for v in r.values())
         for name in TG.GEN_NAMES + TG.DISC_NAMES:
-            assert (save / f"{name}.pt").is_file() and (save / "opt" / f"{name}.pt").is_file()
+            assert ((save / f"{name}.msgpack").is_file()
+                    and (save / "opt" / f"{name}.msgpack").is_file())
         for clf_key, gan_key in (("acoustic_generator", "acoustic_gen"),
                                  ("visual_generator", "visual_gen"),
                                  ("text_generator", "text_gen")):
-            saved = torch.load(save / f"{gan_key}.pt", weights_only=True)
+            saved = read_state_dict(save / f"{gan_key}.msgpack")
             for k, v in saved.items():
                 assert torch.equal(first_models[run][f"{clf_key}.{k}"], v), (run, gan_key, k)
 

@@ -42,6 +42,7 @@ from gan_ffn_tpu_torch.nn.core import hardswish
 from gan_ffn_tpu_torch.train.classifier import make_classifier_steps
 from gan_ffn_tpu_torch.train.loop import batch_to_tensors
 from gan_ffn_tpu_torch.train.optim import torch_adam
+from gan_ffn_tpu_torch.utils.checkpoint import all_float32, read_state_dict
 from gan_ffn_tpu_torch.utils.weights import meld_state_dict_from_jax
 
 REPO = Path(__file__).resolve().parents[1]
@@ -386,17 +387,39 @@ def test_cli_trains_two_epochs_on_the_cpu(tmp_path):
     assert all(math.isfinite(float(f["train_loss"])) for f in fields)
     best = max(float(f["test_fscore"]) for f in fields)
     assert f"F1-score {best}" in res.stdout
-    state = torch.load(tmp_path / "GAN_save" / "meld_classifier_best.pt", weights_only=True)
-    assert state["lstm.weight_ih_l0"].shape == (1200, 600)
-    assert all(v.dtype == torch.float32 for v in state.values())
+    path = tmp_path / "GAN_save" / "meld_classifier_best.msgpack"
+    assert read_state_dict(path)["lstm.weight_ih_l0"].shape == (1200, 600)
+    assert all_float32(path)
     assert (tmp_path / "data" / "meld" / "MELD_features_raw.pkl").exists()
 
 
-def test_cli_refuses_tensorboard(capsys):
-    with pytest.raises(SystemExit) as exc:
-        CLI.main(["--tensorboard", "--device", "cpu"])
-    assert exc.value.code == 2
-    assert "not ported yet (ROADMAP module note 15" in capsys.readouterr().err
+@pytest.mark.parametrize("cadence", ["epoch", "batch"])
+def test_cli_tensorboard_logs_scalars_and_histograms(tmp_path, monkeypatch, cadence):
+    """``--tensorboard`` (refused before the JAX checkpoint slice): the two
+    scalars per epoch and one histogram per named parameter, per epoch or
+    per train batch.  ``--epoch-fused`` with the ``batch`` cadence is
+    refused, as in JAX."""
+    tb = pytest.importorskip("tensorboard")  # noqa: F841
+    from tb_events import read_events
+
+    data = write_synthetic_meld(str(tmp_path / "meld.pkl"), n_train=12, n_test=4, min_len=3,
+                                max_len=8, seed=2)
+    monkeypatch.chdir(tmp_path)
+    CLI.main(["--data-path", data, "--device", "cpu", "--epochs", "2", "--batch-size", "8",
+              "--tensorboard", "--tb-grad-histograms", cadence])
+    scalars, hists = read_events(tmp_path / "tensorboard")
+    assert sorted(scalars) == ["test: accuracy/loss", "train: accuracy/loss"]
+    assert all(steps == [0, 1] for steps in scalars.values())
+    names = [n for n, _ in MELDLSTMModel(D_m=600, D_e=300, D_h=600, n_classes=7,
+                                         device="cpu").named_parameters()]
+    assert sorted(hists) == sorted(names)
+    per_epoch = 1 if cadence == "epoch" else 2  # 12 dialogues in batches of 8
+    assert all(steps == [0] * per_epoch + [1] * per_epoch for steps in hists.values())
+    if cadence == "batch":
+        with pytest.raises(SystemExit) as exc:
+            CLI.main(["--data-path", data, "--device", "cpu", "--epochs", "1", "--epoch-fused",
+                      "--tensorboard", "--tb-grad-histograms", "batch"])
+        assert exc.value.code == 2
 
 
 @pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
@@ -414,7 +437,7 @@ def test_epoch_fused_matches_the_per_batch_loop_bit_for_bit(tmp_path, monkeypatc
         argv = ["--data-path", data, "--device", "cpu", "--epochs", "2", "--batch-size", "16",
                 "--model-save-path", str(save)] + ["--epoch-fused"] * fused + ["--bf16"] * bf16
         res = CLI.main(argv)
-        out[fused] = (res, torch.load(save / "meld_classifier_best.pt", weights_only=True))
+        out[fused] = (res, read_state_dict(save / "meld_classifier_best.msgpack"))
     (r0, s0), (r1, s1) = out[False], out[True]
     assert (r0["best_loss"], r0["f1"]) == (r1["best_loss"], r1["f1"])
     assert set(s0) == set(s1)

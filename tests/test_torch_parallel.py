@@ -5,7 +5,9 @@ Two ranks run as spawned gloo processes (``tests/torch_dp_ranks.py``), one
 intra-op thread each, with a timeout on the rendezvous and on the join; the
 JAX references (``make_gan_train_step(cfg, mesh=...)`` and the classifier
 step on a 2-device mesh) are computed here, in the parent, while they run.
-Every step is deterministic (rate 0) at depth 1, L = 8, B = 4.  Tolerances:
+Every step is deterministic (rate 0) at depth 1, L = 8, B = 4, but for the
+epoch-fused stage A's run with every dropout on (held between its ranks
+and to the per-batch loop, in bits).  Tolerances:
 against the port's single process, losses 1e-6 relative and parameters 1e-6
 of max(1, max |ref|); against JAX those of tests/test_torch_gan.py (losses
 1e-5 relative, parameters 1e-6) and tests/test_torch_train.py.
@@ -137,6 +139,8 @@ def dp_run(tmp_path_factory, cpu_devices):
               "clf_batch": _port_batch(clf_host, L, CLF_N_REAL),
               "weights": torch.from_numpy(IEMOCAP_LOSS_WEIGHTS), "eps": EPS,
               "sweep_seeds": SWEEP_SEEDS}
+    inputs["fixture"] = write_synthetic_iemocap(str(out / "fused.pkl"), n_train=8, n_test=2,
+                                                min_len=4, max_len=12, seed=1)
     torch.save(inputs, out / "inputs.pt")
     env = {**os.environ, "WORLD_SIZE": "2", "MASTER_ADDR": "127.0.0.1",
            "MASTER_PORT": str(_free_port()), "OMP_NUM_THREADS": "1",
@@ -162,6 +166,7 @@ def dp_run(tmp_path_factory, cpu_devices):
         with one_thread():
             refs["gan"] = _port_gan_step(inputs)
             refs["clf"] = _port_clf_step(inputs)
+            refs["fused"] = _port_fused_epoch(inputs)
             refs["fold_mask"] = keep_scale(StepSeeds(torch.Generator().manual_seed(7)).draw(),
                                            STREAM_ATTENTION, (4, 64), 0.5)
             refs["sweep"] = {}
@@ -209,6 +214,23 @@ def _port_gan_step(inputs):
     losses = TG.make_gan_train_step(state.modules, state.opts, deterministic=True)(inputs["gan_batch"])
     return ([losses[f"duel_{i}"].item() for i in range(12)],
             {n: m.state_dict() for n, m in state.modules.items()})
+
+
+def _port_fused_epoch(inputs):
+    """One process's deterministic stage-A epoch over the ranks' loader."""
+    from gan_ffn_tpu_torch.data import get_iemocap_loaders
+
+    state = TG.init_gan_state(TG.GANConfig(num_layers=1), device="cpu")
+    for name, sd in inputs["gan"].items():
+        state.modules[name].load_state_dict(sd, strict=True)
+    for opt in state.opts.values():
+        for group in opt.param_groups:
+            group["eps"] = EPS
+    loader = get_iemocap_loaders(inputs["fixture"], batch_size=4, valid=0.0, seed=0)[0]
+    step = TG.make_gan_train_step(state.modules, state.opts, deterministic=True)
+    _, history = COMMON.train_gan(TG.GANConfig(num_layers=1, seed=0), loader, 1, state=state,
+                                  device="cpu", log=lambda line: None, step=step)
+    return history, {n: m.state_dict() for n, m in state.modules.items()}
 
 
 def _port_clf_step(inputs):
@@ -319,6 +341,39 @@ def test_dp_stage_a_step_matches_one_process(dp_run):
         assert all(torch.equal(v, ranks[1]["gan"]["state"][name][k]) for k, v in sd.items()), name
 
 
+def test_dp_epoch_fused_stage_a_matches_the_per_batch_loop_and_one_process(dp_run):
+    """``train_gan(dp=, epoch_fused=True)`` for one epoch on a one-bucket
+    loader (two batches of 4): deterministic, equal to the per-batch DP loop
+    in bits on both ranks and to one process within 1e-6 (loss rows
+    relative, parameters of max(1, max |ref|)); with every dropout on (the
+    trainers' step), equal to the per-batch DP loop in bits; in each run both
+    ranks end with equal parameters after all-reducing the gradients (twelve
+    all-reduces and one loss sum per batch); the trainers' step builder hands
+    the rank to the epoch step's seed source."""
+    refs, ranks, _ = dp_run
+    history, want = refs["fused"]
+    for rank in ranks:
+        runs = rank["fused"]
+        assert runs["step_rank"] == rank["rank"]
+        for deterministic in (True, False):
+            fused, per_batch = runs[(True, deterministic)], runs[(False, deterministic)]
+            assert fused["history"] == per_batch["history"]
+            for name, sd in per_batch["state"].items():
+                for k, v in sd.items():
+                    assert torch.equal(fused["state"][name][k], v), (deterministic, name, k)
+            assert fused["all_reduces"] == per_batch["all_reduces"] == 2 * 13
+        got = runs[(True, True)]
+        for row, ref in zip(got["history"], history):
+            for k, v in ref.items():
+                assert abs(row[k] - v) <= TOL * max(1.0, abs(v)), (k, row[k], v)
+        for name, sd in want.items():
+            _close(got["state"][name], sd, what=f"rank {rank['rank']} {name}")
+    for deterministic in (True, False):
+        for name, sd in ranks[0]["fused"][(True, deterministic)]["state"].items():
+            other = ranks[1]["fused"][(True, deterministic)]["state"][name]
+            assert all(torch.equal(other[k], v) for k, v in sd.items()), (deterministic, name)
+
+
 def test_dp_stage_a_step_matches_jax_mesh(dp_run):
     refs, ranks, _ = dp_run
     want_losses, want_state = refs["jax_gan"]
@@ -410,8 +465,8 @@ def test_cli_dp_on_two_gloo_ranks(dp_run):
         rows = list(csv.DictReader(f))
     assert len(rows) == 1 and all(np.isfinite(float(v)) for v in rows[0].values())
     for name in TG.GEN_NAMES + TG.DISC_NAMES:
-        assert (cwd / "GAN_save" / f"{name}.pt").is_file()
-    assert (cwd / "GAN_save" / "classifier_best.pt").is_file()
+        assert (cwd / "GAN_save" / f"{name}.msgpack").is_file()
+    assert (cwd / "GAN_save" / "classifier_best.msgpack").is_file()
     assert len(list((cwd / "output").glob("test_out_GAN-epochs=1_F1-score=*.txt"))) == 1
     assert [l.startswith("epoch 1 ") for l in log.splitlines()].count(True) == 1
 

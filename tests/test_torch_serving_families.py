@@ -34,6 +34,7 @@ from gan_ffn_tpu_torch import serving as S
 from gan_ffn_tpu_torch.cli import export as export_cli
 from gan_ffn_tpu_torch.cli import serve as serve_cli
 from gan_ffn_tpu_torch.cli import train_meld as meld_cli
+from gan_ffn_tpu_torch.utils.checkpoint import save_params
 from gan_ffn_tpu_torch.data import write_synthetic_meld
 from gan_ffn_tpu_torch.models import GAN_FFN, GAN_FFN_DialogueRNN, MELDLSTMModel
 from gan_ffn_tpu_torch.utils.weights import state_dict_from_jax
@@ -275,7 +276,7 @@ def checkpoints(tmp_path_factory):
                    "--model-save-path", str(tmp / "GAN_save")])
     model = GAN_FFN_DialogueRNN(n_classes=6, gen_num_layers=1,
                                 generator=torch.Generator().manual_seed(0), device="cpu")
-    torch.save(model.state_dict(), tmp / "GAN_save" / "dialoguernn_classifier_best.pt")
+    save_params(str(tmp / "GAN_save" / "dialoguernn_classifier_best.msgpack"), model)
     return tmp
 
 

@@ -39,6 +39,7 @@ from gan_ffn_tpu_torch.nn.losses import masked_nll_loss
 from gan_ffn_tpu_torch.train.classifier import graft_generator_params, make_classifier_steps
 from gan_ffn_tpu_torch.train.loop import batch_to_tensors, run_epoch
 from gan_ffn_tpu_torch.train.optim import torch_adam
+from gan_ffn_tpu_torch.utils.checkpoint import read_state_dict
 from gan_ffn_tpu_torch.utils.weights import gan_ffn_state_dict_from_jax
 
 REPO = Path(__file__).resolve().parents[1]
@@ -261,7 +262,7 @@ def test_cli_trains_on_the_cpu(tmp_path):
     assert len(epochs) == 2 and all("train_loss" in l and "utt/s" in l for l in epochs)
     reports = list((tmp_path / "output").glob("test_out_GAN-epochs=0_F1-score=*.txt"))
     assert len(reports) == 1 and reports[0].read_text().startswith("Loss ")
-    state = torch.load(tmp_path / "GAN_save" / "classifier_best.pt", weights_only=True)
+    state = read_state_dict(tmp_path / "GAN_save" / "classifier_best.msgpack")
     assert set(state) == set(GAN_FFN(gen_num_layers=1, device="cpu").state_dict())
 
 

@@ -16,6 +16,8 @@ import sys
 import torch
 import torch.distributed as dist
 
+from gan_ffn_tpu_torch.cli.common import make_stage_a_step, train_gan
+from gan_ffn_tpu_torch.data import get_iemocap_loaders
 from gan_ffn_tpu_torch.models import GAN_FFN
 from gan_ffn_tpu_torch.nn.core import set_dropout_generator
 from gan_ffn_tpu_torch.ops.dropout import STREAM_ATTENTION, StepSeeds, keep_scale
@@ -23,7 +25,8 @@ from gan_ffn_tpu_torch.parallel.mesh import DataParallel, init_data_parallel, le
 from gan_ffn_tpu_torch.parallel.sweep import (gather_seed_results, init_seed_sweep, make_grid_mesh,
                                               make_sweep_train_step)
 from gan_ffn_tpu_torch.train.classifier import make_classifier_steps
-from gan_ffn_tpu_torch.train.gan import GANConfig, init_gan_state, make_gan_train_step
+from gan_ffn_tpu_torch.train.gan import (GANConfig, init_gan_state, make_gan_epoch_step,
+                                         make_gan_train_step)
 from gan_ffn_tpu_torch.train.optim import torch_adam
 
 TIMEOUT = datetime.timedelta(seconds=120)
@@ -81,6 +84,45 @@ def clf_run(inputs, dp, deterministic):
             "state": {k: v.clone() for k, v in model.state_dict().items()}}
 
 
+def fused_runs(inputs, dp):
+    """``train_gan`` for one epoch over the parent's one-bucket loader,
+    data-parallel, epoch-fused and per batch, deterministic (rate 0) and
+    with every dropout on (the trainers' step, ``make_stage_a_step``):
+    weights, loss rows and the all-reduces each run made."""
+    calls = [0]
+    all_reduce = dist.all_reduce
+
+    def counted(*args, **kwargs):
+        calls[0] += 1
+        return all_reduce(*args, **kwargs)
+
+    dist.all_reduce = counted
+    out = {}
+    try:
+        for fused in (False, True):
+            for deterministic in (True, False):
+                state = gan_state(inputs["gan"], inputs["eps"])
+                step = None
+                if deterministic:
+                    make = make_gan_epoch_step if fused else make_gan_train_step
+                    step = make(state.modules, state.opts, deterministic=True, dp=dp)
+                loader = get_iemocap_loaders(inputs["fixture"], batch_size=4, valid=0.0,
+                                             seed=0)[0]  # each run its epoch-0 shuffle
+                torch.manual_seed(15)
+                calls[0] = 0
+                _, history = train_gan(GANConfig(num_layers=1, seed=0), loader, 1, state=state,
+                                       device="cpu", log=lambda line: None, epoch_fused=fused,
+                                       step=step, dp=dp)
+                out[(fused, deterministic)] = {"state": state_dicts(state), "history": history,
+                                               "all_reduces": calls[0]}
+    finally:
+        dist.all_reduce = all_reduce
+    state = gan_state(inputs["gan"], inputs["eps"])
+    out["step_rank"] = make_stage_a_step(GANConfig(num_layers=1), state, epoch_fused=True,
+                                         dp=dp).seeds.rank
+    return out
+
+
 def main() -> None:
     torch.set_num_threads(1)
     out_dir = sys.argv[1]
@@ -89,6 +131,7 @@ def main() -> None:
     res = {"rank": dp.rank, "world": dp.world, "backend": dp.backend}
     res["gan"] = gan_run(inputs, dp, deterministic=True, perturb=dp.rank == 1)
     res["clf"] = clf_run(inputs, dp, deterministic=True)
+    res["fused"] = fused_runs(inputs, dp)
 
     # a group of one process against none, every dropout on
     one = dist.new_group(ranks=[0])
