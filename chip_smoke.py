@@ -283,10 +283,37 @@ Phases, each printing JSON lines; any failure exits non-zero:
                same capturable Adams: NCCL's all-reduce captured in the
                stage-A graph, the same bits.
 
+13. library -- the modules that no entry point runs, the graft entry, the
+               dry run and the reference import.  Each library-only model
+               (GRU, Attention with the mlp and bi_linear scores,
+               BiE2EModel, LSTMModel2, LSTMModel, CNN, TextCNN,
+               FullyConnection, Emoformer, CNNFeatureExtractor,
+               E2ELSTMModel; Emoformer and LSTMModel at the published
+               widths, text and audio 100, visual 512; L=32, B=8, a ragged
+               umask) runs one deterministic forward and backward on the
+               card and on the CPU from the same weights: the output, the
+               loss and every gradient within phase 6's limits, and no
+               kernel of the port launched (none has a Pallas kernel behind
+               it).  graft_entry.entry() on the card (8-layer GAN_FFN, L=112,
+               B=32, valid_len 110) against entry("cpu") within 1e-3, 24
+               attention_fwd and 27 mlp_fwd launches a call, host ms.
+               graft_entry.dryrun_multichip over every visible card (NCCL):
+               the classifier, stage A per batch and epoch-fused (graphed),
+               BiModel, the seed sweep and the (seed, data) grid, each
+               within the JAX dry run's bounds of one process, the deltas
+               printed.  Six reference-shaped stage-A networks
+               (tests/reference_gan_model.py, 8 layers) pickled whole as the
+               reference saves them, imported by cli/import_reference.py,
+               and the flagship trainer run one stage-B epoch from them
+               with --use-trained-GAN --continue-train-GAN-step 0: 24 / 24 /
+               27 / 27 launches per train
+               step, 24 / 27 per eval forward.
+
 The kernel counts are set to 0 just before the serving, the training, the
 DialogueRNN, the two epoch-fused, the bf16 serving, the bf16 trainers', the
-families' paths (each request and each MELD run), phase 11's runs and
-phase 12's trainer run and are read just after; the comparisons of
+families' paths (each request and each MELD run), phase 11's runs,
+phase 12's trainer run and phase 13's library models, entry() call and
+trainer run, and are read just after; the comparisons of
 phases 3, 8 and 9 do not count.  The
 kernels read ``valid_len`` and their dropout seed from device memory;
 phases 3 and 8 time them so, with both made once beforehand.  A ``graphs``
@@ -3093,6 +3120,236 @@ def phase_checkpoints(torch, tmp: str, card: str) -> dict:
     return out
 
 
+# Phase 13: the library-only models at their published widths where the
+# reference has them (Emoformer and LSTMModel: text and audio 100, visual 512),
+# small elsewhere; each name -> (model class, keyword arguments, input makers)
+LIBRARY_L, LIBRARY_B = 32, 8
+LIBRARY_VOCAB = 200
+
+
+def _library_cases(np_rng):
+    """``{name: (module path, class, kwargs, inputs)}``: the inputs numpy
+    arrays (float features, int64 token ids, a ragged umask) or None."""
+    L, B, V = LIBRARY_L, LIBRARY_B, LIBRARY_VOCAB
+    lengths = np.linspace(L, L // 4, B).astype(int)
+    um = (np.arange(L)[None, :] < lengths[:, None]).astype(np.float32)
+
+    def feats(d, length=L):
+        return np_rng.standard_normal((length, B, d)).astype(np.float32) * (
+            um.T[:, :, None] if length == L else 1.0)
+
+    def tokens(*shape):
+        return np_rng.integers(1, V, shape).astype(np.int64)
+
+    return {
+        "GRU": ("nn", "GRU", dict(input_size=100, hidden_size=100), [feats(100)]),
+        "Attention_mlp": ("nn", "Attention", dict(embed_dim=100, score_function="mlp"),
+                          [feats(100).transpose(1, 0, 2).copy(), feats(100).transpose(1, 0, 2).copy()]),
+        "Attention_bi_linear": ("nn", "Attention", dict(embed_dim=100, score_function="bi_linear"),
+                                [feats(100).transpose(1, 0, 2).copy(),
+                                 feats(100).transpose(1, 0, 2).copy()]),
+        "BiE2EModel": ("models", "BiE2EModel", dict(D_emb=300, D_m=100, D_g=500, D_p=500, D_e=100,
+                                                    D_h=100, vocab_size=V, n_classes=7, att2=True,
+                                                    context_attention="general2"),
+                       [tokens(20, B), tokens(20, B), tokens(20, B)]),
+        "LSTMModel2": ("models", "LSTMModel2", dict(D_m=100, D_e=100, D_h=100, n_classes=6,
+                                                    attention=True), [feats(100), None, um]),
+        "LSTMModel": ("models", "LSTMModel", dict(D_m=100, D_e=100, D_h=100, n_classes=6),
+                      [feats(100), feats(100), feats(512), None, um]),
+        "CNN": ("models", "CNN", dict(embedding_dim=100, num_filter=100, filter_sizes=(3, 4, 5),
+                                      output_dim=6), [feats(100), None, None]),
+        "TextCNN": ("models", "TextCNN", dict(sentence_max_size=L, label_num=6), [feats(100)]),
+        "FullyConnection": ("models", "FullyConnection", {}, [feats(100)]),
+        "Emoformer": ("models", "Emoformer", dict(D_m=100, D_e=100, n_classes=6),
+                      [feats(100), feats(100), feats(512), None, um]),
+        "CNNFeatureExtractor": ("models", "CNNFeatureExtractor", dict(vocab_size=V),
+                                [tokens(L, B, 20), um]),
+        "E2ELSTMModel": ("models", "E2ELSTMModel", dict(D_e=100, D_h=100, vocab_size=V,
+                                                        n_classes=6, attention=True),
+                         [tokens(L, B, 20), None, um]),
+    }
+
+
+def _library_vs_cpu(torch, name, module, cls_name, kwargs, inputs, seed) -> dict:
+    """One deterministic forward and backward of the model on the card and
+    on the CPU from the same weights: the first output within E2E_TOL of
+    max(1, max |ref|), the loss ``sum(out * w)`` within E2E_TOL relative,
+    every gradient within E2E_TOL of max(1, max |ref|) and OWN_SCALE_TOL of
+    its own max |ref| (phase 6's limits)."""
+    import importlib
+
+    cls = getattr(importlib.import_module(f"gan_ffn_tpu_torch.{module}"), cls_name)
+    cpu = cls(**kwargs, generator=torch.Generator().manual_seed(seed), device="cpu").eval()
+    card = cls(**kwargs, device="cuda").eval()
+    card.load_state_dict(cpu.state_dict())
+    results = {}
+    for device, model in (("cpu", cpu), ("cuda", card)):
+        args = [None if x is None else torch.from_numpy(x).to(device) for x in inputs]
+        t0 = time.perf_counter()
+        out = model(*args)
+        out = out[0] if isinstance(out, (tuple, list)) else out
+        w = torch.from_numpy(np.random.default_rng(seed).standard_normal(tuple(out.shape))
+                             .astype(np.float32)).to(device)
+        loss = (out.float() * w).sum()
+        loss.backward()
+        if device == "cuda":
+            torch.cuda.synchronize()
+        results[device] = (out.detach().cpu(), loss.item(), time.perf_counter() - t0,
+                           {k: p.grad.cpu() for k, p in model.named_parameters()})
+    (out_c, loss_c, _, grads_c), (out_g, loss_g, seconds, grads_g) = results["cpu"], results["cuda"]
+    out_err = max_rel_err(out_g, out_c)
+    loss_err = abs(loss_g - loss_c) / max(1.0, abs(loss_c))
+    errs = {k: max_rel_err(grads_g[k], g) for k, g in grads_c.items()}
+    ref = {k: g.abs().max().item() for k, g in grads_c.items()}
+    own = {k: ((grads_g[k] - g).abs().max().item() / ref[k]) if ref[k] else
+           (0.0 if torch.equal(grads_g[k], g) else math.inf) for k, g in grads_c.items()}
+    worst, own_worst = max(errs, key=errs.get), max(own, key=own.get)
+    line = {"model": name, "class": cls_name, "config": {k: v for k, v in kwargs.items()},
+            "output_shape": list(out_c.shape), "output_rel_err": out_err, "loss_cpu": loss_c,
+            "loss_cuda": loss_g, "loss_rel_err": loss_err, "max_grad_rel_err": errs[worst],
+            "worst_grad": worst, "max_grad_own_scale_err": own[own_worst],
+            "worst_own_scale_grad": own_worst, "parameters": len(grads_c),
+            "card_seconds_first_call": seconds, "finite": bool(torch.isfinite(out_g).all())}
+    if not (line["finite"] and out_err <= E2E_TOL and loss_err <= E2E_TOL
+            and errs[worst] <= E2E_TOL and own[own_worst] <= OWN_SCALE_TOL):
+        fail(f"card vs CPU {name}: {line}")
+    return line
+
+
+ENTRY_LAUNCHES = {"attention_fwd": 24, "attention_bwd": 0, "mlp_fwd": 27, "mlp_bwd": 0}
+
+
+def _graft_entry(torch, card: str) -> dict:
+    """entry() on the card against entry("cpu") (the same weights and
+    inputs): log-probs within E2E_TOL, 24 / 27 launches a call, host ms."""
+    from gan_ffn_tpu_torch.graft_entry import entry
+
+    fn, args = entry()
+    _reset_counts()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    counts = _read_counts()
+    host_ms = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        fn(*args)
+        torch.cuda.synchronize()
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+    cpu_fn, cpu_args = entry("cpu")
+    want = cpu_fn(*cpu_args)
+    err = (out.cpu() - want).abs().max().item()
+    line = {"card": card, "phase": "graft_entry", "shape": list(out.shape), "launches": counts,
+            "expected_launches": ENTRY_LAUNCHES, "max_abs_diff_vs_cpu": err,
+            "host_ms_median": statistics.median(host_ms), "host_ms": host_ms}
+    emit(line)
+    if counts != ENTRY_LAUNCHES or not err <= E2E_TOL or list(out.shape) != [112, 32, 6]:
+        fail(f"graft entry: {line}")
+    return line
+
+
+def _dryrun(torch, card: str) -> dict:
+    """dryrun_multichip over every visible card (NCCL, one rank a card):
+    each surface within the JAX dry run's bounds, or it raises."""
+    from gan_ffn_tpu_torch.graft_entry import dryrun_multichip
+
+    n = torch.cuda.device_count()
+    t0 = time.perf_counter()
+    log = io.StringIO()
+    with contextlib.redirect_stdout(log):
+        report = dryrun_multichip(n)
+    line = {"card": card, "phase": "dryrun_multichip", "ranks": n, "report": report,
+            "seconds": time.perf_counter() - t0, "printed": log.getvalue().strip()}
+    emit(line)
+    if report["backend"] != "nccl":
+        fail(f"the dry run's group: {line}")
+    return line
+
+
+def _imported_trainer(torch, tmp: str, card: str) -> dict:
+    """Reference-shaped stage-A networks (tests/reference_gan_model.py, 8
+    layers) pickled whole as the reference saves them, imported by
+    cli/import_reference.py, and the flagship trainer run one stage-B epoch
+    from them with --use-trained-GAN --continue-train-GAN-step 0 (no more
+    stage-A epochs): the networks loaded strictly, the
+    launches of every train step and eval forward."""
+    import importlib.util
+    import shutil
+
+    from gan_ffn_tpu_torch.cli import import_reference as IMPORT
+    from gan_ffn_tpu_torch.cli import train_iemocap as CLI
+    from gan_ffn_tpu_torch.data import get_iemocap_loaders
+
+    run = os.path.join(tmp, "imported")
+    ref_dir, src, save = (os.path.join(run, d) for d in ("reference", "pth", "GAN_save"))
+    for d in (ref_dir, src):
+        os.makedirs(d)
+    shutil.copy(os.path.join(REPO, "tests", "reference_gan_model.py"),
+                os.path.join(ref_dir, "model.py"))
+    spec = importlib.util.spec_from_file_location("model", os.path.join(ref_dir, "model.py"))
+    model = importlib.util.module_from_spec(spec)
+    sys.modules["model"] = model
+    spec.loader.exec_module(model)
+    torch.manual_seed(0)
+    classes = {"acoustic_gen": "AcousticGenerator", "visual_gen": "VisualGenerator",
+               "text_gen": "TextGenerator", "acoustic_disc": "AcousticDiscriminator",
+               "visual_disc": "VisualDiscriminator", "text_disc": "TextDiscriminator"}
+    for name, cls in classes.items():
+        torch.save(torch.nn.DataParallel(getattr(model, cls)(100, 0.2, num_layers=8)),
+                   os.path.join(src, f"{name}.pth"))
+    del sys.modules["model"]
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        written = IMPORT.main(["--src", src, "--dst", save, "--reference", ref_dir])
+    import_seconds = time.perf_counter() - t0
+    data = os.path.join(tmp, "iemocap.pkl")
+    argv = ["--use-trained-GAN", "--continue-train-GAN-step", "0", "--epochs", "1",
+            "--num-layers", "8", "--batch-size", "32",
+            "--seed", "0", "--device", "cuda", "--data-path", data, "--output-dir",
+            os.path.join(run, "output"), "--model-save-path", save]
+    train, valid, test = get_iemocap_loaders(data, batch_size=32, valid=0.1, seed=0)
+    evals = len(valid) + len(test)
+    want = {k: per * (len(train) + (evals if k.endswith("fwd") else 0))
+            for k, per in STEP_LAUNCHES.items()}
+    log = io.StringIO()
+    t0 = time.perf_counter()
+    _reset_counts()
+    with contextlib.chdir(run), contextlib.redirect_stdout(log):
+        result = CLI.main(argv)
+    torch.cuda.synchronize()
+    counts = _read_counts()
+    lines = log.getvalue().splitlines()
+    epochs = _check_trainer_run(result, lines, 1, "trainer from imported networks")
+    line = {"card": card, "phase": "imported_trainer", "networks": sorted(written),
+            "import_seconds": import_seconds, "loaded": any("loaded trained GAN" in l for l in lines),
+            "trainer_seconds": time.perf_counter() - t0, "epochs": epochs, "launches": counts,
+            "expected_launches": want}
+    emit(line)
+    if sorted(written) != sorted(classes) or not line["loaded"] or counts != want:
+        fail(f"the flagship trainer from imported reference networks: {line}")
+    return line
+
+
+def phase_library(torch, tmp: str, card: str) -> dict:
+    """Phase 13: the library-only models on the card against the CPU, the
+    graft entry's forward, the data-parallel dry run over every card, and
+    the flagship trainer from imported reference networks."""
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(13)
+    models = {}
+    _reset_counts()
+    for i, (name, case) in enumerate(_library_cases(rng).items()):
+        models[name] = _library_vs_cpu(torch, name, *case, seed=100 + i)
+        emit({"card": card, "phase": "library_model", **models[name]})
+    library_counts = _read_counts()
+    if any(library_counts.values()):  # these models have no Pallas kernel behind them
+        fail(f"the library-only models launched a kernel of the port: {library_counts}")
+    out = {"models": models, "entry": _graft_entry(torch, card), "dryrun": _dryrun(torch, card),
+           "trainer": _imported_trainer(torch, tmp, card)}
+    emit({"phase": "library", "card": card, "seconds": time.perf_counter() - t0,
+          "models": len(models)})
+    return out
+
+
 def main() -> None:
     import torch
 
@@ -3102,8 +3359,9 @@ def main() -> None:
     if not os.path.isdir(os.path.join(REPO, "gan_ffn_tpu_torch", "csrc")):
         fail(f"gan_ffn_tpu_torch/ not found beside {__file__}: run from a checkout of the repo")
     sys.path.insert(0, REPO)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    from gan_ffn_tpu_torch.utils.runtime import configure_cuda_runtime
+
+    configure_cuda_runtime()
 
     info = phase_device(torch)
     resources = phase_build()
@@ -3120,6 +3378,7 @@ def main() -> None:
         families = phase_families(torch, tmp, info["nvidia_smi"][0])
         sweeps = phase_sweeps(torch, tmp, info["nvidia_smi"][0])
         checkpoints = phase_checkpoints(torch, tmp, info["nvidia_smi"][0])
+        phase_library(torch, tmp, info["nvidia_smi"][0])
 
     emit({"graphs": {
         "card": info["nvidia_smi"][0],

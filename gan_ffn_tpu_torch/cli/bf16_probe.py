@@ -34,6 +34,7 @@ import torch
 
 from gan_ffn_tpu_torch.ops import _build
 from gan_ffn_tpu_torch.ops import mlp as Mo
+from gan_ffn_tpu_torch.utils.runtime import configure_cuda_runtime
 
 PROBE_DIR = _build.BUILD_DIR.parent / "probes"
 TILES = 40_000
@@ -151,7 +152,7 @@ def mlp_orders() -> dict:
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("bf16_probe measures the card: no CUDA device")
-    torch.backends.cuda.matmul.allow_tf32 = False
+    configure_cuda_runtime()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip()
     print(json.dumps({"card": smi}), flush=True)

@@ -34,6 +34,7 @@ from ..train.loop import batch_to_tensors, fused_order
 from ..utils.artifacts import (LossHistory, append_loss_row, draw_gan_loss, load_gan_loss_csv,
                                save_gan_loss_csv)
 from ..utils.checkpoint import load_gan_state, save_gan_state
+from ..utils.runtime import configure_cuda_runtime, wait_for_device
 from ..utils.tensorboard import TBWriter
 
 # IEMOCAP 6-class weights (train_IEMOCAP.py:653)
@@ -49,11 +50,13 @@ def setup(parser: argparse.ArgumentParser, argv=None,
     """A trainer's start: parse ``argv``, refuse the flag combinations the
     JAX trainers refuse, pick the device
     (``--device``, or the CPU with ``--no-cuda``; a parser error where it
-    asks for a card that is not there), turn TF32 off in cuBLAS and cuDNN
-    and reduced precision off in cuBLAS's bf16 sums,
-    and write the synthetic fixture where ``--synthetic`` asks for it, with
-    ``write_fixture`` (the IEMOCAP writer, or ``data.write_synthetic_meld``;
-    None: the caller writes it)."""
+    asks for a card that is not there), set the CUDA runtime's float32
+    flags (``utils.runtime.configure_cuda_runtime``), wait for the card
+    where one is asked for (``utils.runtime.wait_for_device``, which raises
+    rather than fall back to the CPU), and write the synthetic fixture
+    where ``--synthetic`` asks for it, with ``write_fixture`` (the IEMOCAP
+    writer, or ``data.write_synthetic_meld``; None: the caller writes
+    it)."""
     args = parser.parse_args(argv)
     if getattr(args, "epoch_fused", False) and getattr(args, "gan_schedule", None) == "stepwise":
         parser.error("--epoch-fused runs the fused 12-duel step; it cannot honour "
@@ -68,12 +71,11 @@ def setup(parser: argparse.ArgumentParser, argv=None,
                      "--tb-grad-histograms epoch, or drop --epoch-fused")
     print(args)
     device = torch.device("cpu" if args.no_cuda else args.device)
+    configure_cuda_runtime()
     if device.type == "cuda":
         if not torch.cuda.is_available():
             parser.error("no CUDA card: pass --device cpu to train on the CPU")
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
-        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+        wait_for_device(device)
     print(f"Running on {device}"
           + (f" ({torch.cuda.get_device_name(device)})" if device.type == "cuda" else ""))
     if write_fixture is not None and args.synthetic and not os.path.exists(args.data_path):

@@ -66,9 +66,9 @@ def main(argv=None) -> None:
     from gan_ffn_tpu_torch.train.gan import GANConfig, init_gan_state
     from gan_ffn_tpu_torch.train.loop import run_epoch
     from gan_ffn_tpu_torch.train.optim import torch_adam
+    from gan_ffn_tpu_torch.utils.runtime import configure_cuda_runtime
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    configure_cuda_runtime()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip()
     import gan_ffn_tpu_torch

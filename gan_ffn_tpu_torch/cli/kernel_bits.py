@@ -29,6 +29,7 @@ import torch
 from ..ops import _build
 from ..ops import attention as A
 from ..ops import mlp as M
+from ..utils.runtime import configure_cuda_runtime
 
 ATTN = ((32, 10, 112, 10), (32, 8, 112, 64))
 ATTN_B30 = ((30, 10, 112, 10), (30, 8, 112, 64))  # the DialogueRNN path's (phase 9)
@@ -114,7 +115,7 @@ def main(argv=None) -> dict:
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         p.error("no CUDA card: the kernels run only on the card")
-    torch.backends.cuda.matmul.allow_tf32 = False
+    configure_cuda_runtime()
     mine = outputs()
     csrc, build = _build.CSRC, _build.BUILD_DIR
     try:

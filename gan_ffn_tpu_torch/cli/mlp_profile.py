@@ -119,8 +119,9 @@ def main(argv=None) -> None:
         sys.exit("mlp_profile: no CUDA card")
     from gan_ffn_tpu_torch.ops import _build
     from gan_ffn_tpu_torch.ops import mlp as M
+    from gan_ffn_tpu_torch.utils.runtime import configure_cuda_runtime
 
-    torch.backends.cuda.matmul.allow_tf32 = False
+    configure_cuda_runtime()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip()
     print(json.dumps({"label": args.label, "card": smi, "package": M.__file__}), flush=True)

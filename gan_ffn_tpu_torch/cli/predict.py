@@ -31,9 +31,9 @@ import torch
 from ..data import BucketedLoader, IEMOCAPDataset
 from ..evaluation.metrics import classification_report, confusion_matrix, f1_score
 from ..models import GAN_FFN
-from ..serving import pin_full_f32
 from ..train.loop import batch_to_tensors
 from ..utils.checkpoint import load_params_any_layout
+from ..utils.runtime import configure_cuda_runtime, wait_for_device
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -54,9 +54,11 @@ def main(argv=None) -> dict:
     parser = build_parser()
     args = parser.parse_args(argv)
     device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        parser.error("no CUDA card: pass --device cpu to predict on the CPU")
-    pin_full_f32()
+    configure_cuda_runtime()
+    if device.type == "cuda":
+        if not torch.cuda.is_available():
+            parser.error("no CUDA card: pass --device cpu to predict on the CPU")
+        wait_for_device(device)
 
     model = GAN_FFN(n_classes=len(IEMOCAPDataset.label_names), gen_num_layers=args.num_layers,
                     device=device, dtype=torch.bfloat16 if args.bf16 else None)

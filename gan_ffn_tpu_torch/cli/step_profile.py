@@ -204,8 +204,9 @@ def main(argv=None) -> None:
     if not torch.cuda.is_available():
         sys.exit("step_profile: no CUDA card")
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    from gan_ffn_tpu_torch.utils.runtime import configure_cuda_runtime
+
+    configure_cuda_runtime()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip()
     print(json.dumps({"label": args.label, "card": smi}), flush=True)

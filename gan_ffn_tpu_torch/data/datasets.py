@@ -1,6 +1,6 @@
-"""The IEMOCAP and MELD dialogue datasets over the reference's pickled
-feature schemas (the port's own copy of the IEMOCAP and MELD parts of
-``gan_ffn_tpu/data/datasets.py``, numpy only).
+"""The IEMOCAP, AVEC, MELD and DailyDialog datasets over the reference's
+pickled schemas (the port's own copy of ``gan_ffn_tpu/data/datasets.py``,
+numpy only).
 
 IEMOCAP:
 
@@ -14,7 +14,13 @@ MELD: no normalization, no visual features; the speakers are pre-one-hot
 9-party rows, passed through; emotion (7-class) or sentiment (3-class)
 labels.
 
-AVEC and DailyDialog are library-only (ROADMAP module note 16).
+AVEC: the IEMOCAP schema with float (regression) labels, ``'user'`` /
+``'other'`` speakers and no normalization.
+
+DailyDialog: token-id utterances (``TokenDialogue``), act and emotion
+labels, speaker ``"0"`` as party 0, a train / test / valid split.
+
+AVEC and DailyDialog are library-only: no entry point trains on them.
 """
 
 from __future__ import annotations
@@ -106,6 +112,46 @@ class IEMOCAPDataset:
         )
 
 
+class AVECDataset:
+    """AVEC regression dataset: float labels, 'user'/'other' 2-party speakers,
+    NO normalization (reference dataloader.py:61-87)."""
+
+    n_parties = 2
+
+    def __init__(self, path: str, train: bool = True):
+        with open(path, "rb") as f:
+            (
+                self.videoIDs,
+                self.videoSpeakers,
+                self.videoLabels,
+                self.videoText,
+                self.videoAudio,
+                self.videoVisual,
+                self.videoSentence,
+                self.trainVid,
+                self.testVid,
+            ) = pickle.load(f, encoding="latin1")
+        self.keys = list(self.trainVid if train else self.testVid)
+
+    def __len__(self) -> int:
+        return len(self.keys)
+
+    def __getitem__(self, index: int) -> Dialogue:
+        vid = self.keys[index]
+        qmask = np.asarray(
+            [[1, 0] if s == "user" else [0, 1] for s in self.videoSpeakers[vid]],
+            dtype=np.float32,
+        )
+        return Dialogue(
+            vid=vid,
+            text=np.asarray(self.videoText[vid], dtype=np.float32),
+            visual=np.asarray(self.videoVisual[vid], dtype=np.float32),
+            audio=np.asarray(self.videoAudio[vid], dtype=np.float32),
+            qmask=qmask,
+            label=np.asarray(self.videoLabels[vid], dtype=np.float32),
+        )
+
+
 class MELDDataset:
     """MELD 9-tuple pickle dataset (reference dataloader.py:90-124).
 
@@ -146,4 +192,60 @@ class MELDDataset:
             audio=np.asarray(self.videoAudio[vid], dtype=np.float32),
             qmask=np.asarray(self.videoSpeakers[vid], dtype=np.float32),
             label=np.asarray(self.videoLabels[vid], dtype=np.int32),
+        )
+
+
+@dataclass
+class TokenDialogue:
+    """DailyDialogue item: token-id utterances + act/emotion labels."""
+
+    conv: object
+    tokens: np.ndarray  # (L, T) int32
+    qmask: np.ndarray  # (L, 2) float32
+    act: np.ndarray  # (L,) int32
+    emotion: np.ndarray  # (L,) int32
+    max_tokens: int
+
+    @property
+    def length(self) -> int:
+        return int(self.act.shape[0])
+
+
+class DailyDialogueDataset:
+    """DailyDialogue token-level dataset, 3-way split
+    (reference dataloader.py:127-160)."""
+
+    n_parties = 2
+
+    def __init__(self, path: str, split: str = "train"):
+        with open(path, "rb") as f:
+            (
+                self.Speakers,
+                self.InputSequence,
+                self.InputMaxSequenceLength,
+                self.ActLabels,
+                self.EmotionLabels,
+                self.trainId,
+                self.testId,
+                self.validId,
+            ) = pickle.load(f)
+        self.keys = list(
+            {"train": self.trainId, "test": self.testId, "valid": self.validId}[split]
+        )
+
+    def __len__(self) -> int:
+        return len(self.keys)
+
+    def __getitem__(self, index: int) -> TokenDialogue:
+        conv = self.keys[index]
+        qmask = np.asarray(
+            [[1, 0] if s == "0" else [0, 1] for s in self.Speakers[conv]], dtype=np.float32
+        )
+        return TokenDialogue(
+            conv=conv,
+            tokens=np.asarray(self.InputSequence[conv], dtype=np.int32),
+            qmask=qmask,
+            act=np.asarray(self.ActLabels[conv], dtype=np.int32),
+            emotion=np.asarray(self.EmotionLabels[conv], dtype=np.int32),
+            max_tokens=int(self.InputMaxSequenceLength[conv]),
         )

@@ -1,5 +1,5 @@
-"""Bucketed fixed-shape batching (the port's own copy of the IEMOCAP and MELD
-parts of ``gan_ffn_tpu/data/loaders.py``, numpy only).
+"""Bucketed fixed-shape batching (the port's own copy of
+``gan_ffn_tpu/data/loaders.py``, numpy only).
 
 Every batch is padded to one of a few bucket lengths and to a fixed batch
 size, so the kernels see a handful of shapes.  Layout, as the reference's
@@ -11,7 +11,9 @@ tensors (train_IEMOCAP.py:142-148):
 - ``label``: batch-first ``(B, L)``
 
 The validation subset is the *head* of the train-key order, the train
-subset the tail; each epoch shuffles within its subset.
+subset the tail; each epoch shuffles within its subset.  DailyDialog's
+token batches (``TokenBatch``) add a token axis, ``tokens (L, B, T)``, and
+its loaders come as (train, test, valid), the JAX package's order.
 """
 
 from __future__ import annotations
@@ -108,6 +110,44 @@ def collate(dialogues: Sequence[Dialogue], bucket_len: int, batch_size: int) -> 
     )
 
 
+@dataclass
+class TokenBatch:
+    """Fixed-shape batch of token-id dialogues (DailyDialogue schema)."""
+
+    tokens: np.ndarray  # (L, B, T)
+    qmask: np.ndarray  # (L, B, 2)
+    umask: np.ndarray  # (B, L)
+    act: np.ndarray  # (B, L)
+    emotion: np.ndarray  # (B, L)
+    convs: List[object]
+    n_real: int = 0
+
+
+def collate_token_dialogues(
+    items, bucket_len: int, batch_size: int, max_tokens: int
+) -> TokenBatch:
+    """Pad TokenDialogue items to one fixed (bucket_len, batch_size,
+    max_tokens) batch — the static-shape analogue of the reference's
+    ``DailyDialoguePadCollate`` (dataloader.py:163-184), which pads tokens to
+    the batch max utterance count and stacks time-major."""
+    L, B, T = bucket_len, batch_size, max_tokens
+    tokens = np.zeros((L, B, T), dtype=np.int32)
+    qmask = np.zeros((L, B, 2), dtype=np.float32)
+    umask = np.zeros((B, L), dtype=np.float32)
+    act = np.zeros((B, L), dtype=np.int32)
+    emotion = np.zeros((B, L), dtype=np.int32)
+    convs: List[object] = []
+    for j, d in enumerate(items):
+        n, t = d.tokens.shape
+        tokens[:n, j, :t] = d.tokens
+        qmask[:n, j] = d.qmask
+        umask[j, :n] = 1.0
+        act[j, :n] = d.act
+        emotion[j, :n] = d.emotion
+        convs.append(d.conv)
+    return TokenBatch(tokens, qmask, umask, act, emotion, convs, n_real=len(items))
+
+
 class BucketedLoader:
     """Iterates fixed-shape batches over a subset of a dialogue dataset.
 
@@ -192,6 +232,83 @@ def get_iemocap_loaders(
         testset, None, batch_size, buckets, shuffle=False, seed=seed + 2
     )
     return train_loader, valid_loader, test_loader
+
+
+def get_avec_loaders(
+    path: str,
+    batch_size: int = 32,
+    valid: float = 0.1,
+    buckets: Sequence[int] = (32, 64),
+    seed: int = 3407,
+) -> Tuple[BucketedLoader, BucketedLoader, BucketedLoader]:
+    """(train, valid, test) loaders over the AVEC regression dataset
+    (the reference defines AVECDataset, dataloader.py:61-87, but ships no
+    trainer for it)."""
+    from .datasets import AVECDataset
+
+    trainset = AVECDataset(path, train=True)
+    testset = AVECDataset(path, train=False)
+    train_idx, valid_idx = head_tail_split(len(trainset), valid)
+    return (
+        BucketedLoader(trainset, train_idx, batch_size, buckets, shuffle=True, seed=seed),
+        BucketedLoader(trainset, valid_idx, batch_size, buckets, shuffle=True, seed=seed + 1),
+        BucketedLoader(testset, None, batch_size, buckets, shuffle=False, seed=seed + 2),
+    )
+
+
+class TokenBucketedLoader:
+    """Fixed-shape batches over a DailyDialogue-style token dataset
+    (the static-shape counterpart of DailyDialoguePadCollate,
+    dataloader.py:163-184)."""
+
+    def __init__(
+        self,
+        dataset,
+        batch_size: int = 32,
+        buckets: Sequence[int] = (8, 16, 24),
+        max_tokens: int = 32,
+        shuffle: bool = True,
+        seed: int = 3407,
+    ):
+        self.dataset = dataset
+        self.batch_size = batch_size
+        self.buckets = tuple(sorted(buckets))
+        self.max_tokens = max_tokens
+        self.shuffle = shuffle
+        self.seed = seed
+        self._epoch = 0
+
+    def __len__(self) -> int:
+        n = len(self.dataset)
+        return (n + self.batch_size - 1) // self.batch_size
+
+    def __iter__(self):
+        order = np.arange(len(self.dataset))
+        if self.shuffle:
+            np.random.default_rng((self.seed, self._epoch)).shuffle(order)
+        self._epoch += 1
+        for start in range(0, len(order), self.batch_size):
+            items = [self.dataset[int(i)] for i in order[start : start + self.batch_size]]
+            max_len = max(d.length for d in items)
+            bucket = _bucket_for(max_len, self.buckets)
+            yield collate_token_dialogues(items, bucket, self.batch_size, self.max_tokens)
+
+
+def get_dailydialogue_loaders(
+    path: str,
+    batch_size: int = 32,
+    buckets: Sequence[int] = (8, 16, 24),
+    max_tokens: int = 32,
+    seed: int = 3407,
+) -> Tuple[TokenBucketedLoader, TokenBucketedLoader, TokenBucketedLoader]:
+    """(train, test, valid) loaders over the DailyDialogue 3-way split."""
+    from .datasets import DailyDialogueDataset
+
+    mk = lambda split, shuffle, s: TokenBucketedLoader(
+        DailyDialogueDataset(path, split=split), batch_size, buckets, max_tokens,
+        shuffle=shuffle, seed=s,
+    )
+    return mk("train", True, seed), mk("test", False, seed + 1), mk("valid", False, seed + 2)
 
 
 def get_meld_loaders(

@@ -1,13 +1,15 @@
-"""Synthetic IEMOCAP and MELD feature pickles (the port's own copy of the
-IEMOCAP and MELD parts of ``gan_ffn_tpu/data/synthetic.py``, numpy only).
+"""Synthetic feature pickles (the port's own copy of
+``gan_ffn_tpu/data/synthetic.py``, numpy only).
 
 The reference ships without its feature pickles, so fixtures are written
-with the exact 9-tuple schemas the datasets load:
+with the exact tuple schemas the datasets load:
 
-- IEMOCAP: ``(videoIDs, videoSpeakers, videoLabels, videoText, videoAudio,
-  videoVisual, videoSentence, trainVid, testVid)``;
+- IEMOCAP and AVEC: ``(videoIDs, videoSpeakers, videoLabels, videoText,
+  videoAudio, videoVisual, videoSentence, trainVid, testVid)``;
 - MELD: ``(videoIDs, videoSpeakers, emotion_labels, videoText, videoAudio,
-  videoSentence, trainVid, testVid, sentiment_labels)``.
+  videoSentence, trainVid, testVid, sentiment_labels)``;
+- DailyDialog: ``(Speakers, InputSequence, InputMaxSequenceLength,
+  ActLabels, EmotionLabels, trainId, testId, validId)``.
 
 Features are class-conditional Gaussian clusters, so a classifier trained
 on them can learn.  The same arguments and seed write the same pickle as
@@ -180,6 +182,47 @@ def write_synthetic_iemocap(
     return path
 
 
+def write_synthetic_avec(
+    path: str,
+    n_train: int = 40,
+    n_test: int = 10,
+    min_len: int = 5,
+    max_len: int = 60,
+    seed: int = 3407,
+) -> str:
+    """AVEC regression variant: float labels, 'user'/'other' speakers
+    (reference dataloader.py:75-80)."""
+    rng = np.random.default_rng(seed)
+    dims = IEMOCAP_DIMS
+    videoIDs, videoSpeakers, videoLabels = {}, {}, {}
+    videoText, videoAudio, videoVisual, videoSentence = {}, {}, {}, {}
+    all_vids = [f"avec_{i:04d}" for i in range(n_train + n_test)]
+    for vid in all_vids:
+        L = int(rng.integers(min_len, max_len + 1))
+        videoIDs[vid] = [f"{vid}_utt{t}" for t in range(L)]
+        videoSpeakers[vid] = ["user" if s else "other" for s in rng.integers(0, 2, size=L)]
+        videoLabels[vid] = rng.normal(0, 1, size=L).astype(np.float32).tolist()
+        videoText[vid] = rng.normal(0, 1, (L, dims["text"])).astype(np.float32)
+        videoAudio[vid] = rng.normal(0, 1, (L, dims["audio"])).astype(np.float32)
+        videoVisual[vid] = rng.normal(0, 1, (L, dims["visual"])).astype(np.float32)
+        videoSentence[vid] = [f"synthetic utterance {t}" for t in range(L)]
+    payload = (
+        videoIDs,
+        videoSpeakers,
+        videoLabels,
+        videoText,
+        videoAudio,
+        videoVisual,
+        videoSentence,
+        all_vids[:n_train],
+        all_vids[n_train:],
+    )
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    with open(path, "wb") as f:
+        pickle.dump(payload, f)
+    return path
+
+
 def write_synthetic_meld(
     path: str,
     n_train: int = 80,
@@ -248,6 +291,49 @@ def write_synthetic_meld(
         all_vids[:n_train],
         all_vids[n_train:],
         sentiment_labels,
+    )
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    with open(path, "wb") as f:
+        pickle.dump(payload, f)
+    return path
+
+
+def write_synthetic_dailydialogue(
+    path: str,
+    n_train: int = 40,
+    n_test: int = 10,
+    n_valid: int = 10,
+    vocab_size: int = 500,
+    min_len: int = 3,
+    max_len: int = 20,
+    max_tokens: int = 30,
+    n_acts: int = 4,
+    n_emotions: int = 7,
+    seed: int = 3407,
+) -> str:
+    """DailyDialogue token-id schema (reference dataloader.py:127-160)."""
+    rng = np.random.default_rng(seed)
+    Speakers, InputSequence, InputMaxSequenceLength = {}, {}, {}
+    ActLabels, EmotionLabels = {}, {}
+    total = n_train + n_test + n_valid
+    all_ids = [f"dd_{i:04d}" for i in range(total)]
+    for conv in all_ids:
+        L = int(rng.integers(min_len, max_len + 1))
+        tok_len = int(rng.integers(5, max_tokens + 1))
+        InputSequence[conv] = rng.integers(1, vocab_size, size=(L, tok_len)).astype(np.int64)
+        InputMaxSequenceLength[conv] = tok_len
+        Speakers[conv] = [str(s) for s in rng.integers(0, 2, size=L)]
+        ActLabels[conv] = rng.integers(0, n_acts, size=L).tolist()
+        EmotionLabels[conv] = rng.integers(0, n_emotions, size=L).tolist()
+    payload = (
+        Speakers,
+        InputSequence,
+        InputMaxSequenceLength,
+        ActLabels,
+        EmotionLabels,
+        all_ids[:n_train],
+        all_ids[n_train : n_train + n_test],
+        all_ids[n_train + n_test :],
     )
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     with open(path, "wb") as f:

@@ -1,22 +1,42 @@
-"""Models ported so far: the three generators, the three discriminators,
-the GAN_FFN and GAN_FFN_DialogueRNN classifiers, the DialogueRNN modules
-(``dialogue_rnn``) and the MELD entry point's ``MELDLSTMModel``
-(``baselines``)."""
+"""The models: the three generators, the three discriminators, the GAN_FFN
+and GAN_FFN_DialogueRNN classifiers, the DialogueRNN modules
+(``dialogue_rnn``: ``DialogueRNN``, ``BiModel``, ``BiE2EModel``) and the
+baselines (``baselines``: the MELD entry point's ``MELDLSTMModel`` and the
+library-only eight)."""
 
-from .baselines import MELDLSTMModel
+from .baselines import (
+    CNN,
+    CNNFeatureExtractor,
+    E2ELSTMModel,
+    Emoformer,
+    FullyConnection,
+    LSTMModel,
+    LSTMModel2,
+    MELDLSTMModel,
+    TextCNN,
+)
+from .dialogue_rnn import BiE2EModel, BiModel, DialogueRNN
 from .discriminators import AcousticDiscriminator, TextDiscriminator, VisualDiscriminator
-from .dialogue_rnn import BiModel, DialogueRNN
 from .gan_ffn import GAN_FFN, GAN_FFN_DialogueRNN
 from .generators import AcousticGenerator, TextGenerator, VisualGenerator
 
 __all__ = [
-    "GAN_FFN",
-    "GAN_FFN_DialogueRNN",
-    "BiModel",
-    "DialogueRNN",
-    "MELDLSTMModel",
     "AcousticDiscriminator",
     "AcousticGenerator",
+    "BiE2EModel",
+    "BiModel",
+    "CNN",
+    "CNNFeatureExtractor",
+    "DialogueRNN",
+    "E2ELSTMModel",
+    "Emoformer",
+    "FullyConnection",
+    "GAN_FFN",
+    "GAN_FFN_DialogueRNN",
+    "LSTMModel",
+    "LSTMModel2",
+    "MELDLSTMModel",
+    "TextCNN",
     "TextDiscriminator",
     "TextGenerator",
     "VisualDiscriminator",

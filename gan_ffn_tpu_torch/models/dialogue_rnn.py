@@ -34,7 +34,19 @@ Dropout: the cell's three (four with ``listener_state``) sites run at
 ``dropout_rec`` and BiModel's post-scan dropout on the emotions at
 ``dropout + 0.15`` (a reference quirk, model.py:1004), both ``F.dropout``
 drawing from torch's RNG; the dropout after ``linear`` runs at
-``dropout``.  ``BiE2EModel`` is not ported (ROADMAP module note 10).
+``dropout``.
+
+``BiE2EModel`` (reference model.py:1065-1175) is the end-to-end 3-turn
+variant: one ``Embedding`` and one single-layer ``GRU`` (``turn_rnn``)
+shared by the three token turns, each turn's last hidden state an
+utterance, so the dialogue is 3 utterances long with the fixed speakers
+``[[1, 0], [0, 1], [1, 0]]`` and no padding; both directions run through
+:func:`dialogue_scan` as in BiModel.  Its post-scan dropout runs at
+``dropout`` (not BiModel's ``dropout + 0.15``): once on the forward
+emotions, then once on both directions' concatenation, as in the JAX
+module.  The classifier reads the last utterance, through
+``MatchingAttention`` (general2, no mask, queried by the last emotion)
+with ``att2``.
 """
 
 from __future__ import annotations
@@ -46,8 +58,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..nn.attention import MatchingAttention, SimpleAttention, matching_attention, simple_attention
-from ..nn.core import Linear
-from ..nn.recurrent import GRUCell, gru_step
+from ..nn.core import Embedding, Linear
+from ..nn.recurrent import GRU, GRUCell, gru_step
 
 
 def _select_parties(q: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -224,3 +236,46 @@ class BiModel(nn.Module):
         hidden = F.dropout(F.relu(self.linear(emotions)), self.dropout, self.training)
         log_prob = torch.log_softmax(self.smax_fc(hidden).float(), dim=2)
         return log_prob, alpha, alpha_dir[0], alpha_dir[1]
+
+
+class BiE2EModel(nn.Module):
+    """``(turn1, turn2, turn3)``, each ``(T, B)`` token ids -> ``log_prob (B,
+    n_classes)`` float32 (see the module docstring)."""
+
+    QMASK = ((1.0, 0.0), (0.0, 1.0), (1.0, 0.0))  # the three turns' speakers
+
+    def __init__(self, D_emb: int, D_m: int, D_g: int, D_p: int, D_e: int, D_h: int,
+                 vocab_size: int, n_classes: int = 7, listener_state: bool = False,
+                 context_attention: str = "simple", D_a: int = 100, dropout_rec: float = 0.5,
+                 dropout: float = 0.5, att2: bool = False, *,
+                 generator: Optional[torch.Generator] = None, device="cuda"):
+        super().__init__()
+        self.dropout, self.att2 = dropout, att2
+        kw = dict(generator=generator, device=device)
+        self.embedding = Embedding(vocab_size, D_emb, **kw)
+        self.turn_rnn = GRU(D_emb, D_m, **kw)
+        rnn = (D_m, D_g, D_p, D_e, listener_state, context_attention, D_a, dropout_rec)
+        self.dialog_rnn_f = DialogueRNN(*rnn, **kw)
+        self.dialog_rnn_r = DialogueRNN(*rnn, **kw)
+        if att2:
+            self.matchatt = MatchingAttention(2 * D_e, 2 * D_e, att_type="general2", **kw)
+        self.linear1 = Linear(2 * D_e, D_h, **kw)
+        self.smax_fc = Linear(D_h, n_classes, **kw)
+
+    def forward(self, turn1: torch.Tensor, turn2: torch.Tensor, turn3: torch.Tensor):
+        U = torch.stack([self.turn_rnn(self.embedding(turn))[1][0]
+                         for turn in (turn1, turn2, turn3)])  # (3, B, D_m)
+        B = U.shape[1]
+        qmask = torch.tensor(self.QMASK, dtype=U.dtype, device=U.device)[:, None].expand(3, B, 2)
+        umask = U.new_ones(B, 3)
+        cells = [self.dialog_rnn_f.dialogue_cell, self.dialog_rnn_r.dialogue_cell]
+        e, _ = dialogue_scan(cells, torch.stack([U, reverse_padded(U, umask)]),
+                             torch.stack([qmask, reverse_padded(qmask, umask)]), self.training)
+        emotions_f = F.dropout(e[0], self.dropout, self.training)
+        emotions = torch.cat([emotions_f, reverse_padded(e[1], umask)], dim=-1)
+        emotions = F.dropout(emotions, self.dropout, self.training)
+        last = emotions[-1]
+        if self.att2:
+            last, _ = self.matchatt(emotions, last)
+        hidden = F.relu(self.linear1(last))
+        return torch.log_softmax(self.smax_fc(hidden).float(), dim=-1)

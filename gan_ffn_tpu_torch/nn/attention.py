@@ -1,5 +1,5 @@
-"""The DialogueRNN's attentions (counterpart of
-``gan_ffn_tpu/nn/attention.py``; reference model.py:22-194).
+"""The attentions of the DialogueRNN and of the baselines (counterpart of
+``gan_ffn_tpu/nn/attention.py``; reference model.py:22-298).
 
 - ``SimpleAttention``: a scalar projection, softmax over the sequence axis,
   a weighted sum; alpha stays float32.
@@ -18,22 +18,38 @@ over :func:`simple_attention` and :func:`matching_attention`, which take
 their weights with a leading axis: the DialogueRNN scan runs both
 directions' context attentions through them as one batch of products
 (``models/dialogue_rnn.py``); ``MELDLSTMModel`` runs ``general2`` over all
-L queries in one call.  ``Attention`` and ``matching`` are library-only
-(ROADMAP module note 16).
+L queries in one call.
+
+- ``Attention``: the reference's multi-head attention (model.py:197-286)
+  with its quirks: the softmax runs over axis 0 of the ``(n_head * batch,
+  q_len, k_len)`` scores (the head-times-batch axis, not the keys), the
+  output is formed from the keys' projection ``kx`` (there is no value
+  projection), a 2-D input gets a length axis of 1, and the ``mlp`` and
+  ``bi_linear`` scores have their own ``weight``.  It is not the fused
+  attention of ``ops/attention.py``: its softmax axis differs.
+- ``matching``: the cross-modal matching helper (model.py:289-298), a
+  ``MatchingAttention`` of every step of ``modal`` over ``emotions`` plus
+  ``gelu(emotions)``.
+
+These two serve the library-only baselines (``models/baselines.py``).
 """
 
 from __future__ import annotations
 
 from typing import Optional
 
+import math
+
 import torch
+import torch.nn.functional as F
 from torch import nn
 
-from .core import Linear
+from .core import Linear, gelu, uniform_parameter
 from .recurrent import stacked_linear
 
 NEG_INF = -1e30
 ATT_TYPES = ("dot", "general", "general2", "concat")
+SCORE_FUNCTIONS = ("dot_product", "scaled_dot_product", "mlp", "bi_linear")
 
 
 def _masked_softmax(scores: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:
@@ -161,3 +177,74 @@ class MatchingAttention(nn.Module):
         if single:
             return pool[0, :, 0], alpha[0]
         return pool[0].transpose(0, 1), alpha[0].transpose(0, 1).unsqueeze(2)
+
+
+class Attention(nn.Module):
+    """The reference's multi-head ``Attention`` (model.py:197-286): ``k (B,
+    k_len, embed_dim)``, ``q (B, q_len, embed_dim)`` (2-D: a length of 1)
+    -> ``(output (B, q_len, out_dim), score (n_head * B, q_len, k_len))``,
+    batch-first.  ``w_k`` and ``w_q`` project to ``n_head * hidden_dim``
+    (``hidden_dim`` default ``embed_dim // n_head``), ``proj`` to ``out_dim``
+    (default ``embed_dim``); the score is ``score_function`` of the heads'
+    ``qx`` and ``kx``, softmaxed in float32 over axis 0; the output is
+    ``score kx`` with the heads concatenated, through ``proj``, then
+    dropout (``F.dropout``, torch's RNG) in training mode."""
+
+    def __init__(self, embed_dim: int, hidden_dim: Optional[int] = None,
+                 out_dim: Optional[int] = None, n_head: int = 4,
+                 score_function: str = "scaled_dot_product", dropout: float = 0.6, *,
+                 generator: Optional[torch.Generator] = None, device="cuda"):
+        super().__init__()
+        if score_function not in SCORE_FUNCTIONS:
+            raise ValueError(f"invalid score_function {score_function!r}")
+        self.hidden_dim = hidden_dim or embed_dim // n_head
+        self.out_dim = out_dim or embed_dim
+        self.n_head, self.score_function, self.dropout = n_head, score_function, dropout
+        kw = dict(generator=generator, device=device)
+        self.w_k = Linear(embed_dim, n_head * self.hidden_dim, **kw)
+        self.w_q = Linear(embed_dim, n_head * self.hidden_dim, **kw)
+        self.proj = Linear(n_head * self.hidden_dim, self.out_dim, **kw)
+        bound = 1.0 / math.sqrt(self.hidden_dim)
+        if score_function == "mlp":
+            self.weight = uniform_parameter((2 * self.hidden_dim,), bound, generator, device)
+        elif score_function == "bi_linear":
+            self.weight = uniform_parameter((self.hidden_dim, self.hidden_dim), bound, generator,
+                                            device)
+
+    def _heads(self, x: torch.Tensor) -> torch.Tensor:
+        """``(B, n, H * Dh)`` -> ``(H * B, n, Dh)``, the reference's permute and view."""
+        B, n, _ = x.shape
+        H, Dh = self.n_head, self.hidden_dim
+        return x.reshape(B, n, H, Dh).permute(2, 0, 1, 3).reshape(H * B, n, Dh)
+
+    def forward(self, k: torch.Tensor, q: torch.Tensor):
+        if q.dim() == 2:
+            q = q.unsqueeze(1)
+        if k.dim() == 2:
+            k = k.unsqueeze(1)
+        B, k_len, q_len = k.shape[0], k.shape[1], q.shape[1]
+        kx, qx = self._heads(self.w_k(k)), self._heads(self.w_q(q))
+        if self.score_function == "dot_product":
+            score = qx @ kx.transpose(1, 2)
+        elif self.score_function == "scaled_dot_product":
+            score = (qx @ kx.transpose(1, 2)) / math.sqrt(self.hidden_dim)
+        elif self.score_function == "mlp":
+            shape = (kx.shape[0], q_len, k_len, self.hidden_dim)
+            kq = torch.cat([kx.unsqueeze(1).expand(shape), qx.unsqueeze(2).expand(shape)], dim=-1)
+            score = torch.tanh(kq @ self.weight.to(kx.dtype))
+        else:  # bi_linear
+            score = (qx @ self.weight.to(qx.dtype)) @ kx.transpose(1, 2)
+        score = torch.softmax(score.float(), dim=0).to(kx.dtype)  # the reference's dim=0
+        output = score @ kx  # (H * B, q_len, Dh)
+        output = output.reshape(self.n_head, B, q_len, self.hidden_dim).permute(1, 2, 0, 3)
+        output = self.proj(output.reshape(B, q_len, self.n_head * self.hidden_dim))
+        return F.dropout(output, self.dropout, self.training), score
+
+
+def matching(matchatt, emotions: torch.Tensor, modal: torch.Tensor, umask: torch.Tensor):
+    """The cross-modal matching of the reference (model.py:289-298):
+    ``matchatt(emotions, modal, umask)`` (a ``MatchingAttention``, every step
+    of ``modal (T, B, cand)`` a query over ``emotions (L, B, mem)``) plus
+    ``gelu(emotions)``: ``(hidden (T, B, mem), alpha (T, B, 1, L))``."""
+    att_emotions, alpha = matchatt(emotions, modal, umask)
+    return att_emotions + gelu(emotions), alpha

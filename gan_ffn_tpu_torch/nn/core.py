@@ -120,6 +120,35 @@ class Linear(nn.Module):
         return linear(x, self.weight, self.bias, self.dtype)
 
 
+class Embedding(nn.Module):
+    """A token embedding, ``weight (num, dim)`` drawn from N(0, 1) as
+    ``torch.nn.Embedding``'s: ids of any shape -> ``(..., dim)``."""
+
+    def __init__(self, num_embeddings: int, embedding_dim: int, *,
+                 generator: Optional[torch.Generator] = None, device="cuda"):
+        super().__init__()
+        w = torch.empty(num_embeddings, embedding_dim).normal_(0.0, 1.0, generator=generator)
+        self.weight = nn.Parameter(w.to(device))
+
+    def forward(self, ids: torch.Tensor) -> torch.Tensor:
+        return F.embedding(ids.long(), self.weight)
+
+
+def conv(cls: type, in_channels: int, out_channels: int, kernel_size: Sequence[int], *,
+         generator: Optional[torch.Generator] = None, device="cuda") -> nn.Module:
+    """A ``torch.nn.Conv1d`` or ``Conv2d`` (``cls``), stride 1, no padding
+    (flax's ``VALID``), with torch's default init drawn from ``generator``:
+    weight and bias U(-1/sqrt(fan_in), 1/sqrt(fan_in)), fan_in = in_channels
+    * prod(kernel_size)."""
+    kernel_size = tuple(kernel_size)
+    layer = cls(in_channels, out_channels, kernel_size, device="meta")
+    bound = 1.0 / math.sqrt(in_channels * math.prod(kernel_size))
+    layer.weight = uniform_parameter((out_channels, in_channels, *kernel_size), bound,
+                                     generator, device)
+    layer.bias = uniform_parameter((out_channels,), bound, generator, device)
+    return layer
+
+
 def kernel_layout(layer: Linear, dtype: Optional[torch.dtype] = None):
     """``(W^T, b)`` of a :class:`Linear` at the compute ``dtype`` (default
     the parameters'), with ``W^T (in, out)`` contiguous: the layout

@@ -14,7 +14,14 @@ JAX package runs that pair op by op at the prediction's dtype, each op
 rounded to it (``gan_ffn_tpu/nn/losses.py:110-131``), where ATen's kernel
 would compute in f32 and round once; :class:`_ElementBCE` runs the same ops.
 
-Both take an optional ``denominator``: the whole batch's ``sum(w * mask)``
+The library-only losses of the reference keep its quirks too:
+``unmasked_weighted_nll_loss`` (UnMaskedWeightedNLLLoss, model.py:99-114),
+``masked_mse_loss`` (MaskedMSELoss, model.py:84-96: the target is not
+masked) and ``focal_loss`` (FocalLoss, model.py:40-59: the log-probabilities
+go through a second log-softmax, and the weighted or plain mean
+cross-entropy over every row is then divided by ``sum(mask)``).
+
+``masked_nll_loss`` and ``bce_loss`` take an optional ``denominator``: the whole batch's ``sum(w * mask)``
 or ``sum(mask)`` (:func:`nll_denominator`, :func:`bce_denominator`), which a
 data-parallel rank computes from the whole batch it loaded
 (``parallel/mesh.py``).  Its loss is then its own numerator over the global
@@ -63,6 +70,53 @@ def masked_nll_loss(
         return -picked.sum() / denominator
     w = weight.to(log_probs.dtype)[target]
     return -(w * picked).sum() / denominator
+
+
+def unmasked_weighted_nll_loss(
+    log_probs: torch.Tensor,
+    target: torch.Tensor,
+    weight: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """UnMaskedWeightedNLLLoss: log_probs (N, C), target (N,) int, weight
+    optional (C,): ``-sum(picked)``, or ``-sum(w picked) / sum(w)`` with
+    ``w = weight[target]``."""
+    target = target.reshape(-1).long()
+    picked = log_probs.gather(1, target[:, None])[:, 0]
+    if weight is None:
+        return -picked.sum()
+    w = weight.to(log_probs.dtype)[target]
+    return -(w * picked).sum() / w.sum()
+
+
+def masked_mse_loss(pred: torch.Tensor, target: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """MaskedMSELoss: ``sum((pred * mask - target)^2) / sum(mask)``; the
+    target is not masked, as in the reference."""
+    return (pred * mask - target).square().sum() / mask.sum()
+
+
+def focal_loss(
+    log_probs: torch.Tensor,
+    target: torch.Tensor,
+    mask: torch.Tensor,
+    weight: Optional[torch.Tensor] = None,
+    gamma: float = 0.0,
+) -> torch.Tensor:
+    """FocalLoss: the masked log-probabilities (N, C) through a second
+    log-softmax (the reference feeds log-probabilities to
+    CrossEntropyLoss), their mean cross-entropy over all N rows (weighted:
+    ``sum(w picked) / sum(w)``) divided by ``sum(mask)`` (weighted:
+    ``sum(w mask)``), then ``(1 - exp(-logp))^gamma logp``."""
+    mask_flat = mask.reshape(-1).to(log_probs.dtype)
+    target = target.reshape(-1).long()
+    relogged = torch.log_softmax(log_probs * mask_flat[:, None], dim=-1)
+    picked = relogged.gather(1, target[:, None])[:, 0]
+    if weight is None:
+        logp = -picked.mean() / mask_flat.sum()
+    else:
+        w = weight.to(log_probs.dtype)[target]
+        logp = (-(w * picked).sum() / w.sum()) / (w * mask_flat).sum()
+    p = torch.exp(-logp)
+    return (1.0 - p) ** gamma * logp
 
 
 class _ElementBCE(torch.autograd.Function):

@@ -8,6 +8,9 @@ model.py:520-562).
   (``weight_ih (3H, D_in)``, ``weight_hh (3H, H)``, ``bias_ih``,
   ``bias_hh``), so ``tests/torch_mapping.py::gru_cell_params`` maps them to
   the JAX tree.
+- ``GRU``: the single-layer ``torch.nn.GRU`` over a sequence, with its
+  ``_l0`` parameter names (``BiE2EModel``'s turn encoder), the input
+  projection of every step hoisted out of the loop over time.
 - ``LSTMCell``, ``LSTM``: torch's gate order (i, f, g, o), c' = f * c + i *
   g, h' = o * tanh(c'), with ``torch.nn.LSTM``'s parameter names
   (``weight_ih_l{k}[_reverse] (4H, in)``, ``weight_hh_l{k}[_reverse]``,
@@ -76,7 +79,13 @@ def gru_step(x: torch.Tensor, h: torch.Tensor, weight_ih: torch.Tensor,
     ``(X, 3H, H)``, biases ``(X, 3H)``.  ``x`` may have size 1 where ``h``
     has more (the party axis of the DialogueRNN cell): its projection is
     then computed once and broadcast, the same value per row."""
-    gi = stacked_linear(x, weight_ih, bias_ih)
+    return gru_update(stacked_linear(x, weight_ih, bias_ih), h, weight_hh, bias_hh)
+
+
+def gru_update(gi: torch.Tensor, h: torch.Tensor, weight_hh: torch.Tensor,
+               bias_hh: torch.Tensor) -> torch.Tensor:
+    """:func:`gru_step` from the input's projection with its bias, ``gi (X,
+    ..., 3H)``: the recurrent half of the step."""
     gh = stacked_linear(h, weight_hh, bias_hh)
     i_r, i_z, i_n = gi.chunk(3, dim=-1)
     h_r, h_z, h_n = gh.chunk(3, dim=-1)
@@ -103,6 +112,38 @@ class GRUCell(nn.Module):
     def forward(self, x: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
         params = (self.weight_ih, self.weight_hh, self.bias_ih, self.bias_hh)
         return gru_step(x[None], h[None], *(p[None] for p in params))[0]
+
+
+class GRU(nn.Module):
+    """Single-layer GRU over ``x (L, B, D_in)`` with ``torch.nn.GRU``'s
+    semantics and parameter names (``weight_ih_l0 (3H, D_in)``,
+    ``weight_hh_l0 (3H, H)``, ``bias_ih_l0``, ``bias_hh_l0``): ``(outputs
+    (L, B, H), h_n (1, B, H))`` from ``h0 (1, B, H)`` or zeros.  The input
+    projection of every step is one product over all L * B rows; the loop
+    over time runs :func:`gru_update`."""
+
+    def __init__(self, input_size: int, hidden_size: int, *,
+                 generator: Optional[torch.Generator] = None, device="cuda"):
+        super().__init__()
+        self.input_size, self.hidden_size = input_size, hidden_size
+        bound = 1.0 / math.sqrt(hidden_size)
+        H3 = 3 * hidden_size
+        self.weight_ih_l0 = uniform_parameter((H3, input_size), bound, generator, device)
+        self.weight_hh_l0 = uniform_parameter((H3, hidden_size), bound, generator, device)
+        self.bias_ih_l0 = uniform_parameter((H3,), bound, generator, device)
+        self.bias_hh_l0 = uniform_parameter((H3,), bound, generator, device)
+
+    def forward(self, x: torch.Tensor, h0: Optional[torch.Tensor] = None):
+        L, B, _ = x.shape
+        gi = stacked_linear(x[None], self.weight_ih_l0[None], self.bias_ih_l0[None])
+        weight_hh, bias_hh = self.weight_hh_l0[None], self.bias_hh_l0[None]
+        h = (x.new_zeros(1, B, self.hidden_size) if h0 is None
+             else h0.reshape(1, B, self.hidden_size).to(x.dtype))
+        outs = []
+        for t in range(L):
+            h = gru_update(gi[:, t], h, weight_hh, bias_hh)
+            outs.append(h)
+        return torch.stack(outs, dim=1)[0], h
 
 
 def lstm_step(gi: torch.Tensor, h: torch.Tensor, c: torch.Tensor, weight_hh: torch.Tensor,

@@ -59,6 +59,7 @@ from torch import nn
 
 from .models.baselines import MELDLSTMModel
 from .models.gan_ffn import GAN_FFN, GAN_FFN_DialogueRNN
+from .utils.runtime import configure_cuda_runtime
 
 ARTIFACT_VERSION = 1
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}  # meta["dtype"] -> torch
@@ -73,15 +74,6 @@ FAMILIES = {"gan_ffn": GAN_FFN, "gan_ffn_dialoguernn": GAN_FFN_DialogueRNN,
             "meld_lstm": MELDLSTMModel}
 # an input kind -> its rank: "feat" and "qmask" (L, B, dim), "umask" (B, L)
 _RANK = {"feat": 3, "qmask": 3, "umask": 2}
-
-
-def pin_full_f32() -> None:
-    """Turn TF32 off for float32 matmuls and convolutions, and reduced
-    precision off in bf16 matmuls' sums (the JAX package sums bf16 products
-    in float32), process-wide."""
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
 
 def model_config(model: nn.Module) -> Dict[str, Any]:
@@ -356,7 +348,7 @@ class ServingClassifier:
             tuple(sorted(int(b) for b in batch_grid)) if batch_grid else None
         )
         self.device = torch.device(device)
-        pin_full_f32()
+        configure_cuda_runtime()
         check_state(meta, state_dict)
         # at the artifact's dtype first: load_state_dict copies into the
         # parameters' dtype, so a float32 module would serve a bf16 artifact in float32
@@ -380,7 +372,7 @@ class ServingClassifier:
     def _from_file(cls, f, **kw) -> "ServingClassifier":
         try:
             art = torch.load(f, map_location="cpu", weights_only=True)
-        except (pickle.UnpicklingError, RuntimeError, EOFError) as e:  # bad archive
+        except (pickle.UnpicklingError, RuntimeError, EOFError, ValueError) as e:  # bad archive
             raise ValueError(f"not a gan_ffn_tpu_torch serving artifact ({e})") from e
         if not isinstance(art, dict) or set(art) != {"meta", "state_dict"}:
             raise ValueError("not a gan_ffn_tpu_torch serving artifact (bad layout)")

@@ -1,6 +1,7 @@
 """Weight bridge between JAX params and the port's ``state_dict``s, both
-ways, for ``GAN_FFN``, ``GAN_FFN_DialogueRNN``, ``MELDLSTMModel`` and the
-six networks of stage A.
+ways, for every model of the port: ``GAN_FFN``, ``GAN_FFN_DialogueRNN``,
+the six networks of stage A, ``BiModel`` and ``BiE2EModel``, and the
+baselines (``MELDLSTMModel`` and the library-only eight).
 
 A JAX tree (nested dicts of arrays) maps onto the port's module tree name
 for name, with these rewrites:
@@ -13,6 +14,9 @@ for name, with these rewrites:
   the LSTM's per-layer ``w_ih_l{k}[_reverse] (in, 4H)`` -> ``weight_ih_l{k}
   [_reverse] (4H, in)``, ``b_ih_l{k}[_reverse]`` -> ``bias_ih_l{k}[_reverse]``;
 - LayerNorm ``scale`` -> ``weight``;
+- flax ``Conv`` ``kernel``: 2-D ``(fs, E, 1, F)`` -> ``Conv2d`` ``weight (F,
+  1, fs, E)``, 1-D ``(K, E, F)`` -> ``Conv1d`` ``weight (F, E, K)``;
+- flax ``Embed`` ``embedding (V, D)`` -> ``weight (V, D)``;
 - ``layers_i`` -> ``layers.i``.
 
 ``load_state_dict`` (strict, the default) then refuses missing, extra and
@@ -42,15 +46,16 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..nn.core import LayerNorm, Linear
-from ..nn.recurrent import LSTM, GRUCell, LSTMCell
+from ..nn.attention import Attention
+from ..nn.core import Embedding, LayerNorm, Linear
+from ..nn.recurrent import GRU, LSTM, GRUCell, LSTMCell
 from ..nn.transformer import MultiheadSelfAttention
 from ..train.gan import DISC_NAMES, GEN_NAMES
 
 _LAYER = re.compile(r"layers_(\d+)")
 _TRANSPOSED = {"kernel": "weight", "in_proj_kernel": "in_proj_weight",
                "w_ih": "weight_ih", "w_hh": "weight_hh"}
-_RENAMED = {"scale": "weight", "b_ih": "bias_ih", "b_hh": "bias_hh"}
+_RENAMED = {"scale": "weight", "b_ih": "bias_ih", "b_hh": "bias_hh", "embedding": "weight"}
 _LSTM_LAYER = re.compile(r"(w_ih|w_hh|b_ih|b_hh)(_l\d+(?:_reverse)?)")  # an LSTM's per-layer name
 
 
@@ -137,7 +142,9 @@ def state_dict_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
             m = _LSTM_LAYER.fullmatch(key)
             base, suffix = m.groups() if m else (key, "")
             if base in _TRANSPOSED:
-                key, arr = _TRANSPOSED[base] + suffix, arr.T
+                # a 2-D conv's (fs, E, 1, F) -> (F, 1, fs, E); every other rank reversed
+                key = _TRANSPOSED[base] + suffix
+                arr = arr.transpose(3, 2, 0, 1) if arr.ndim == 4 else arr.T
             else:
                 key = _RENAMED.get(base, base) + suffix
             out[".".join(path + [key])] = torch.tensor(arr)  # a contiguous copy
@@ -172,8 +179,12 @@ _OWNED = {
     LayerNorm: {"weight": ("scale", False), "bias": ("bias", False)},
     MultiheadSelfAttention: {"in_proj_weight": ("in_proj_kernel", True),
                              "in_proj_bias": ("in_proj_bias", False)},
+    nn.Conv1d: {"weight": ("kernel", True), "bias": ("bias", False)},
+    nn.Conv2d: {"weight": ("kernel", True), "bias": ("bias", False)},
+    Embedding: {"weight": ("embedding", False)},
+    Attention: {"weight": ("weight", False)},  # the mlp and bi_linear scores' own
 }
-_RECURRENT = (GRUCell, LSTMCell, LSTM)
+_RECURRENT = (GRUCell, GRU, LSTMCell, LSTM)
 _RECURRENT_NAME = re.compile(r"(weight|bias)_(ih|hh)(_l\d+(?:_reverse)?)?")
 
 
@@ -235,7 +246,8 @@ def jax_params_from_state_dict(module: nn.Module,
     tree: Dict[str, Any] = {}
     for key, path, transposed in layout:
         t = state_dict[key].detach().to("cpu")
-        t = t.T if transposed else t
+        if transposed:  # a Conv2d's (F, 1, fs, E) -> (fs, E, 1, F); every other rank reversed
+            t = t.permute(2, 3, 1, 0) if t.dim() == 4 else t.permute(*reversed(range(t.dim())))
         node = tree
         for part in path[:-1]:
             node = node.setdefault(part, {})

@@ -153,6 +153,32 @@ def test_loader_rejects_bad_artifacts(clf, blob):
             ServingClassifier.loads(blob)
 
 
+def test_loader_rejects_truncation_at_every_boundary(blob):
+    """An artifact cut at any boundary of its archive raises ValueError and
+    nothing else (as tests/test_serving.py holds the JAX loader): the
+    start, inside and end of every record's local header and data, the
+    central directory and its end record."""
+    import io
+    import struct
+    import zipfile
+
+    cuts = {0, 1, len(blob) - 1}
+    for info in zipfile.ZipFile(io.BytesIO(blob)).infolist():
+        start = info.header_offset
+        name_len, extra_len = struct.unpack("<HH", blob[start + 26:start + 30])
+        data = start + 30 + name_len + extra_len
+        end = data + info.compress_size
+        cuts |= {start, start + 1, start + 29, data, data + 1, (data + end) // 2, end - 1, end}
+    eocd = blob.rfind(b"PK\x05\x06")
+    directory = struct.unpack("<I", blob[eocd + 16:eocd + 20])[0]
+    cuts |= {directory, directory + 1, eocd, eocd + 1, eocd + 21}
+    cuts = sorted(c for c in cuts if 0 <= c < len(blob))
+    assert len(cuts) > 100
+    for cut in cuts:
+        with pytest.raises(ValueError, match="serving artifact"):
+            ServingClassifier.loads(blob[:cut], device="cpu")
+
+
 def test_predict_names_and_warmup(clf):
     xs = _inputs(6, 2, seed=9)
     ids = clf.predict(*xs)
