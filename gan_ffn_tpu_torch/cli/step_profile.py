@@ -1,41 +1,18 @@
-"""Where one train step's device time goes, on the card, for stage B of
-both classifiers and for stage A.
+"""Full-width train steps on the card, for stage B of both classifiers and
+for stage A, with the random batches they run on (``chip_smoke.py`` times
+and checks them).
 
-    python -m gan_ffn_tpu_torch.cli.step_profile [--label NAME] [--steps 5] [--bf16]
-        [--only stage_b,dialoguernn,stage_a] [--eager]
-
-Builds the full-width 8-layer ``GAN_FFN`` (random weights from a seed) and
-trains it on one random batch at B = 32, L = 112 (dialogues of 97-110
-utterances, every dropout on), as ``chip_smoke.py``'s train step does; then
-the six full-width stage-A networks, through the 12-duel step on the same
-batch; then the full-width ``GAN_FFN_DialogueRNN`` (8-layer generators,
-D_g = D_p = 500, context attention ``general``) on one such batch at B =
-30, the DialogueRNN trainer's.  For each, after 3 warm-up steps it profiles ``--steps`` steps with
-torch.profiler and prints one JSON line: wall ms per step (host clock, to
-the end of a synchronize), the device's busy ms per step (the union of its
-kernels' intervals) and idle share, the port's four kernels' ms per step and
-share of the busy time, and device ms per step by kernel, largest first
-(the port's kernels under their library's name, cuBLAS's and PyTorch's
-under their own).  Then the same three steps graphed, as ``--epoch-fused``
-runs them (``train/graphs.py``): the first call runs eagerly and captures
-the step's CUDA graph, and the profiled calls replay it; their lines add
-the capture seconds and the graph pool's bytes.  The first line names the
-card and its power limit.  ``--bf16`` trains each step at bfloat16, as the
-trainers' ``--bf16`` does (float32 parameters cast at each use), ``--only``
-profiles the named steps alone and ``--eager`` skips the graphed ones.
-
-Like ``cli/mlp_profile.py``, it imports the ``gan_ffn_tpu_torch`` first
-on ``sys.path``, so it can time another checkout (see there).
+:func:`build_step` builds the full-width 8-layer ``GAN_FFN`` (random
+weights from a seed), the six full-width stage-A networks through the
+12-duel step, or the full-width ``GAN_FFN_DialogueRNN`` (8-layer
+generators, D_g = D_p = 500, context attention ``general``), per batch or
+graphed, as ``--epoch-fused`` runs them (``train/graphs.py``).
+:func:`step_batch` gives each a random batch at L = 112 (dialogues of
+97-110 utterances, two speakers) and its batch size in :data:`STEPS`: B =
+32, and B = 30 for the DialogueRNN, the DialogueRNN trainer's.
 """
 
 from __future__ import annotations
-
-import argparse
-import collections
-import json
-import subprocess
-import sys
-import time
 
 import numpy as np
 import torch
@@ -117,112 +94,3 @@ def build_step(name: str, graphed: bool, deterministic: bool = False, capturable
         for opt in opts:
             make_capturable(opt)
     return step, params, opts
-
-
-def _busy_us(intervals) -> float:
-    """Length of the union of (start, end) intervals."""
-    busy, end = 0.0, float("-inf")
-    for s, e in sorted(intervals):
-        if e > end:
-            busy += e - max(s, end)
-            end = e
-    return busy
-
-
-# the port's kernels: each library's entry points
-LIBRARY = {"attention_fwd_kernel": "attention_fwd", "attention_bwd_kernel": "attention_bwd",
-           "mlp_fwd_kernel": "mlp_fwd", "mlp_fwd_reduce_kernel": "mlp_fwd",
-           "gemm_kernel": "mlp_bwd", "reduce_kernel": "mlp_bwd", "pre_kernel": "mlp_bwd",
-           "attention_fwd_bf16_kernel": "attention_fwd_bf16",
-           "attention_bwd_bf16_kernel": "attention_bwd_bf16",
-           "mlp_fwd_bf16_kernel": "mlp_fwd_bf16", "mlp_fwd_bf16_reduce_kernel": "mlp_fwd_bf16",
-           "z1_kernel": "mlp_bwd_bf16", "colsum_kernel": "mlp_bwd_bf16"}
-# in a bf16 step the kernels of both MLP backwards' names are mlp_bwd_bf16's
-BF16_LIBRARY = {**LIBRARY, "gemm_kernel": "mlp_bwd_bf16", "reduce_kernel": "mlp_bwd_bf16"}
-# kernels that both MLP libraries launch (csrc/mlp_tile.cuh): each launch is
-# counted with the library of the kernel that runs next on the stream
-SHARED = {"mlp::pre_kernel"}
-
-
-def _kernel_name(name: str, bf16: bool = False) -> str:
-    """A kernel's name without its namespace, template arguments and
-    parameters; the port's kernels as their library's name."""
-    name = name.replace("(anonymous namespace)::", "").removeprefix("void ")
-    name = name.split("(")[0].split("<")[0]
-    return (BF16_LIBRARY if bf16 else LIBRARY).get(name, name[:80])
-
-
-def _profile(step, steps: int, bf16: bool = False) -> dict:
-    """Device time of ``steps`` calls of ``step()`` after 3 warm-up calls
-    (``bf16``: a bf16 step, for the kernels' names)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    for _ in range(3):
-        step()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(steps):
-            step()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / steps
-    # device activities: kernels, copies and sets; not the device-side spans
-    # of user annotations (the optimizer's step), which cover the gaps too
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA
-               and not getattr(e, "is_user_annotation", False)]
-    kernels.sort(key=lambda e: e.time_range.start)
-    names = [_kernel_name(e.name, bf16) for e in kernels]
-    per_name = collections.Counter()
-    for i, e in enumerate(kernels):
-        name = names[i]
-        if name in SHARED and i + 1 < len(kernels):
-            name = names[i + 1]
-        per_name[name] += e.time_range.elapsed_us() / 1e3 / steps
-    busy_ms = _busy_us([(e.time_range.start, e.time_range.end) for e in kernels]) / 1e3 / steps
-    port_ms = sum(per_name[name] for name in set(LIBRARY.values()))
-    return {
-        "steps": steps, "wall_ms_per_step": wall_ms, "device_busy_ms_per_step": busy_ms,
-        "device_idle_share": 1.0 - busy_ms / wall_ms, "kernels_per_step": len(kernels) / steps,
-        "port_kernels_ms_per_step": port_ms, "port_kernels_share_of_busy": port_ms / busy_ms,
-        "device_ms_per_step_by_kernel": {k: round(v, 4) for k, v in per_name.most_common(25)},
-    }
-
-
-def main(argv=None) -> None:
-    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("--label", default="tree", help="a name for this checkout in the output")
-    p.add_argument("--steps", type=int, default=5, help="profiled train steps")
-    p.add_argument("--bf16", action="store_true", help="train at bfloat16")
-    p.add_argument("--only", default=",".join(STEPS), help="the steps to profile, comma-separated")
-    p.add_argument("--eager", action="store_true", help="skip the graphed steps")
-    args = p.parse_args(argv)
-    names = args.only.split(",")
-    if not set(names) <= set(STEPS):
-        p.error(f"--only takes steps of {sorted(STEPS)}")
-    dtype = torch.bfloat16 if args.bf16 else None
-    if not torch.cuda.is_available():
-        sys.exit("step_profile: no CUDA card")
-
-    from gan_ffn_tpu_torch.utils.runtime import configure_cuda_runtime
-
-    configure_cuda_runtime()
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True).stdout.strip()
-    print(json.dumps({"label": args.label, "card": smi}), flush=True)
-    for graphed in (False,) if args.eager else (False, True):
-        for name in names:
-            batch = step_batch(name, np.random.default_rng(0))
-            step = build_step(name, graphed, dtype=dtype)[0]
-            line = {"label": args.label, "B": STEPS[name], "L": L,
-                    "valid_len": int(batch["valid_len"].item()), "step": name,
-                    "graphed": graphed, "bf16": args.bf16,
-                    **_profile(lambda: step(batch), args.steps, args.bf16)}
-            if graphed:
-                line["graphs"] = step.graphs.stats()
-            print(json.dumps(line), flush=True)
-            del step
-            torch.cuda.empty_cache()
-
-if __name__ == "__main__":
-    main()

@@ -31,7 +31,12 @@ layout.  ``--tensorboard`` writes ``./tensorboard`` event files: the
 gradient histograms per named parameter, of one sampled batch per epoch or,
 with ``--tb-grad-histograms batch``, of every step
 (``cli/common.TensorBoardLog``).  ``--profile LOGDIR`` traces stage B's
-train epoch 1 with torch.profiler into ``LOGDIR`` (``utils/profiling.py``).
+train epoch 1 with torch.profiler into ``LOGDIR`` (``utils/profiling.py``),
+with the port's tracing on from stage B's first step (stage A runs without
+it), so the trace holds its ``gan_ffn.*`` spans (and, on a card, its stamp
+kernels); at the end of that epoch it prints one JSON line,
+``{"profile": ...}``, of the regions' count and device ms (host ms on the
+CPU).
 ``--gan-schedule`` is accepted, and both values run the same step
 (``stepwise`` is refused with ``--epoch-fused``, as the JAX trainer refuses
 it).  ``--epoch-fused`` runs both stages' epochs fused: batches grouped by
@@ -66,6 +71,7 @@ from __future__ import annotations
 
 import argparse
 import copy
+import json
 import os
 import time
 
@@ -81,8 +87,8 @@ from ..parallel.mesh import leave
 from ..train.classifier import make_classifier_epoch_steps, make_classifier_steps
 from ..train.loop import run_epoch, run_epoch_fused
 from ..train.optim import torch_adam
+from ..utils import profiling
 from ..utils.checkpoint import save_params
-from ..utils.profiling import trace
 from ..utils.weights import jax_params_from_state_dict
 from .common import (IEMOCAP_LOSS_WEIGHTS, IEMOCAP_N_CLASSES, TensorBoardLog, compute_dtype,
                      data_parallel, graft_generators, param_count, setup, stage_a)
@@ -143,7 +149,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--strict-parity", action="store_true", default=False,
                    help="replicate the reference's NaN on constant-feature normalization")
     p.add_argument("--profile", default=None, metavar="LOGDIR",
-                   help="write a torch.profiler trace of stage B's train epoch 1 to LOGDIR")
+                   help="write a torch.profiler trace of stage B's train epoch 1 to LOGDIR, "
+                        "with the port's tracing on, and print its regions' ms")
     p.add_argument("--synthetic-train", type=int, default=120,
                    help="synthetic fixture train dialogues")
     p.add_argument("--synthetic-test", type=int, default=31)
@@ -159,6 +166,8 @@ def main(argv=None) -> dict:
     if dp is not None and dp.rank != 0:
         print(f"rank {dp.rank}: stage A done; rank 0 runs stage B")
         return None
+    if args.profile:  # before stage B's steps are built and captured
+        profiling.enable()
 
     # ---- Stage B: GAN_FFN with the trained generators ----
     torch.manual_seed(args.seed)
@@ -187,9 +196,14 @@ def main(argv=None) -> dict:
     for e in range(args.epochs):
         start_time = time.time()
         lr_scale = float(0.98**e) if args.lr_schedule == "decay" else None
-        with trace(args.profile if e == 1 else None, cuda=device.type == "cuda"):
+        profiled = args.profile if e == 1 else None
+        if profiled:
+            profiling.collect()  # the regions before this epoch
+        with profiling.trace(profiled, cuda=device.type == "cuda"):
             train_res = run(train_loader, train_step, device, lr_scale=lr_scale,
                             **log.run_kwargs(e))
+        if profiled:
+            print(json.dumps({"profile": profiling.report(profiling.collect())}))
         valid_res = run(valid_loader, eval_step, device)
         test_res = run(test_loader, eval_step, device)
         log.end_epoch(e, train_res, test_res)
@@ -212,6 +226,8 @@ def main(argv=None) -> dict:
         )
 
     log.close()
+    if args.profile:
+        profiling.enable(False)
     if best is None:
         parser.error("--epochs must be at least 1")
     ckpt = save_params(os.path.join(args.model_save_path, "classifier_best.msgpack"),

@@ -30,6 +30,11 @@ source (``ops.dropout.StepSeeds``), unless the batch carries it as
 through ``train.graphs.ShapeGraphs``: one CUDA graph per batch shape on a
 card, eager on the CPU.
 
+Where the port's tracing is on (``utils/profiling.py``), a train step's
+forward and loss lie in the region ``gan_ffn.forward``, its backward in
+``gan_ffn.backward`` and its Adam step in ``gan_ffn.optimizer``, and every
+step in ``gan_ffn.step``.
+
 ``make_classifier_steps(..., dp=...)`` gives the data-parallel train step
 (the library DP of the JAX package's mesh, ``parallel/mesh.py``): on the
 whole batch it computes the masked NLL's global denominator, runs the
@@ -56,7 +61,8 @@ from ..nn.losses import masked_nll_loss, nll_denominator
 from ..ops.dropout import draw_seed, host_to_device
 from ..parallel.mesh import (DataParallel, active, all_gather_cat, all_reduce_grads,
                              all_reduce_sum, shard_batch)
-from .graphs import ShapeGraphs
+from ..utils import profiling
+from .graphs import ShapeGraphs, in_step_region
 from .optim import make_capturable, set_lr_scale
 
 GENERATOR_KEYS = ("acoustic_generator", "visual_generator", "text_generator")
@@ -162,16 +168,20 @@ def _steps(model, optimizer, n_classes, loss_weights, deterministic, graphed, dp
         model.train(not deterministic)
         with seeds.step(batch.get("seed")) if seeds is not None else contextlib.nullcontext():
             local = batch if dp is None else shard_batch(batch, dp.rank, dp.world)
-            log_prob = forward(local)[0]
-            whole = None if dp is None else nll_denominator(
-                batch["label"], batch["umask"], loss_weights, log_prob.dtype)
-            loss, preds = loss_and_preds(log_prob, local, n_classes, loss_weights, whole)
-            optimizer.zero_grad(set_to_none=True)
-            loss.backward()
+            device = batch["label"].device
+            with profiling.region(profiling.FORWARD, device):
+                log_prob = forward(local)[0]
+                whole = None if dp is None else nll_denominator(
+                    batch["label"], batch["umask"], loss_weights, log_prob.dtype)
+                loss, preds = loss_and_preds(log_prob, local, n_classes, loss_weights, whole)
+            with profiling.region(profiling.BACKWARD, device):
+                optimizer.zero_grad(set_to_none=True)
+                loss.backward()
             if dp is not None:
                 all_reduce_grads(model.parameters(), dp)
                 loss, preds = all_reduce_sum(loss, dp), all_gather_cat(preds, dp)
-            optimizer.step()
+            with profiling.region(profiling.OPTIMIZER, device):
+                optimizer.step()
         return loss.detach(), preds
 
     @torch.no_grad()
@@ -183,8 +193,8 @@ def _steps(model, optimizer, n_classes, loss_weights, deterministic, graphed, dp
             return loss, preds
         return loss, preds, dict(zip(model.ATTENTIONS, attentions))
 
-    train_run = ShapeGraphs(train_body, "train") if graphed else train_body
-    eval_run = ShapeGraphs(eval_body, "eval") if graphed else eval_body
+    train_run = ShapeGraphs(train_body, "train") if graphed else in_step_region(train_body)
+    eval_run = ShapeGraphs(eval_body, "eval") if graphed else in_step_region(eval_body)
 
     def train_step(batch, lr_scale: Optional[float] = None):
         if lr_scale is not None:

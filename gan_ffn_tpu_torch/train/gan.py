@@ -70,7 +70,7 @@ from ..models import (
 from ..nn.core import dropout_seeds_of
 from ..nn.losses import bce_denominator, bce_loss
 from ..parallel.mesh import DataParallel, active, all_reduce_grads, all_reduce_sum, shard_batch
-from .graphs import ShapeGraphs
+from .graphs import ShapeGraphs, in_step_region
 from .optim import make_capturable, torch_adam
 
 GEN_NAMES = ("acoustic_gen", "visual_gen", "text_gen")
@@ -267,7 +267,7 @@ def _gan_step(modules, opts, deterministic, graphed, dp=None):
                 losses[f"duel_{i}"] = losses[duel[5]] = total[i]
         return losses
 
-    run = ShapeGraphs(body, "stage_a") if graphed else body
+    run = ShapeGraphs(body, "stage_a") if graphed else in_step_region(body)
 
     def step(batch: Mapping) -> Dict[str, torch.Tensor]:
         if seeds is not None and "seed" not in batch:

@@ -18,6 +18,16 @@ tensors' names, shapes and dtypes; the batch's host values never reach
   (``copy_(..., non_blocking=True)``), the graph replays, and the static
   outputs are cloned, so a later replay does not overwrite them.
 
+Where the port's tracing is on (``utils/profiling.py``), every step of
+``fn`` (on the CPU, eager, or captured) lies in the region ``gan_ffn.step``,
+so its stamps are a graph's first and last nodes and every replay records
+the step on the device's clock; the host spans ``gan_ffn.graph.copy_in``,
+``gan_ffn.graph.replay`` (the ``CUDAGraph.replay()`` call alone) and
+``gan_ffn.graph.clone_out`` name a replay's three parts, and
+``gan_ffn.graph.capture`` a shape's eager first step and its capture.
+:func:`in_step_region` gives a step that runs without graphs the same
+region.
+
 The step reads ``valid_len``, ``n_real``, the dropout seed base and the lr
 from device memory (``ops``, ``train/optim.py``), so a replay is the step of
 the batch copied in.  torch's own RNG (``F.dropout``) is graph-safe: each
@@ -34,6 +44,8 @@ from typing import Callable, Dict, List, Mapping, Optional
 
 import torch
 
+from ..utils import profiling
+
 
 def tree_map(fn: Callable, tree):
     """``fn`` over the tensors of a tree of tuples, lists and dicts."""
@@ -44,6 +56,18 @@ def tree_map(fn: Callable, tree):
     if isinstance(tree, dict):
         return {k: tree_map(fn, v) for k, v in tree.items()}
     return tree
+
+
+def in_step_region(fn: Callable[[Mapping[str, object]], object]):
+    """``fn(batch)`` in the region ``gan_ffn.step``, on the batch's device."""
+    def step(batch: Mapping[str, object]):
+        if not profiling.enabled():
+            return fn(batch)
+        device = next(v.device for v in batch.values() if isinstance(v, torch.Tensor))
+        with profiling.region(profiling.STEP, device):
+            return fn(batch)
+
+    return step
 
 
 def _pool_bytes(pool, device) -> int:
@@ -69,6 +93,7 @@ class ShapeGraphs:
 
     def __init__(self, fn: Callable[[Dict[str, torch.Tensor]], object], mode: str):
         self.fn, self.mode = fn, mode
+        self._step = in_step_region(fn)
         self.graphs: Dict[tuple, CapturedStep] = {}
         self._stream: Optional[torch.cuda.Stream] = None
 
@@ -83,15 +108,19 @@ class ShapeGraphs:
             raise ValueError(f"a step's batch lies on one device, got {sorted(map(str, devices))}")
         device = devices.pop()
         if device.type != "cuda":
-            return self.fn(tensors)
+            return self._step(tensors)
         captured = self.graphs.get(self.key(tensors))
         if captured is None:
-            return self._run_and_capture(tensors, device)
-        for k, buf in captured.inputs.items():
-            buf.copy_(tensors[k], non_blocking=True)
-        captured.graph.replay()
+            with profiling.span("gan_ffn.graph.capture"):
+                return self._run_and_capture(tensors, device)
+        with profiling.span("gan_ffn.graph.copy_in"):
+            for k, buf in captured.inputs.items():
+                buf.copy_(tensors[k], non_blocking=True)
+        with profiling.span("gan_ffn.graph.replay"):
+            captured.graph.replay()
         captured.replays += 1
-        return tree_map(torch.clone, captured.outputs)
+        with profiling.span("gan_ffn.graph.clone_out"):
+            return tree_map(torch.clone, captured.outputs)
 
     def _run_and_capture(self, tensors: Dict[str, torch.Tensor], device: torch.device):
         if self._stream is None:
@@ -99,13 +128,13 @@ class ShapeGraphs:
         stream, current = self._stream, torch.cuda.current_stream(device)
         stream.wait_stream(current)
         with torch.cuda.stream(stream):
-            out = self.fn(tensors)  # this batch's real step, and the warm-up
+            out = self._step(tensors)  # this batch's real step, and the warm-up
             static = {k: v.clone() for k, v in tensors.items()}
         current.wait_stream(stream)
         graph, pool = torch.cuda.CUDAGraph(), torch.cuda.graph_pool_handle()
         t0 = time.perf_counter()
         with torch.cuda.graph(graph, pool=pool, stream=stream):
-            outputs = self.fn(static)
+            outputs = self._step(static)
         torch.cuda.synchronize(device)
         seconds = time.perf_counter() - t0
         self.graphs[self.key(tensors)] = CapturedStep(graph, static, outputs, seconds,

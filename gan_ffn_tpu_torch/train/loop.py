@@ -27,6 +27,7 @@ import torch
 from ..data.loaders import Batch
 from ..evaluation.metrics import accuracy_score, f1_score
 from ..ops.dropout import StepSeeds, host_to_device
+from ..utils import profiling
 
 _ARRAYS = ("text", "audio", "visual", "qmask", "umask", "label")
 
@@ -37,7 +38,13 @@ def batch_to_tensors(batch: Batch, device, seed: Optional[int] = None) -> Dict[s
     longest dialogue of the batch) and ``n_real`` as 0-d int32 tensors,
     which the steps read on the device, and beside them the same as host
     ints, ``host_valid_len`` and ``host_n_real``; with ``seed``, a train
-    step's dropout seed base as the 0-d int64 ``seed``."""
+    step's dropout seed base as the 0-d int64 ``seed``.  Where the port's
+    tracing is on it is the host span ``gan_ffn.batch_to_tensors``."""
+    with profiling.span("gan_ffn.batch_to_tensors"):
+        return _batch_to_tensors(batch, device, seed)
+
+
+def _batch_to_tensors(batch: Batch, device, seed: Optional[int]) -> Dict[str, object]:
     L, B = batch.umask.shape[1], batch.umask.shape[0]
     valid_len, n_real = int(batch.umask.sum(axis=1).max()), int(batch.n_real)
     if not (0 <= valid_len <= L and 0 <= n_real <= B):
@@ -158,7 +165,8 @@ def fused_order(batches: Sequence[Batch], seeds: Optional[StepSeeds]
 def epoch_result(batches: Sequence[Batch], outs: Sequence[tuple]) -> EpochResult:
     """The :class:`EpochResult` of the steps' outputs ``outs`` (``(loss,
     preds)`` or ``(loss, preds, attentions)``, device tensors) for
-    ``batches``, both in loader order: one device-to-host copy."""
+    ``batches``, both in loader order: one device-to-host copy, the host span
+    ``gan_ffn.fetch`` where the port's tracing is on."""
     if not outs:
         empty = np.array([])
         return EpochResult(float("nan"), float("nan"), empty, empty, empty, float("nan"))
@@ -171,7 +179,8 @@ def epoch_result(batches: Sequence[Batch], outs: Sequence[tuple]) -> EpochResult
             vids.append(list(batch.vids))
     pieces = [torch.stack(losses).float()] + [p.float() for p in preds]
     pieces += [a.float().reshape(-1) for batch_attns in attns for a in batch_attns.values()]
-    flat = torch.cat(pieces).cpu().numpy()
+    with profiling.span("gan_ffn.fetch"):
+        flat = torch.cat(pieces).cpu().numpy()
     n = len(losses)
     n_preds = sum(p.numel() for p in preds)
     batch_losses, preds_np = flat[:n], flat[n:n + n_preds].astype(np.int64)

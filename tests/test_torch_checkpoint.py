@@ -23,6 +23,8 @@
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import os
 import shutil
@@ -422,23 +424,24 @@ def test_port_gan_state_restores_into_jax_and_the_port(stage_a, scan, tmp_path):
 def tb_runs(tmp_path_factory):
     """The flagship trainer, stage B only (2 epochs at depth 1), with
     ``--tensorboard`` at each cadence, ``--profile`` on the epoch cadence's
-    run; each in its own working directory."""
+    run; each in its own working directory, with what it printed."""
     pytest.importorskip("tensorboard")
     root = tmp_path_factory.mktemp("tb")
     data = write_synthetic_iemocap(str(root / "iemocap.pkl"), n_train=12, n_test=4, min_len=4,
                                    max_len=20, seed=4)
-    runs = {}
+    runs, printed = {}, {}
     for cadence in ("epoch", "batch"):
         cwd = root / cadence
         cwd.mkdir()
-        with pytest.MonkeyPatch.context() as mp:
+        with pytest.MonkeyPatch.context() as mp, \
+                contextlib.redirect_stdout(io.StringIO()) as out:
             mp.chdir(cwd)
             CLI.main(["--data-path", data, "--GAN-epochs", "0", "--epochs", "2", "--num-layers",
                       "1", "--batch-size", "4", "--device", "cpu", "--tensorboard",
                       "--tb-grad-histograms", cadence]
                      + (["--profile", "prof"] if cadence == "epoch" else []))
-        runs[cadence] = cwd
-    return data, runs
+        runs[cadence], printed[cadence] = cwd, out.getvalue()
+    return data, runs, printed
 
 
 @pytest.mark.parametrize("cadence", ["epoch", "batch"])
@@ -448,7 +451,7 @@ def test_tensorboard_logs_scalars_and_a_histogram_per_parameter(tb_runs, cadence
     (``epoch``) or once per train batch, tagged with the epoch (``batch``)."""
     from tb_events import read_events
 
-    data, runs = tb_runs
+    data, runs, _ = tb_runs
     scalars, hists = read_events(runs[cadence] / "tensorboard")
     assert scalars == {"test: accuracy/loss": [0, 1], "train: accuracy/loss": [0, 1]}
     n = 1 if cadence == "epoch" else len(get_iemocap_loaders(data, batch_size=4, valid=0.1,
@@ -459,12 +462,28 @@ def test_tensorboard_logs_scalars_and_a_histogram_per_parameter(tb_runs, cadence
 
 def test_profile_writes_a_trace_only_when_asked(tb_runs):
     """``--profile prof``: one torch.profiler trace of stage B's epoch 1 in
-    ``prof``, naming the train step's ops; without it, no trace file."""
-    _, runs = tb_runs
+    ``prof``, naming the train step's ops and the port's ``gan_ffn.`` spans,
+    and one printed line of the epoch's regions: a step, forward, backward
+    and optimizer per train batch.  Without it, no trace file and no line,
+    and tracing is off after either run."""
+    from gan_ffn_tpu_torch.utils import profiling
+
+    data, runs, printed = tb_runs
     (trace,) = (runs["epoch"] / "prof").glob("*.pt.trace.json")
     events = json.loads(trace.read_text())["traceEvents"]
     assert any("aten::" in e.get("name", "") for e in events)
+    names = {e.get("name", "") for e in events}
+    assert {"gan_ffn.step", "gan_ffn.forward", "gan_ffn.backward", "gan_ffn.optimizer",
+            "gan_ffn.batch_to_tensors", "gan_ffn.fetch"} <= names
     assert not list(runs["batch"].rglob("*.pt.trace.json"))
+    (line,) = [json.loads(s) for s in printed["epoch"].splitlines() if s.startswith('{"profile"')]
+    n = len(get_iemocap_loaders(data, batch_size=4, valid=0.1, seed=3407)[0])
+    regions = line["profile"]["regions"]
+    assert {k: v["count"] for k, v in regions.items()} == {
+        "gan_ffn.step": n, "gan_ffn.forward": n, "gan_ffn.backward": n, "gan_ffn.optimizer": n}
+    assert all(v["ms"] > 0 for v in regions.values())
+    assert line["profile"]["entries"] == 8 * n and line["profile"]["dropped"] == 0
+    assert '{"profile"' not in printed["batch"] and not profiling.enabled()
 
 
 def test_grad_fn_matches_jax_and_leaves_the_training_draws(tmp_path):

@@ -302,12 +302,13 @@ def test_library_path_follows_the_included_headers(tmp_path):
     assert _build._library_path(src) == first
     (tmp_path / "b.cuh").write_text("// b, edited\n")
     assert _build._library_path(src) != first
-    # every kernel of the port includes the Philox header
+    # every kernel of the port's model includes the Philox header (the trace
+    # stamp, utils/profiling.py, draws nothing)
     assert all(any(h.name == "philox.cuh" for h in _build.local_headers(p))
-               for p in _build.sources().values())
+               for name, p in _build.sources().items() if name != "trace_stamp")
     assert set(_build.sources()) == {"attention_fwd", "attention_bwd", "mlp_fwd", "mlp_bwd",
                                      "attention_fwd_bf16", "mlp_fwd_bf16",
-                                     "attention_bwd_bf16", "mlp_bwd_bf16"}
+                                     "attention_bwd_bf16", "mlp_bwd_bf16", "trace_stamp"}
     # the bf16 kernels follow their tensor-core header too, and each bf16
     # backward the header of the code it shares with its forward
     for name, shared in (("attention_fwd_bf16", "attention_bf16.cuh"),
