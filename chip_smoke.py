@@ -6,10 +6,11 @@
 Phases, each printing JSON lines; any failure exits non-zero:
 
 1. device   -- the card's name and power limit (nvidia-smi) and torch's view.
-2. build    -- nvcc builds every kernel under gan_ffn_tpu_torch/csrc (eight
-               libraries: attention_fwd, attention_bwd, mlp_fwd, mlp_bwd and
-               their bf16 twins attention_fwd_bf16, attention_bwd_bf16,
-               mlp_fwd_bf16, mlp_bwd_bf16), one process each, all at once;
+2. build    -- nvcc builds every kernel under gan_ffn_tpu_torch/csrc
+               (attention_fwd, attention_bwd, mlp_fwd, mlp_bwd, their bf16
+               twins attention_fwd_bf16, attention_bwd_bf16, mlp_fwd_bf16,
+               mlp_bwd_bf16, the GRU gates gru_gates and the trace stamp
+               trace_stamp), one process each, all at once;
                prints each library's nvcc seconds and each kernel's
                registers and spill bytes; fails if a variant of the bf16
                attention kernels spills or takes more than 128 registers,
@@ -44,6 +45,15 @@ Phases, each printing JSON lines; any failure exits non-zero:
                the H100 SXM data sheet's 495 TFLOP/s TF32 over the three
                TF32 products that give one f32-accurate product (3xTF32),
                the card's fastest f32-accurate rate.
+               The GRU gate kernels (ops/gru.py) against the chain of torch
+               ops they replace, at the DialogueRNN scan's three cells (B=30,
+               X=2: g gi (2,30,1500) h (2,30,500); p gi (2,30,1,1500) h
+               (2,30,2,500); e gi (2,30,300) h (2,30,100)), f32 and bf16:
+               h', and dgi, dgh, dh through autograd and by
+               gru_gates_backward alone, each the chain's bits.  Times as
+               above: each kernel alone, the chain's forward, and forward
+               plus backward of either through autograd; bound_ms from the
+               bytes alone.
 4. serving  -- a full-width 8-layer GAN_FFN (random weights from a fixed
                seed) exported and loaded by ServingClassifier on the card,
                answering HTTP POST /predict requests through the cli/serve.py
@@ -89,7 +99,9 @@ Phases, each printing JSON lines; any failure exits non-zero:
                finite losses, the checkpoint, the best epoch's attention
                weights of shape (112, n_real, 112) per test batch, and
                exactly 24 + 24 attention and 27 + 27 MLP calls per train
-               step and 24 + 27 per eval forward.  Then one train step at
+               step and 24 + 27 per eval forward, and 3 * 112 GRU gate
+               forward calls per train step or eval forward and 3 * 112 - 1
+               backward per train step.  Then one train step at
                B=30, L=112 with every dropout on (dialoguernn_step: launches,
                host and enqueue ms, utterances/s, peak memory), and one
                deterministic step on the card against the CPU from the same
@@ -122,7 +134,9 @@ Phases, each printing JSON lines; any failure exits non-zero:
                version at that valid_len and seed under phase 3's limits.
                Then each step (stage A and stage B at B=32, the DialogueRNN
                at B=30, L=112, depth 8) with every dropout on, eager and
-               graphed: the profiler's launches per replay (kernels by name;
+               graphed: the profiler's launches per replay (kernels by name,
+               the GRU gate kernels' too: 3 * 112 and 3 * 112 - 1 in the
+               DialogueRNN step, none in the others;
                a replay, and the eager step, is traced up to 3 times, since
                the tracer can lose records of a burst but never adds one)
                equal to the eager step's and to the wrappers' counts, host
@@ -325,8 +339,14 @@ serving forward and, for attention_fwd_bf16, per bf16 train step too, the
 bf16 backwards' per bf16 stage-B train step; the four forward kernels'
 launches per DialogueRNN-family serving forward of phase 10, per phase 11
 run and in phase 12's trainer run, with phase 12's profiled calls per
-train step; every kernel's registers and spill bytes by variant); the last
-line is ``{"ok": true, "device": {...}}``.
+train step; the GRU gate kernels' launches and summed times per
+DialogueRNN train step and their launches in the bf16 DialogueRNN run and
+per DialogueRNN-family serving forward; every kernel's registers and spill
+bytes by variant); the last line is ``{"ok": true, "device": {...}}``.  The
+GRU gate kernels' launches are also checked in phase 9's bf16 trainers (the
+DialogueRNN's both kernels, the flagship's none), phase 10's
+DialogueRNN-family forwards (3 a time step of the forward's length, no
+backward) and phase 13's GRU and BiE2EModel (both kernels).
 """
 
 from __future__ import annotations
@@ -382,6 +402,19 @@ SITE_RATE = {"ffn": 0.1, "head": 0.2}
 # other there: both compute z1 through the same tile code, which
 # mlp_relu_branches checks at inputs built to lie on the kink.
 STEP_LAUNCHES = {"attention_fwd": 24, "attention_bwd": 24, "mlp_fwd": 27, "mlp_bwd": 27}
+# The GRU gate kernels (ops/gru.py): the DialogueRNN scan runs its g, p and e
+# cells once a time step, so 3 * 112 forward launches a train step or eval
+# forward at L=112, and 3 * 112 - 1 backward (the last step's g feeds only the
+# history, which nothing reads after it, so autograd runs no backward for it)
+GRU_SOURCE = "gan_ffn_tpu_torch/csrc/gru_gates.cu"
+GRU_STEP_LAUNCHES = {"gru_fwd": 3 * 112, "gru_bwd": 3 * 112 - 1}
+# cell -> (gi shape, h shape) of the DialogueRNN scan at B=30, both directions
+# batched (X=2); the party cell's input is broadcast over its 2 parties
+GRU_CELLS = {
+    "g_cell": ((2, 30, 1500), (2, 30, 500)),
+    "p_cell": ((2, 30, 1, 1500), (2, 30, 2, 500)),
+    "e_cell": ((2, 30, 300), (2, 30, 100)),
+}
 # One stage-A step: an encoder pass launches 8 attention and 8 FFN kernels, a
 # generator's head one more MLP; a disc duel runs 3 forward and 2 backward
 # passes (discriminator, generator, discriminator), a gen duel 2 and 2.
@@ -502,7 +535,8 @@ def phase_build():
     t0 = time.perf_counter()
     libs = _build.build()
     secs = time.perf_counter() - t0
-    want = set(SOURCES) | set(BF16_SOURCES) | set(BF16_TRAIN_SOURCES) | {"trace_stamp"}
+    want = (set(SOURCES) | set(BF16_SOURCES) | set(BF16_TRAIN_SOURCES)
+            | {"trace_stamp", "gru_gates"})
     if set(libs) != want:
         fail(f"expected the kernels {sorted(want)}, built {sorted(libs)}")
     resources = {name: [{"kernel": r["kernel"], "registers": r.get("registers"),
@@ -784,6 +818,75 @@ def mlp_relu_branches(torch, Mo) -> None:
                 fail(f"mlp_relu_branches {line}: forward and backward take other branches")
 
 
+def _gru_bytes(gi, h, backward: bool) -> int:
+    """Bytes the GRU gate kernels move, each operand read once and each result
+    written once: forward gi, gh, h in and h' out; backward gi, gh, h, dout in
+    and dgi, dgh, dh out.  The gate math is a few dozen flops an element, so
+    the bound is the bytes'."""
+    n_gi, n_h = gi.numel(), h.numel()
+    n = 2 * n_gi + 9 * n_h if backward else n_gi + 5 * n_h
+    return n * h.element_size()
+
+
+def phase_kernels_gru(torch) -> dict:
+    """The GRU gate kernels against the chain of torch ops they replace
+    (``ops.gru.gru_gates_plain``) at the DialogueRNN scan's three cells, f32
+    and bf16: the forward, and dgi, dgh and dh through autograd, bit for bit.
+    Then each kernel's device ms (the backward alone, by
+    ``gru_gates_backward``), the chain's forward and the forward plus
+    backward of either through autograd, beside the bytes' bound."""
+    from gan_ffn_tpu_torch.ops import gru as G
+
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    rows = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for cell, (gi_shape, h_shape) in GRU_CELLS.items():
+            gh_shape = (*h_shape[:-1], 3 * h_shape[-1])
+            gi, gh, dout = (torch.randn(s, device="cuda", generator=gen).to(dtype)
+                            for s in (gi_shape, gh_shape, h_shape))
+            h = torch.randn(h_shape, device="cuda", generator=gen).tanh().to(dtype)
+            leaves = [x.clone().requires_grad_(True) for x in (gi, gh, h)]
+            before = G.gru_gates.launches, G.gru_gates_backward.launches
+            got = G.gru_gates(*leaves)
+            got_grads = torch.autograd.grad(got, leaves, dout)
+            if (G.gru_gates.launches, G.gru_gates_backward.launches) != (before[0] + 1,
+                                                                         before[1] + 1):
+                fail(f"gru_gates {cell} {dtype}: the kernels did not launch once each")
+            plain = [x.clone().requires_grad_(True) for x in (gi, gh, h)]
+            want = G.gru_gates_plain(*plain)
+            want_grads = torch.autograd.grad(want, plain, dout)
+            alone = G.gru_gates_backward(gi, gh, h, dout)
+            torch.cuda.synchronize()
+            pairs = {"h'": (got, want)}
+            pairs.update({k: (g, w) for k, g, w in zip(("dgi", "dgh", "dh"), got_grads, want_grads)})
+            pairs.update({f"{k}_alone": (g, w) for k, g, w in zip(("dgi", "dgh", "dh"), alone,
+                                                                   want_grads)})
+            differ = {k: int((g != w).sum().item()) for k, (g, w) in pairs.items()}
+            err = max((g.float() - w.float()).abs().max().item() for g, w in pairs.values())
+
+            def fwd_bwd(fn):
+                xs = [x.detach().requires_grad_(True) for x in (gi, gh, h)]
+                return lambda: torch.autograd.grad(fn(*xs), xs, dout)
+
+            fwd = {"ms": device_time_ms(torch, lambda: G.gru_gates(gi, gh, h)),
+                   "plain_ms": device_time_ms(torch, lambda: G.gru_gates_plain(gi, gh, h))}
+            bwd = {"ms": device_time_ms(torch, lambda: G.gru_gates_backward(gi, gh, h, dout))}
+            fwd["bytes"], bwd["bytes"] = _gru_bytes(gi, h, False), _gru_bytes(gi, h, True)
+            for d in (fwd, bwd):
+                d["bound_ms"], d["bound_by"] = bound_ms(d["bytes"], 0.0)
+            line = {"phase": "kernel", "name": "gru_gates", "cell": cell,
+                    "dtype": str(dtype).removeprefix("torch."), "gi": list(gi_shape),
+                    "h": list(h_shape), "elements_differ": differ, "max_abs_err": err,
+                    "fwd": fwd, "bwd": bwd,
+                    "fwd_bwd_ms": device_time_ms(torch, fwd_bwd(G.gru_gates)),
+                    "plain_fwd_bwd_ms": device_time_ms(torch, fwd_bwd(G.gru_gates_plain))}
+            emit(line)
+            if any(differ.values()):
+                fail(f"gru_gates {cell} {dtype}: not the chain's bits: {differ}, max |diff| {err}")
+            rows[(cell, line["dtype"])] = line
+    return rows
+
+
 def _post(url, payload):
     req = urllib.request.Request(url, data=json.dumps(payload).encode(),
                                  headers={"Content-Type": "application/json"})
@@ -909,13 +1012,24 @@ def _counters():
             "mlp_fwd": M.fused_mlp, "mlp_bwd": M.fused_mlp_backward}
 
 
+def _gru_counters():
+    from gan_ffn_tpu_torch.ops import gru as G
+
+    return {"gru_fwd": G.gru_gates, "gru_bwd": G.gru_gates_backward}
+
+
 def _reset_counts():
-    for fn in _counters().values():
+    for fn in (*_counters().values(), *_gru_counters().values()):
         fn.launches = 0
 
 
 def _read_counts():
     return {name: fn.launches for name, fn in _counters().items()}
+
+
+def _read_all_counts():
+    """:func:`_read_counts` and the GRU gate kernels' launches."""
+    return {**_read_counts(), **{name: fn.launches for name, fn in _gru_counters().items()}}
 
 
 def _steps(torch, model, deterministic=False):
@@ -1032,14 +1146,15 @@ def phase_training(torch, tmp: str):
     return counts, step, gan_step
 
 
-def _launches_per_step(torch, step, n: int = 3) -> list:
-    """Each kernel's launches in each of ``n`` calls of ``step()``."""
+def _launches_per_step(torch, step, n: int = 3, read=_read_counts) -> list:
+    """Each kernel's launches, as ``read()`` gives them, in each of ``n``
+    calls of ``step()``."""
     counts = []
     for _ in range(n):
-        before = _read_counts()
+        before = read()
         step()
         torch.cuda.synchronize()
-        counts.append({k: v - before[k] for k, v in _read_counts().items()})
+        counts.append({k: v - before[k] for k, v in read().items()})
     return counts
 
 
@@ -1195,7 +1310,7 @@ def phase_dialoguernn(torch, tmp: str) -> dict:
     with contextlib.redirect_stdout(out):
         result = CLI.main(argv)
     torch.cuda.synchronize()
-    counts = _read_counts()
+    counts = _read_all_counts()
     seconds = time.perf_counter() - t0
     log = out.getvalue().splitlines()
     lines = _check_trainer_run(result, log, epochs, "DialogueRNN")
@@ -1213,7 +1328,7 @@ def phase_dialoguernn(torch, tmp: str) -> dict:
         fail(f"DialogueRNN attentions: {shapes} for vids of {[len(v) for v in attn['vids']]}")
     n_steps, n_evals = epochs * len(train), epochs * (len(valid) + len(test))
     expect = {name: per * (n_steps + (n_evals if name.endswith("fwd") else 0))
-              for name, per in STEP_LAUNCHES.items()}
+              for name, per in {**STEP_LAUNCHES, **GRU_STEP_LAUNCHES}.items()}
     if counts != expect:
         fail(f"DialogueRNN launches {counts}, expected {expect} ({n_steps} train steps, "
              f"{n_evals} eval forwards)")
@@ -1230,9 +1345,10 @@ def phase_dialoguernn(torch, tmp: str) -> dict:
     set_dropout_generator(model, torch.Generator().manual_seed(2))
     torch.manual_seed(3)
     train_step, _ = _steps(torch, model)
-    step_counts = _launches_per_step(torch, lambda: train_step(batch))
-    if any(c != STEP_LAUNCHES for c in step_counts):
-        fail(f"launches per DialogueRNN train step {step_counts}, expected {STEP_LAUNCHES}")
+    step_counts = _launches_per_step(torch, lambda: train_step(batch), read=_read_all_counts)
+    if any(c != {**STEP_LAUNCHES, **GRU_STEP_LAUNCHES} for c in step_counts):
+        fail(f"launches per DialogueRNN train step {step_counts}, expected "
+             f"{ {**STEP_LAUNCHES, **GRU_STEP_LAUNCHES} }")
     torch.cuda.reset_peak_memory_stats()
     host_ms, enqueue_ms = _host_ms(torch, lambda: train_step(batch), 5)
     host = statistics.median(host_ms)
@@ -1571,7 +1687,15 @@ REPLAY_TRACES = 3  # traces of one replay at most, until one counts every kernel
 PORT_KERNELS = ("attention_fwd_kernel", "attention_bwd_kernel", "mlp_fwd_kernel",
                 "mlp_fwd_reduce_kernel", "gemm_kernel", "reduce_kernel", "pre_kernel",
                 "attention_fwd_bf16_kernel", "attention_bwd_bf16_kernel", "mlp_fwd_bf16_kernel",
-                "z1_kernel", "colsum_kernel")
+                "z1_kernel", "colsum_kernel", "gru_gates_fwd_kernel", "gru_gates_bwd_kernel")
+
+
+def _profiled_calls(names) -> dict:
+    """:func:`_port_calls` of the four kernels, and the GRU gate kernels'
+    launches by name."""
+    gru = {k: sum(n for name, n in names.items() if f"gru_gates_{k[4:]}_kernel" in name)
+           for k in GRU_STEP_LAUNCHES}
+    return {**_port_calls(names), **gru}
 
 
 def _profile_one(torch, fn):
@@ -1610,16 +1734,18 @@ def _graphs_steps(torch) -> dict:
     out = {}
     for name, B in STEPS.items():
         batch = step_batch(name, np.random.default_rng(9))
-        want = GAN_STEP_LAUNCHES if name == "stage_a" else STEP_LAUNCHES
+        want = {**(GAN_STEP_LAUNCHES if name == "stage_a" else STEP_LAUNCHES),
+                **(GRU_STEP_LAUNCHES if name == "dialoguernn"
+                   else dict.fromkeys(GRU_STEP_LAUNCHES, 0))}
         step = build_step(name, False)[0]
-        counts = _launches_per_step(torch, lambda: step(batch), n=1)[0]
+        counts = _launches_per_step(torch, lambda: step(batch), n=1, read=_read_all_counts)[0]
         # the tracer may lose records of the eager step too (a DialogueRNN
         # step traced 23 of its 24 attention and 26 of its 27 MLP forward
         # calls once, NVIDIA H100 80GB HBM3, 700 W): retraced as a replay is
         eager_attempts = []
         for _ in range(REPLAY_TRACES):
             eager_names, eager_kernels, eager_busy = _profile_one(torch, lambda: step(batch))
-            eager_attempts.append({"calls": _port_calls(eager_names),
+            eager_attempts.append({"calls": _profiled_calls(eager_names),
                                    "device_kernels": eager_kernels})
             if eager_attempts[-1]["calls"] == want:
                 break
@@ -1630,7 +1756,7 @@ def _graphs_steps(torch) -> dict:
         step = build_step(name, True)[0]
         # the first batch of the shape runs eagerly, then is captured
         # (recorded, not launched), and the second replays
-        graph_counts = _launches_per_step(torch, lambda: step(batch), n=2)
+        graph_counts = _launches_per_step(torch, lambda: step(batch), n=2, read=_read_all_counts)
         # the tracer may lose records of a replay's burst of kernels (one
         # stage-A replay traced 581 of its ~15,960 short, NVIDIA H100 80GB
         # HBM3, 700 W) but never adds one: a traced replay that counts
@@ -1638,7 +1764,8 @@ def _graphs_steps(torch) -> dict:
         attempts = []
         for _ in range(REPLAY_TRACES):
             replay_names, replay_kernels, replay_busy = _profile_one(torch, lambda: step(batch))
-            attempts.append({"calls": _port_calls(replay_names), "device_kernels": replay_kernels})
+            attempts.append({"calls": _profiled_calls(replay_names),
+                             "device_kernels": replay_kernels})
             if attempts[-1]["calls"] == want:
                 break
         graph_ms, graph_enqueue = _host_ms(torch, lambda: step(batch), 10)
@@ -1647,8 +1774,8 @@ def _graphs_steps(torch) -> dict:
             "phase": "graphs_step", "step": name, "B": B, "L": 112,
             "valid_len": batch["valid_len"].item(), "wrapper_launches": counts,
             "graphed_wrapper_launches": graph_counts,
-            "profiled_eager_calls": _port_calls(eager_names),
-            "profiled_replay_calls": _port_calls(replay_names), "replay_traces": attempts,
+            "profiled_eager_calls": _profiled_calls(eager_names),
+            "profiled_replay_calls": _profiled_calls(replay_names), "replay_traces": attempts,
             "eager_traces": eager_attempts,
             "port_kernel_names": {k: v for k, v in replay_names.items()},
             "eager_device_kernels": eager_kernels, "replay_device_kernels": replay_kernels,
@@ -2223,7 +2350,7 @@ def _bf16_trainer_runs(torch, tmp: str) -> dict:
             fused = "--epoch-fused" in argv
             made.clear()
             out, result = io.StringIO(), {}
-            for fn in _all_counters().values():
+            for fn in (*_all_counters().values(), *_gru_counters().values()):
                 fn.launches = 0
             t0 = time.perf_counter()
             with contextlib.redirect_stdout(out):
@@ -2233,6 +2360,10 @@ def _bf16_trainer_runs(torch, tmp: str) -> dict:
                     result.update(cli.main(full))
             torch.cuda.synchronize()
             counts = {k: fn.launches for k, fn in _all_counters().items()}
+            gru = {k: fn.launches for k, fn in _gru_counters().items()}
+            # the DialogueRNN's scan runs the GRU gate kernels at bf16; the flagship none
+            if not (min(gru.values()) > 0 if name == "dialoguernn" else not any(gru.values())):
+                fail(f"{name} --bf16: GRU gate kernel launches {gru}")
             seconds = time.perf_counter() - t0
             log = out.getvalue().splitlines()
             lines = _check_trainer_run(result, log, 1, f"{name} --bf16")
@@ -2243,7 +2374,7 @@ def _bf16_trainer_runs(torch, tmp: str) -> dict:
                    "eval": {k: n * k.endswith("fwd") for k, n in STEP_LAUNCHES.items()}}
             run = {"cli": cli.__name__, "argv": argv + ["--bf16"], "epochs": lines,
                    "best_loss": result["best_loss"], "f1": result["f1"], "seconds": seconds,
-                   "launches": counts, "batches": batches}
+                   "launches": counts, "gru_launches": gru, "batches": batches}
             if name == "dialoguernn" and not any("loaded trained GAN" in l for l in log):
                 fail("the DialogueRNN --bf16 trainer did not load the six networks")
             if name.startswith("flagship"):
@@ -2361,18 +2492,19 @@ def _serve_family(torch, name: str, path: str, shapes, warm_lengths, card: str) 
     warm = clf.warmup(lengths=warm_lengths)
     rng = np.random.default_rng(10)
     requests = [_family_request(clf, L, B, rng) for L, B in shapes]
-    per_forward, errs = [], []
+    per_forward, gru_per_forward, errs = [], [], []
     tol = E2E_TOL if clf.dtype == "float32" else BF16_E2E_TOL
     server = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(clf))
     thread = threading.Thread(target=server.serve_forever, daemon=True)
     thread.start()
     try:
         for (L, B), xs in zip(shapes, requests):
-            for fn in _all_counters().values():
+            for fn in (*_all_counters().values(), *_gru_counters().values()):
                 fn.launches = 0
             resp = _post(f"http://127.0.0.1:{server.server_port}/predict",
                          {n: x.tolist() for n, x in zip(clf.input_names, xs)})
             per_forward.append({k: fn.launches for k, fn in _all_counters().items()})
+            gru_per_forward.append({k: fn.launches for k, fn in _gru_counters().items()})
             if resp["classes"] != clf.predict(*xs).T.tolist():
                 fail(f"{name}: POST /predict (L={L}, B={B}) disagrees with log_probs")
             card_lp, host_lp = clf.log_probs(*xs), cpu.log_probs(*xs)
@@ -2395,7 +2527,7 @@ def _serve_family(torch, name: str, path: str, shapes, warm_lengths, card: str) 
     return {"card": card, "artifact": name, "dtype": clf.dtype, "weights": clf.weights,
             "bytes": os.path.getsize(path), "warmup_shapes": [[L, B] for L, B, _ in warm],
             "shapes": [list(s) for s in shapes], "launches_per_forward": per_forward,
-            "card_vs_cpu_max_abs_err": errs, "limit": tol,
+            "gru_launches_per_forward": gru_per_forward, "card_vs_cpu_max_abs_err": errs, "limit": tol,
             "request_ms": statistics.median(req_ms), "request_ms_min": min(req_ms),
             "request_shape": list(shapes[0]), "request_device_busy_ms": busy,
             "request_device_kernels": n_kernels}
@@ -2434,6 +2566,11 @@ def _dialoguernn_family(torch, tmp: str, card: str) -> dict:
         if any(n != want for n in line["launches_per_forward"]):
             fail(f"dialoguernn {variant}: launches per forward {line['launches_per_forward']}, "
                  f"expected {want}")
+        # the scan's three cells a time step of the forward's length, no backward
+        if any(n["gru_fwd"] < 3 * L or n["gru_fwd"] % 3 or n["gru_bwd"]
+               for n, (L, _) in zip(line["gru_launches_per_forward"], line["shapes"])):
+            fail(f"dialoguernn {variant}: GRU gate kernel launches per forward "
+                 f"{line['gru_launches_per_forward']} at (L, B) {line['shapes']}")
         line["verify"] = res["verify"]
         emit({"phase": "families", "family": "gan_ffn_dialoguernn", **line})
         lines[variant] = line
@@ -3338,11 +3475,18 @@ def phase_library(torch, tmp: str, card: str) -> dict:
     models = {}
     _reset_counts()
     for i, (name, case) in enumerate(_library_cases(rng).items()):
+        before = _read_all_counts()
         models[name] = _library_vs_cpu(torch, name, *case, seed=100 + i)
+        after = _read_all_counts()
+        models[name]["gru_launches"] = {k: after[k] - before[k] for k in GRU_STEP_LAUNCHES}
         emit({"card": card, "phase": "library_model", **models[name]})
     library_counts = _read_counts()
     if any(library_counts.values()):  # these models have no Pallas kernel behind them
         fail(f"the library-only models launched a kernel of the port: {library_counts}")
+    for name in ("GRU", "BiE2EModel"):  # their GRU steps run the GRU gate kernels
+        if min(models[name]["gru_launches"].values()) < 1:
+            fail(f"{name} on the card did not launch both GRU gate kernels: "
+                 f"{models[name]['gru_launches']}")
     out = {"models": models, "entry": _graft_entry(torch, card), "dryrun": _dryrun(torch, card),
            "trainer": _imported_trainer(torch, tmp, card)}
     emit({"phase": "library", "card": card, "seconds": time.perf_counter() - t0,
@@ -3368,6 +3512,7 @@ def main() -> None:
     rows = Rows()
     phase_kernels_attention(torch, rows)
     phase_kernels_mlp(torch, rows)
+    gru_rows = phase_kernels_gru(torch)
     serve_counts, fwd_ms = phase_serving(torch)
     with tempfile.TemporaryDirectory() as tmp:
         train_counts, step, gan_step = phase_training(torch, tmp)
@@ -3484,6 +3629,34 @@ def main() -> None:
             "dialoguernn_step_bound_ms": sum(n * r["bound_ms"] for n, r in drnn),
             "dialoguernn_step_library_ms": sum(n * r["library_ms"] for n, r in drnn) if lib else None,
         })
+    drnn_graph = graphs["steps"]["dialoguernn"]
+    for name, kernel, part in (("gru_fwd", "gru_gates_fwd_kernel", "fwd"),
+                               ("gru_bwd", "gru_gates_bwd_kernel", "bwd")):
+        # a DialogueRNN train step: each cell's call 112 times at f32 (the
+        # backward's g cell 111 times)
+        f32 = {cell: gru_rows[(cell, "float32")] for cell in GRU_CELLS}
+        calls = {cell: 112 - (part == "bwd" and cell == "g_cell") for cell in GRU_CELLS}
+        total = lambda get, f32=f32, calls=calls: sum(n * get(f32[c]) for c, n in calls.items())  # noqa: E731
+        kernels.append({
+            "name": kernel, "route": "cuda", "source": GRU_SOURCE,
+            "replaces": "nn/recurrent.gru_update's chain of torch ops (ops.gru.gru_gates_plain)",
+            "launches": drnn_counts[name],
+            "max_abs_err": max(r["max_abs_err"] for r in gru_rows.values()),
+            "per": "one DialogueRNN train step at B=30, L=112: launches_per_step calls at the "
+                   "f32 shapes of the gru_gates kernel lines",
+            "launches_per_step": sum(calls.values()),
+            "dialoguernn_step_launches": drnn_step["launches_per_step"][name],
+            "profiled_replay_calls_per_dialoguernn_step": drnn_graph["profiled_replay_calls"][name],
+            "dialoguernn_step_kernel_ms": total(lambda r: r[part]["ms"]),
+            "dialoguernn_step_bound_ms": total(lambda r: r[part]["bound_ms"]),
+            "bound_by": "bytes",
+            "dialoguernn_step_plain_ms": (total(lambda r: r["fwd"]["plain_ms"]) if part == "fwd"
+                                          else None),
+            "bf16_dialoguernn_training_launches": bf16_train["runs"]["dialoguernn"]["gru_launches"][name],
+            "dialoguernn_serving_launches_per_forward": {
+                v: families["dialoguernn"][v]["gru_launches_per_forward"][0][name]
+                for v in FAMILY_VARIANTS},
+        })
     runs = bf16_train["runs"]
     for name, source in BF16_TRAIN_SOURCES.items():
         r = bf16_train["rows"][name]
@@ -3514,13 +3687,23 @@ def main() -> None:
             kernels[-1]["f64_floor_ms"] = total("f64_floor_ms")
             kernels[-1]["f64_tflops"] = PEAK_F64_TENSOR_FLOPS / 1e12 * total("f64_floor_ms") / total("ms")
     for entry in kernels:  # every variant's registers and spill bytes (ptxas)
-        variants = resources.get(entry["name"], [])
+        variants = (resources.get(entry["name"], []) if entry["source"] != GRU_SOURCE else
+                    [r for r in resources["gru_gates"] if entry["name"] in r["kernel"]])
         entry["variants"] = [{k: r[k] for k in ("registers", "spill_stores", "spill_loads")}
                              for r in variants]
         entry["registers"] = max((r["registers"] or 0 for r in variants), default=None)
         entry["spill_bytes"] = sum((r["spill_stores"] or 0) + (r["spill_loads"] or 0)
                                    for r in variants)
     for entry in kernels:
+        if entry["source"] == GRU_SOURCE:  # the counts themselves are checked in their phases
+            paths = [entry["launches"], entry["bf16_dialoguernn_training_launches"]]
+            if entry["name"] == "gru_gates_fwd_kernel":  # serving runs no backward
+                paths += entry["dialoguernn_serving_launches_per_forward"].values()
+            if min(paths) < 1:
+                fail(f"{entry['name']} was not launched on every DialogueRNN path: {entry}")
+            if not entry["variants"]:
+                fail(f"no ptxas resources for {entry['name']} in the gru_gates library's log")
+            continue
         if entry["name"] in BF16_SOURCES:
             if entry["launches"] < 1 or entry["predict_bf16_launches"] < 1:
                 fail(f"{entry['name']} was not launched on the bf16 serving path")

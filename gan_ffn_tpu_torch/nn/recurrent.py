@@ -32,7 +32,10 @@ weights with a leading axis, so that the DialogueRNN scan and the LSTM run
 both directions' cells as one batch of products; ``GRUCell.forward`` and
 ``LSTMCell.forward`` are the same steps with that axis of size 1.  The
 products are cuBLAS's, as the JAX package leaves them to XLA: no Pallas
-kernel computes a GRU or an LSTM.  A step computes at its input's dtype,
+kernel computes a GRU or an LSTM.  A GRU step's gate math is
+``ops.gru.gru_gates``: on the card one hand-written kernel forward and one
+backward, in place of the chain of elementwise ops that XLA fuses and eager
+PyTorch does not; on the CPU that chain.  A step computes at its input's dtype,
 its float32 parameters cast at each use (bf16 under ``--bf16``), as the JAX
 cells do: each product rounded to the dtype, then the bias added at it
 (the LSTM's gates as ``(x W_ih + b_ih) + h W_hh`` and then ``+ b_hh``), and
@@ -49,6 +52,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.gru import gru_gates
 from .core import uniform_parameter
 
 
@@ -86,13 +90,7 @@ def gru_update(gi: torch.Tensor, h: torch.Tensor, weight_hh: torch.Tensor,
                bias_hh: torch.Tensor) -> torch.Tensor:
     """:func:`gru_step` from the input's projection with its bias, ``gi (X,
     ..., 3H)``: the recurrent half of the step."""
-    gh = stacked_linear(h, weight_hh, bias_hh)
-    i_r, i_z, i_n = gi.chunk(3, dim=-1)
-    h_r, h_z, h_n = gh.chunk(3, dim=-1)
-    r = torch.sigmoid(i_r + h_r)
-    z = torch.sigmoid(i_z + h_z)
-    n = torch.tanh(i_n + r * h_n)
-    return (1.0 - z) * n + z * h
+    return gru_gates(gi, stacked_linear(h, weight_hh, bias_hh), h)
 
 
 class GRUCell(nn.Module):

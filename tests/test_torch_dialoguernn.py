@@ -42,6 +42,7 @@ from gan_ffn_tpu_torch.data.loaders import Batch
 from gan_ffn_tpu_torch.models import GAN_FFN_DialogueRNN, dialogue_rnn as TD
 from gan_ffn_tpu_torch.nn import attention as TA
 from gan_ffn_tpu_torch.nn.recurrent import GRUCell
+from gan_ffn_tpu_torch.ops import gru as TG
 from gan_ffn_tpu_torch.train.classifier import make_classifier_steps
 from gan_ffn_tpu_torch.train.loop import batch_to_tensors, run_epoch
 from gan_ffn_tpu_torch.train.optim import torch_adam
@@ -248,6 +249,36 @@ def test_bimodel_matches_both_jax_paths(bimodel, stacked):
     _port_loss(got, weights).backward()
     _close(tU.grad, gU, "dU")
     _check_param_grads(port, gp)
+
+
+@pytest.mark.parametrize("gi_shape,h_shape", [
+    ((2, 3, 12), (2, 3, 4)),  # the scan's g and e cells
+    ((2, 3, 1, 12), (2, 3, 2, 4)),  # its p cell: gi broadcast over the parties
+    ((1, 3, 12), (1, 3, 4)),  # GRUCell, GRU
+], ids=["g_e_cell", "p_cell", "cell"])
+def test_cpu_scan_runs_the_plain_gate_chain(monkeypatch, gi_shape, h_shape):
+    """On CPU tensors ``ops.gru.gru_gates`` is the chain of torch ops: the
+    kernels' ``autograd.Function``, which launches or raises, is never
+    entered, no launch is counted, and the forward and gradients are the
+    chain's.  That the scan's results are unchanged is
+    ``test_bimodel_matches_both_jax_paths``: BiModel against JAX."""
+
+    def refuse(*args):
+        raise AssertionError("the GRU kernels' Function ran on CPU tensors")
+
+    monkeypatch.setattr(TG._GRUGates, "apply", refuse)
+    rng = _rng(11)
+    gh_shape = (*h_shape[:-1], 3 * h_shape[-1])
+    leaves = [torch.from_numpy(rng.standard_normal(s).astype(np.float32)).requires_grad_()
+              for s in (gi_shape, gh_shape, h_shape)]
+    dout = torch.from_numpy(rng.standard_normal(h_shape).astype(np.float32))
+    launches = TG.gru_gates.launches, TG.gru_gates_backward.launches
+    got = TG.gru_gates(*leaves)
+    got_grads = torch.autograd.grad(got, leaves, dout)
+    assert (TG.gru_gates.launches, TG.gru_gates_backward.launches) == launches
+    want = TG.gru_gates_plain(*leaves)
+    for g, w in zip((got, *got_grads), (want, *torch.autograd.grad(want, leaves, dout))):
+        assert g.shape == w.shape and torch.equal(g, w)
 
 
 def test_bimodel_train_mode_matches_jax_by_distribution(bimodel):

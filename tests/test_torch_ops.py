@@ -302,13 +302,16 @@ def test_library_path_follows_the_included_headers(tmp_path):
     assert _build._library_path(src) == first
     (tmp_path / "b.cuh").write_text("// b, edited\n")
     assert _build._library_path(src) != first
-    # every kernel of the port's model includes the Philox header (the trace
-    # stamp, utils/profiling.py, draws nothing)
+    # every kernel of the port's model that drops out includes the Philox
+    # header (the trace stamp, utils/profiling.py, and the GRU gates,
+    # ops/gru.py, draw nothing)
     assert all(any(h.name == "philox.cuh" for h in _build.local_headers(p))
-               for name, p in _build.sources().items() if name != "trace_stamp")
+               for name, p in _build.sources().items()
+               if name not in ("trace_stamp", "gru_gates"))
     assert set(_build.sources()) == {"attention_fwd", "attention_bwd", "mlp_fwd", "mlp_bwd",
                                      "attention_fwd_bf16", "mlp_fwd_bf16",
-                                     "attention_bwd_bf16", "mlp_bwd_bf16", "trace_stamp"}
+                                     "attention_bwd_bf16", "mlp_bwd_bf16", "trace_stamp",
+                                     "gru_gates"}
     # the bf16 kernels follow their tensor-core header too, and each bf16
     # backward the header of the code it shares with its forward
     for name, shared in (("attention_fwd_bf16", "attention_bf16.cuh"),
