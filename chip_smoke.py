@@ -9,8 +9,9 @@ Phases, each printing JSON lines; any failure exits non-zero:
 2. build    -- nvcc builds every kernel under gan_ffn_tpu_torch/csrc
                (attention_fwd, attention_bwd, mlp_fwd, mlp_bwd, their bf16
                twins attention_fwd_bf16, attention_bwd_bf16, mlp_fwd_bf16,
-               mlp_bwd_bf16, the GRU gates gru_gates and the trace stamp
-               trace_stamp), one process each, all at once;
+               mlp_bwd_bf16, the GRU gates gru_gates, the grouped SwiGLU
+               experts moe_ffn and the trace stamp trace_stamp), one
+               process each, all at once;
                prints each library's nvcc seconds and each kernel's
                registers and spill bytes; fails if a variant of the bf16
                attention kernels spills or takes more than 128 registers,
@@ -54,6 +55,29 @@ Phases, each printing JSON lines; any failure exits non-zero:
                above: each kernel alone, the chain's forward, and forward
                plus backward of either through autograd; bound_ms from the
                bytes alone.
+3b. moe     -- the grouped SwiGLU expert kernels (ops/moe.py, csrc/moe_ffn.cu)
+               against the per-expert loop (ops.moe.grouped_swiglu_plain,
+               cuBLAS f32) at Moonlight-16B-A3B's widths, hidden 2048, over
+               one stage-A batch's 3,584 rows: the routed experts (64 of
+               1,408, 3,520 rows routed to 6 each, weighted), the shared
+               experts (one group of 2,816) and the dense layer (one group
+               of 11,264).  y, dx, the three weight gradients and the
+               routing weight's within 2e-5 of max |ref| (the limit of
+               tests/test_torch_moe_cuda.py), two calls identical in bits,
+               one forward and one backward call counted a call.  Times as
+               above (11 groups of 5 calls): the forward, forward plus
+               backward through autograd, and the loop's forward; bound_ms
+               summed over the call's kernels, each reading every expert's
+               weights and its rows once.  Then one stage-A step with the
+               Moonlight text generator (GANConfig(text_generator=
+               "moonlight"): the published widths at 5 of 27 layers) at
+               B=32, L=112, valid_len 110, every dropout on, eager:
+               exactly 208 / 176 / 220 / 182 attention_fwd / attention_bwd /
+               mlp_fwd / mlp_bwd calls and 36 forward and 18 backward
+               grouped_swiglu calls (9 a text-generator pass: the dense
+               layer and 4 routed and 4 shared) in each of 2 steps, finite
+               losses, every MoE layer's 3,520 rows routed with 6 x 3,520
+               expert loads (dropless), host ms and the peak memory.
 4. serving  -- a full-width 8-layer GAN_FFN (random weights from a fixed
                seed) exported and loaded by ServingClassifier on the card,
                answering HTTP POST /predict requests through the cli/serve.py
@@ -341,8 +365,10 @@ launches per DialogueRNN-family serving forward of phase 10, per phase 11
 run and in phase 12's trainer run, with phase 12's profiled calls per
 train step; the GRU gate kernels' launches and summed times per
 DialogueRNN train step and their launches in the bf16 DialogueRNN run and
-per DialogueRNN-family serving forward; every kernel's registers and spill
-bytes by variant); the last line is ``{"ok": true, "device": {...}}``.  The
+per DialogueRNN-family serving forward; the grouped SwiGLU expert
+kernels' forward and backward calls per Moonlight stage-A step with their
+summed times and bounds at phase 3b's shapes; every kernel's registers and
+spill bytes by variant); the last line is ``{"ok": true, "device": {...}}``.  The
 GRU gate kernels' launches are also checked in phase 9's bf16 trainers (the
 DialogueRNN's both kernels, the flagship's none), phase 10's
 DialogueRNN-family forwards (3 a time step of the forward's length, no
@@ -415,6 +441,26 @@ GRU_CELLS = {
     "p_cell": ((2, 30, 1, 1500), (2, 30, 2, 500)),
     "e_cell": ((2, 30, 300), (2, 30, 100)),
 }
+# The grouped SwiGLU expert kernels (ops/moe.py) at Moonlight-16B-A3B's
+# widths (models/moonlight.py): kind -> (groups, width).  The routed
+# experts take MOE_ROUTED_ROWS of a batch's MOE_ROWS rows (L=112, B=32; the
+# duel mask's at valid_len 110, n_real 32), each to MOE_TOP_K of them; the
+# shared experts (one group) and the dense layer run over every row.
+MOE_SOURCE = "gan_ffn_tpu_torch/csrc/moe_ffn.cu"
+MOE_HIDDEN, MOE_ROWS, MOE_ROUTED_ROWS, MOE_TOP_K = 2048, 112 * 32, 110 * 32, 6
+MOE_GROUPS = {"routed": (64, 1408), "shared": (1, 2816), "dense": (1, 11264)}
+MOE_CALLS_PER_PASS = {"routed": 4, "shared": 4, "dense": 1}  # a dense layer, 4 MoE layers
+MOE_TOL = 2e-5  # of max |ref|: tests/test_torch_moe_cuda.py's limit, and its reason
+# fwd / bwd: the grouped forward kernels (gate-up with the SwiGLU epilogue,
+# down) and backward kernels of a call
+MOE_KERNELS = {"fwd": ("grouped_gate_up_kernel", "grouped_down_kernel"),
+               "bwd": ("grouped_swiglu_bwd_kernel", "grouped_dw_sum_kernel",
+                       "grouped_dx_kernel", "grouped_wgrad_kernel")}
+# One stage-A step with the Moonlight text generator: GAN_STEP_LAUNCHES less
+# the text encoder's 8 attention and 8 FFN launches in each of its 4 forward
+# and 2 backward passes, and 9 grouped_swiglu calls a pass
+MOONLIGHT_STEP_LAUNCHES = {"attention_fwd": 208, "attention_bwd": 176, "mlp_fwd": 220,
+                           "mlp_bwd": 182, "moe_fwd": 36, "moe_bwd": 18}
 # One stage-A step: an encoder pass launches 8 attention and 8 FFN kernels, a
 # generator's head one more MLP; a disc duel runs 3 forward and 2 backward
 # passes (discriminator, generator, discriminator), a gen duel 2 and 2.
@@ -536,7 +582,7 @@ def phase_build():
     libs = _build.build()
     secs = time.perf_counter() - t0
     want = (set(SOURCES) | set(BF16_SOURCES) | set(BF16_TRAIN_SOURCES)
-            | {"trace_stamp", "gru_gates"})
+            | {"trace_stamp", "gru_gates", "moe_ffn"})
     if set(libs) != want:
         fail(f"expected the kernels {sorted(want)}, built {sorted(libs)}")
     resources = {name: [{"kernel": r["kernel"], "registers": r.get("registers"),
@@ -885,6 +931,159 @@ def phase_kernels_gru(torch) -> dict:
                 fail(f"gru_gates {cell} {dtype}: not the chain's bits: {differ}, max |diff| {err}")
             rows[(cell, line["dtype"])] = line
     return rows
+
+
+def _moe_bytes_flops(rows, E, H, F, backward):
+    """(bytes, flops) of each kernel of one grouped_swiglu call over ``rows``
+    rows of groups: every expert's weights read once (written once for
+    their gradients), each row's operands read and results written once."""
+    w_gu, w_d = E * 2 * F * H, E * H * F
+
+    def work(rows_in, rows_out, weights, flops):
+        return 4 * (weights + rows * (rows_in + rows_out)), flops
+
+    if not backward:
+        return [work(H, F, w_gu, 2 * rows * H * 2 * F), work(F, H, w_d, 2 * rows * F * H)]
+    return [work(H + 2 * F, 2 * F, w_d, 2 * rows * H * F),  # da, SwiGLU': dy, z in; dz out
+            work(2 * F, H, w_gu, 2 * rows * 2 * F * H),  # dx
+            work(2 * F + H, 0, w_gu, 2 * rows * 2 * F * H),  # dWg, dWu
+            work(H + F, 0, w_d, 2 * rows * H * F)]  # dWd
+
+
+def _moe_case(torch, kind, gen):
+    """(x, offsets, weights, (w_gate, w_up, w_down), rows of groups) of one
+    grouped_swiglu call of ``kind`` (MOE_GROUPS)."""
+    from gan_ffn_tpu_torch.nn import moe as M
+
+    (E, F), H = MOE_GROUPS[kind], MOE_HIDDEN
+
+    def uniform(shape, fan_in):
+        return torch.rand(shape, device="cuda", generator=gen).sub_(0.5).mul_(2 / fan_in ** 0.5)
+
+    w = (uniform((E, F, H), H), uniform((E, F, H), H), uniform((E, H, F), F))
+    x = torch.randn(MOE_ROWS, H, device="cuda", generator=gen)
+    if E == 1:
+        return x, None, None, w, MOE_ROWS
+    idx = torch.rand(MOE_ROWS, E, device="cuda", generator=gen).topk(MOE_TOP_K, dim=-1).indices
+    valid = torch.arange(MOE_ROWS, device="cuda") < MOE_ROUTED_ROWS
+    order, _, offsets, _, src = M.sort_pairs(idx, valid, E)
+    route_w = torch.rand(MOE_ROWS * MOE_TOP_K, device="cuda", generator=gen)[order]
+    return x[src], offsets, route_w, w, MOE_ROUTED_ROWS * MOE_TOP_K
+
+
+def phase_kernels_moe(torch) -> dict:
+    """The grouped SwiGLU expert kernels against the per-expert loop at
+    Moonlight's widths (phase 3b): outputs and gradients, the bits of two
+    calls, the launches a call, and the device ms of each call kind."""
+    from gan_ffn_tpu_torch.ops import moe as O
+
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    rows = {}
+    for kind, (E, F) in MOE_GROUPS.items():
+        x, offsets, route_w, w, grouped = _moe_case(torch, kind, gen)
+        dy = torch.randn(x.shape[0], MOE_HIDDEN, device="cuda", generator=gen)
+
+        def run(fn, x=x, offsets=offsets, route_w=route_w, w=w, grouped=grouped, dy=dy):
+            leaves = [t.clone().requires_grad_(True) for t in (x, *w)]
+            wt = None if route_w is None else route_w.clone().requires_grad_(True)
+            y = fn(*leaves, offsets, wt)
+            grads = torch.autograd.grad(y[:grouped], leaves + ([wt] if wt is not None else []),
+                                        dy[:grouped])
+            return ([y[:grouped], grads[0][:grouped], *grads[1:4]]
+                    + ([grads[4][:grouped]] if wt is not None else []))
+
+        before = O.grouped_swiglu.launches, O.grouped_swiglu.backward_launches
+        got = run(O.grouped_swiglu)
+        if (O.grouped_swiglu.launches, O.grouped_swiglu.backward_launches) != (before[0] + 1,
+                                                                               before[1] + 1):
+            fail(f"grouped_swiglu {kind}: not one forward and one backward call counted")
+        again = run(O.grouped_swiglu)
+        want = run(O.grouped_swiglu_plain)
+        torch.cuda.synchronize()
+        names = ("y", "dx", "dw_gate", "dw_up", "dw_down", "dweights")
+        errs = {n: (g - r).abs().max().item() / max(r.abs().max().item(), 1e-30)
+                for n, g, r in zip(names, got, want)}
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        del got, again, want
+
+        host_offsets = None if offsets is None else offsets.cpu()  # the loop reads them
+
+        def fwd_bwd(x=x, offsets=offsets, route_w=route_w, w=w, dy=dy):
+            leaves = [t.detach().requires_grad_(True) for t in (x, *w)]
+            return lambda: torch.autograd.grad(O.grouped_swiglu(*leaves, offsets, route_w),
+                                               leaves, dy)
+
+        timing = {"reps": 11, "group": 5}
+        fwd_ms = device_time_ms(torch, lambda: O.grouped_swiglu(x, *w, offsets, route_w), **timing)
+        both_ms = device_time_ms(torch, fwd_bwd(), **timing)
+        plain_ms = device_time_ms(
+            torch, lambda: O.grouped_swiglu_plain(x, *w, host_offsets, route_w), **timing)
+        bounds = {d: sum(bound_ms(b, f)[0] for b, f in _moe_bytes_flops(grouped, E, MOE_HIDDEN, F,
+                                                                        d == "bwd"))
+                  for d in ("fwd", "bwd")}
+        line = {"phase": "kernel", "name": "grouped_swiglu", "kind": kind, "groups": E,
+                "width": F, "hidden": MOE_HIDDEN, "rows": x.shape[0], "grouped_rows": grouped,
+                "rel_err": errs, "identical_bits": same,
+                "fwd": {"ms": fwd_ms, "plain_ms": plain_ms, "bound_ms": bounds["fwd"]},
+                "bwd": {"ms": both_ms - fwd_ms, "bound_ms": bounds["bwd"]},
+                "fwd_bwd_ms": both_ms}
+        emit(line)
+        if not all(e <= MOE_TOL for e in errs.values()):
+            fail(f"grouped_swiglu {kind}: {errs}, limit {MOE_TOL} of max |ref|")
+        if not same:
+            fail(f"grouped_swiglu {kind}: two calls differ in bits")
+        rows[kind] = line
+    return rows
+
+
+def phase_moonlight_step(torch) -> dict:
+    """One eager stage-A step with the Moonlight text generator (phase 3b):
+    the wrappers' launches in each of 2 steps, the losses, the MoE layers'
+    routed rows and loads, host ms of 3 more, and the peak memory."""
+    from gan_ffn_tpu_torch.cli.common import make_stage_a_step
+    from gan_ffn_tpu_torch.ops import moe as O
+    from gan_ffn_tpu_torch.train.gan import GANConfig, init_gan_state
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = GANConfig(num_layers=8, seed=5, text_generator="moonlight")
+    state = init_gan_state(cfg, device="cuda")
+    step = make_stage_a_step(cfg, state)
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    batch = {k: torch.randn(112, 32, d, device="cuda", generator=gen)
+             for k, d in (("text", 100), ("visual", 512), ("audio", 100))}
+    batch["valid_len"] = torch.tensor(110, dtype=torch.int32, device="cuda")
+    batch["n_real"] = torch.tensor(32, dtype=torch.int32, device="cuda")
+
+    def read():
+        return {**_read_counts(), "moe_fwd": O.grouped_swiglu.launches,
+                "moe_bwd": O.grouped_swiglu.backward_launches}
+
+    losses = {}
+    counts = _launches_per_step(torch, lambda: losses.update(step(batch)), n=2, read=read)
+    if any(c != MOONLIGHT_STEP_LAUNCHES for c in counts):
+        fail(f"launches per Moonlight stage-A step {counts}, expected {MOONLIGHT_STEP_LAUNCHES}")
+    if not all(math.isfinite(v.item()) for v in losses.values()):
+        fail(f"Moonlight stage-A step losses {losses}")
+    layers = state.modules["text_gen"].moe_layers()
+    routed = [int(m.routed_rows) for m in layers]
+    loads = [int(m.last_load.sum()) for m in layers]
+    if routed != [MOE_ROUTED_ROWS] * len(layers) or loads != [MOE_TOP_K * MOE_ROUTED_ROWS] * len(layers):
+        fail(f"Moonlight MoE layers routed {routed} rows with loads {loads}: expected "
+             f"{MOE_ROUTED_ROWS} and {MOE_TOP_K * MOE_ROUTED_ROWS} each (dropless)")
+    host_ms, enqueue_ms = _host_ms(torch, lambda: step(batch), 3)
+    line = {"phase": "moonlight_step", "B": 32, "L": 112, "valid_len": 110, "n_real": 32,
+            "launches_per_step": counts[0], "moe_layers": len(layers), "routed_rows": routed,
+            "max_over_mean_load": [float(m.last_load.max() / m.last_load.float().mean())
+                                   for m in layers],
+            "host_ms": statistics.median(host_ms), "host_ms_all": host_ms,
+            "enqueue_ms": statistics.median(enqueue_ms),
+            "parameters": sum(p.numel() for p in state.modules["text_gen"].parameters()),
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+    emit(line)
+    del state, step, layers, losses
+    torch.cuda.empty_cache()
+    return line
 
 
 def _post(url, payload):
@@ -3513,6 +3712,8 @@ def main() -> None:
     phase_kernels_attention(torch, rows)
     phase_kernels_mlp(torch, rows)
     gru_rows = phase_kernels_gru(torch)
+    moe_rows = phase_kernels_moe(torch)
+    moon_step = phase_moonlight_step(torch)
     serve_counts, fwd_ms = phase_serving(torch)
     with tempfile.TemporaryDirectory() as tmp:
         train_counts, step, gan_step = phase_training(torch, tmp)
@@ -3657,6 +3858,22 @@ def main() -> None:
                 v: families["dialoguernn"][v]["gru_launches_per_forward"][0][name]
                 for v in FAMILY_VARIANTS},
         })
+    for part, passes in (("fwd", 4), ("bwd", 2)):
+        # a Moonlight stage-A step: each text-generator pass calls the op
+        # MOE_CALLS_PER_PASS times of each kind
+        total = lambda key, part=part, passes=passes: sum(  # noqa: E731
+            passes * n * moe_rows[kind][part][key] for kind, n in MOE_CALLS_PER_PASS.items())
+        kernels.append({
+            "name": f"grouped_swiglu_{part}", "route": "cuda", "source": MOE_SOURCE,
+            "replaces": "the per-expert loop (ops.moe.grouped_swiglu_plain); no TPU kernel",
+            "kernels": list(MOE_KERNELS[part]),
+            "launches": moon_step["launches_per_step"][f"moe_{part}"],
+            "max_rel_err": max(max(r["rel_err"].values()) for r in moe_rows.values()),
+            "per": f"one Moonlight stage-A step at B=32, L=112: {passes} text-generator passes "
+                   "of the calls of MOE_CALLS_PER_PASS at the shapes of the grouped_swiglu lines",
+            "moonlight_step_ms": total("ms"), "moonlight_step_bound_ms": total("bound_ms"),
+            "moonlight_step_plain_ms": total("plain_ms") if part == "fwd" else None,
+        })
     runs = bf16_train["runs"]
     for name, source in BF16_TRAIN_SOURCES.items():
         r = bf16_train["rows"][name]
@@ -3687,8 +3904,13 @@ def main() -> None:
             kernels[-1]["f64_floor_ms"] = total("f64_floor_ms")
             kernels[-1]["f64_tflops"] = PEAK_F64_TENSOR_FLOPS / 1e12 * total("f64_floor_ms") / total("ms")
     for entry in kernels:  # every variant's registers and spill bytes (ptxas)
-        variants = (resources.get(entry["name"], []) if entry["source"] != GRU_SOURCE else
-                    [r for r in resources["gru_gates"] if entry["name"] in r["kernel"]])
+        if entry["source"] == GRU_SOURCE:
+            variants = [r for r in resources["gru_gates"] if entry["name"] in r["kernel"]]
+        elif entry["source"] == MOE_SOURCE:
+            variants = [r for r in resources["moe_ffn"]
+                        if any(k in r["kernel"] for k in entry["kernels"])]
+        else:
+            variants = resources.get(entry["name"], [])
         entry["variants"] = [{k: r[k] for k in ("registers", "spill_stores", "spill_loads")}
                              for r in variants]
         entry["registers"] = max((r["registers"] or 0 for r in variants), default=None)
@@ -3703,6 +3925,11 @@ def main() -> None:
                 fail(f"{entry['name']} was not launched on every DialogueRNN path: {entry}")
             if not entry["variants"]:
                 fail(f"no ptxas resources for {entry['name']} in the gru_gates library's log")
+            continue
+        if entry["source"] == MOE_SOURCE:  # the counts themselves are checked in phase 3b
+            if entry["launches"] < 1 or not entry["variants"]:
+                fail(f"{entry['name']}: not launched in the Moonlight step, or no ptxas "
+                     f"resources in the moe_ffn library's log: {entry}")
             continue
         if entry["name"] in BF16_SOURCES:
             if entry["launches"] < 1 or entry["predict_bf16_launches"] < 1:

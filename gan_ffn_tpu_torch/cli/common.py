@@ -24,7 +24,9 @@ from torch import nn
 
 from ..data import get_iemocap_loaders, write_synthetic_iemocap
 from ..data.loaders import Batch, BucketedLoader, _bucket_for
+from ..models.moonlight import MoonlightConfig
 from ..nn.core import set_dropout_generator
+from ..nn.moe import MoE
 from ..ops.dropout import StepSeeds
 from ..parallel.mesh import DataParallel, fold_torch_seed, init_data_parallel, replicate
 from ..train.classifier import GENERATOR_GAN_KEYS, graft_generator_params, make_grad_fn
@@ -64,6 +66,12 @@ def setup(parser: argparse.ArgumentParser, argv=None,
     if getattr(args, "epoch_fused", False) and getattr(args, "dp", False):
         parser.error("--epoch-fused is not wired for --dp (the stacked epoch is not "
                      "mesh-sharded); use per-batch --dp, or --epoch-fused single-chip")
+    if getattr(args, "text_generator", "transformer") == "moonlight":
+        if getattr(args, "bf16", False):
+            parser.error("--text-generator moonlight computes in float32: drop --bf16")
+        if getattr(args, "scan_layers", False):
+            parser.error("--scan-layers stacks the Transformer encoders' layers; the Moonlight "
+                         "stack's layers differ (one dense, then MoE): drop one of the two flags")
     if (getattr(args, "epoch_fused", False) and getattr(args, "tensorboard", False)
             and getattr(args, "tb_grad_histograms", None) == "batch"):
         parser.error("--epoch-fused cannot honour --tb-grad-histograms batch: the per-batch "
@@ -92,6 +100,20 @@ def compute_dtype(args) -> Optional[torch.dtype]:
     float32), as the JAX trainers derive it: float32 parameters, cast to
     bf16 at each use, with LayerNorm, the log-softmax and Adam in float32."""
     return torch.bfloat16 if args.bf16 else None
+
+
+def moe_counters(model: nn.Module) -> list:
+    """Each MoE layer of ``model``'s Moonlight generators, from its last
+    forward that took gradients: its largest expert load over the mean
+    load, and the rows routed (an empty list without such a layer)."""
+    out = []
+    for name, m in model.named_modules():
+        if isinstance(m, MoE):
+            load = m.last_load.float()
+            out.append({"layer": name, "max_over_mean_load":
+                        float(load.max() / load.mean().clamp(min=1e-30)),
+                        "routed_rows": int(m.routed_rows)})
+    return out
 
 
 def param_count(model: nn.Module) -> int:
@@ -313,7 +335,9 @@ def stage_a(args, device, load: bool, continue_epochs: int,
     (:func:`train_gan`); rank 0 alone writes the files.  Where ``args`` has
     no ``output_dir`` (the seed sweep), no loss history is written."""
     gan_cfg = GANConfig(num_layers=args.num_layers, dtype=compute_dtype(args),
-                        seed=args.seed)  # lr 1e-4, betas (0.5, 0.6)
+                        seed=args.seed,  # lr 1e-4, betas (0.5, 0.6)
+                        text_generator=getattr(args, "text_generator", "transformer"),
+                        moonlight=MoonlightConfig())  # the published widths, 5 layers
     gan_train_loader, _, _ = get_iemocap_loaders(
         args.data_path, batch_size=32, valid=0.1, seed=args.seed,
         strict_parity=getattr(args, "strict_parity", False),

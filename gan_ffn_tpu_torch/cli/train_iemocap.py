@@ -90,8 +90,10 @@ from ..train.optim import torch_adam
 from ..utils import profiling
 from ..utils.checkpoint import save_params
 from ..utils.weights import jax_params_from_state_dict
+from ..train.gan import TEXT_GENERATORS
 from .common import (IEMOCAP_LOSS_WEIGHTS, IEMOCAP_N_CLASSES, TensorBoardLog, compute_dtype,
-                     data_parallel, graft_generators, param_count, setup, stage_a)
+                     data_parallel, graft_generators, moe_counters, param_count, setup,
+                     stage_a)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -151,6 +153,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--profile", default=None, metavar="LOGDIR",
                    help="write a torch.profiler trace of stage B's train epoch 1 to LOGDIR, "
                         "with the port's tracing on, and print its regions' ms")
+    p.add_argument("--text-generator", choices=TEXT_GENERATORS, default="transformer",
+                   help="stage A's (and the classifier's) text generator: the reference's "
+                        "8-layer encoder, or Moonlight-16B-A3B's decoder stack (latent "
+                        "attention, 64 routed experts; float32)")
     p.add_argument("--synthetic-train", type=int, default=120,
                    help="synthetic fixture train dialogues")
     p.add_argument("--synthetic-test", type=int, default=31)
@@ -172,7 +178,7 @@ def main(argv=None) -> dict:
     # ---- Stage B: GAN_FFN with the trained generators ----
     torch.manual_seed(args.seed)
     model = GAN_FFN(n_classes=IEMOCAP_N_CLASSES, dropout=args.dropout,
-                    gen_num_layers=args.num_layers,
+                    gen_num_layers=args.num_layers, text_generator=args.text_generator,
                     generator=torch.Generator().manual_seed(args.seed), device=device,
                     dtype=compute_dtype(args))
     graft_generators(model, gan_state)
@@ -203,7 +209,8 @@ def main(argv=None) -> dict:
             train_res = run(train_loader, train_step, device, lr_scale=lr_scale,
                             **log.run_kwargs(e))
         if profiled:
-            print(json.dumps({"profile": profiling.report(profiling.collect())}))
+            print(json.dumps({"profile": profiling.report(profiling.collect()),
+                              "moe": moe_counters(model)}))
         valid_res = run(valid_loader, eval_step, device)
         test_res = run(test_loader, eval_step, device)
         log.end_epoch(e, train_res, test_res)

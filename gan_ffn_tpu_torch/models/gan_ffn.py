@@ -29,6 +29,7 @@ from torch import nn
 from ..nn.core import Linear
 from .dialogue_rnn import BiModel
 from .generators import AcousticGenerator, TextGenerator, VisualGenerator
+from .moonlight import MoonlightConfig, MoonlightGenerator
 
 
 class GAN_FFN(nn.Module):
@@ -36,7 +37,10 @@ class GAN_FFN(nn.Module):
     log_prob (L,B,n_classes) float32.
 
     The JAX module also returns three empty attention lists; this one
-    returns the log-probabilities alone.
+    returns the log-probabilities alone.  ``text_generator="moonlight"``
+    builds the Moonlight stack (``models/moonlight.py``, ``moonlight``'s
+    size) as the text generator, which stage A's of the same kind grafts
+    into; it routes the utterances below ``valid_len``.
     """
 
     INPUTS = ("audio", "visual", "text")
@@ -47,7 +51,8 @@ class GAN_FFN(nn.Module):
     def __init__(self, n_classes: int = 6, dropout: float = 0.2, D_h: int = 100,
                  gen_dropout: float = 0.2, gen_num_layers: int = 8, *,
                  generator: Optional[torch.Generator] = None, device="cuda",
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None, text_generator: str = "transformer",
+                 moonlight: Optional[MoonlightConfig] = None):
         super().__init__()
         self.n_classes, self.D_h, self.gen_num_layers = n_classes, D_h, gen_num_layers
         self.dropout = dropout  # unused in the forward, as in the reference
@@ -56,7 +61,13 @@ class GAN_FFN(nn.Module):
         gen = dict(kw, dtype=dtype)
         self.acoustic_generator = AcousticGenerator(D_h, gen_dropout, gen_num_layers, **gen)
         self.visual_generator = VisualGenerator(D_h, gen_dropout, gen_num_layers, **gen)
-        self.text_generator = TextGenerator(D_h, gen_dropout, gen_num_layers, **gen)
+        if text_generator == "moonlight":
+            if dtype is not None:
+                raise ValueError("the Moonlight text generator computes in float32 only")
+            self.text_generator = MoonlightGenerator(D_h, gen_dropout,
+                                                     moonlight or MoonlightConfig(), **kw)
+        else:
+            self.text_generator = TextGenerator(D_h, gen_dropout, gen_num_layers, **gen)
         self.fc = Linear(D_h, n_classes, **kw)
 
     def forward(self, acoustic: torch.Tensor, visual: torch.Tensor, text: torch.Tensor,

@@ -3,7 +3,7 @@ positional encoding, the Transformer encoder, the attentions, the GRU and
 LSTM, and the losses."""
 
 from .attention import Attention, MatchingAttention, SimpleAttention, matching
-from .core import Embedding, LayerNorm, Linear, gelu, hardswish
+from .core import Embedding, LayerNorm, Linear, RMSNorm, gelu, hardswish
 from .losses import (
     bce_loss,
     focal_loss,
@@ -27,6 +27,7 @@ __all__ = [
     "MatchingAttention",
     "MultiheadSelfAttention",
     "PositionalEncoding",
+    "RMSNorm",
     "SimpleAttention",
     "TransformerEncoder",
     "TransformerEncoderLayer",

@@ -176,3 +176,19 @@ class LayerNorm(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = F.layer_norm(x.float(), x.shape[-1:], self.weight.float(), self.bias.float(), self.eps)
         return y.to(self.dtype or x.dtype)
+
+
+class RMSNorm(nn.Module):
+    """RMSNorm over the last axis (DeepSeek-V3's ``DeepseekV3RMSNorm``):
+    ``weight * x / sqrt(mean(x^2) + eps)`` in float32, the scale starting
+    at 1."""
+
+    def __init__(self, features: int, eps: float = 1e-6, *, device="cuda"):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(features, device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = x.float()
+        h = h * torch.rsqrt(h.pow(2).mean(-1, keepdim=True) + self.eps)
+        return (self.weight * h).to(x.dtype)

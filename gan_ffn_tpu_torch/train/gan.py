@@ -30,6 +30,13 @@ the BCE at bf16 (``nn.losses.bce_loss``), the kernels' bf16 forwards and
 backwards, and each Adam on the float32 parameters with the float32
 gradients that come back through the casts.
 
+``GANConfig(text_generator="moonlight")`` makes the text generator
+Moonlight-16B-A3B's decoder stack (``models/moonlight.py``, sized by
+``GANConfig.moonlight``): every call hands it the duel mask's rows to route
+(:func:`generate`), its gen duels add its MoE balance loss to the BCE, and
+after its Adam step its ``after_step`` updates the correction biases and
+drops its gradients, all inside the step (and its graph).
+
 The JAX package compiles the schedule as one program or as twelve; in eager
 torch both are this one loop.  :func:`make_gan_epoch_step` is the same step
 for the epoch-fused stage A (``--epoch-fused``): one CUDA graph per batch
@@ -67,6 +74,7 @@ from ..models import (
     VisualDiscriminator,
     VisualGenerator,
 )
+from ..models.moonlight import MoonlightConfig, MoonlightGenerator
 from ..nn.core import dropout_seeds_of
 from ..nn.losses import bce_denominator, bce_loss
 from ..parallel.mesh import DataParallel, active, all_reduce_grads, all_reduce_sum, shard_batch
@@ -107,6 +115,8 @@ LOGGED_LOSS_KEYS = (
 # the batch tensor that carries each modality's real features
 REAL_INPUTS = {"acoustic": "audio", "visual": "visual", "text": "text"}
 
+TEXT_GENERATORS = ("transformer", "moonlight")
+
 _MODULES = {
     "acoustic_gen": AcousticGenerator,
     "visual_gen": VisualGenerator,
@@ -127,6 +137,8 @@ class GANConfig:
     b2: float = 0.6
     dtype: Optional[torch.dtype] = None  # the six networks' compute dtype (bf16: --bf16)
     seed: int = 3407
+    text_generator: str = "transformer"  # or "moonlight" (--text-generator)
+    moonlight: MoonlightConfig = MoonlightConfig()  # its stack, where it is Moonlight's
 
 
 class GANState(NamedTuple):
@@ -139,26 +151,59 @@ class GANState(NamedTuple):
 def create_gan_modules(cfg: GANConfig, generator: Optional[torch.Generator] = None,
                        device="cuda") -> Dict[str, nn.Module]:
     """The six networks, with weights drawn from ``generator`` (a CPU
-    ``torch.Generator``) in the order of ``GEN_NAMES + DISC_NAMES``."""
+    ``torch.Generator``) in the order of ``GEN_NAMES + DISC_NAMES``; the
+    text generator is ``cfg.text_generator``'s (``models/moonlight.py``
+    for ``"moonlight"``, float32 only)."""
     kw = dict(D_h=cfg.D_h, dropout=cfg.dropout, num_layers=cfg.num_layers,
               generator=generator, device=device, dtype=cfg.dtype)
-    return {name: cls(**kw) for name, cls in _MODULES.items()}
+    if cfg.text_generator not in TEXT_GENERATORS:
+        raise ValueError(f"text_generator {cfg.text_generator!r} is not one of {TEXT_GENERATORS}")
+    if cfg.text_generator == "moonlight" and cfg.dtype is not None:
+        raise ValueError("the Moonlight text generator computes in float32 only")
+    out = {}
+    for name, cls in _MODULES.items():
+        if name == "text_gen" and cfg.text_generator == "moonlight":
+            out[name] = MoonlightGenerator(cfg.D_h, cfg.dropout, cfg.moonlight,
+                                           generator=generator, device=device)
+        else:
+            out[name] = cls(**kw)
+    return out
+
+
+def trained_parameters(module: nn.Module) -> list:
+    """The parameters that a network's Adam updates: those that take a
+    gradient (a router's correction bias does not)."""
+    return [p for p in module.parameters() if p.requires_grad]
 
 
 def create_gan_optimizers(cfg: GANConfig,
                           modules: Mapping[str, nn.Module]) -> Dict[str, torch.optim.Adam]:
     """Per-network Adam: generators at lr (text lr * 1.1), discriminators at
-    lr / 2, betas (b1, b2), no weight decay (train_IEMOCAP.py:292-297)."""
+    lr / 2, betas (b1, b2), no weight decay (train_IEMOCAP.py:292-297).  A
+    Moonlight text generator's on a card is torch's fused Adam, which keeps
+    no temporaries the size of its ~2.4B parameters."""
     lr = {name: cfg.lr for name in GEN_NAMES} | {name: cfg.lr / 2 for name in DISC_NAMES}
     lr["text_gen"] = cfg.lr * 1.1
-    return {name: torch_adam(modules[name].parameters(), lr[name], (cfg.b1, cfg.b2))
-            for name in GEN_NAMES + DISC_NAMES}
+    out = {}
+    for name in GEN_NAMES + DISC_NAMES:
+        params = trained_parameters(modules[name])
+        fused = isinstance(modules[name], MoonlightGenerator) and params[0].device.type == "cuda"
+        out[name] = torch_adam(params, lr[name], (cfg.b1, cfg.b2), fused=fused or None)
+    return out
 
 
 def init_gan_state(cfg: GANConfig, device="cuda") -> GANState:
     """Fresh networks (weights from ``cfg.seed``) and their Adams."""
     modules = create_gan_modules(cfg, torch.Generator().manual_seed(cfg.seed), device)
     return GANState(modules, create_gan_optimizers(cfg, modules))
+
+
+def generate(module: nn.Module, x: torch.Tensor, valid_len, mask: torch.Tensor):
+    """``module(x)``, handing a generator that routes rows (Moonlight's) the
+    duel mask's rows: padded rows take no expert."""
+    if getattr(module, "takes_row_mask", False):
+        return module(x, valid_len=valid_len, row_mask=mask)
+    return module(x, valid_len=valid_len)
 
 
 def duel_mask(batch: Mapping) -> torch.Tensor:
@@ -209,7 +254,7 @@ def make_gan_epoch_step(modules: Mapping[str, nn.Module], opts: Mapping[str, tor
 
 
 def _gan_step(modules, opts, deterministic, graphed, dp=None):
-    params = {name: list(m.parameters()) for name, m in modules.items()}
+    params = {name: trained_parameters(m) for name, m in modules.items()}
     seeds = None if deterministic else dropout_seeds_of(modules.values())
     if dp is not None and seeds is not None:
         seeds.rank = dp.rank
@@ -221,7 +266,7 @@ def _gan_step(modules, opts, deterministic, graphed, dp=None):
     def update(net: str, loss: torch.Tensor) -> None:
         grads = torch.autograd.grad(loss, params[net])
         for p, g in zip(params[net], grads):
-            p.grad = g
+            p.grad = g.contiguous()  # a fused Adam takes each gradient in its parameter's strides
         if dp is not None:
             # In a graphed step NCCL's all-reduce is captured with the rest: with
             # an NCCL group of one on an H100 (torch 2.11, NCCL 2.28.9) capture
@@ -229,6 +274,9 @@ def _gan_step(modules, opts, deterministic, graphed, dp=None):
             # steps (chip_smoke.py phase 12); across cards it is not measured.
             all_reduce_grads(params[net], dp)
         opts[net].step()
+        after = getattr(modules[net], "after_step", None)
+        if after is not None:  # the Moonlight generator's correction biases
+            after()
 
     def body(batch: Mapping) -> Dict[str, torch.Tensor]:
         mask = duel_mask(batch)
@@ -252,13 +300,16 @@ def _gan_step(modules, opts, deterministic, graphed, dp=None):
                 if kind == "disc":
                     real_prob = trained(real, valid_len=valid_len)
                     with torch.no_grad():
-                        fake = opponent(batch[REAL_INPUTS[opp_mod]], valid_len=valid_len)
+                        fake = generate(opponent, batch[REAL_INPUTS[opp_mod]], valid_len, mask)
                     fake_prob = trained(fake, valid_len=valid_len)
                     loss = (bce(real_prob, torch.ones_like(real_prob), mask)
                             + bce(fake_prob, torch.zeros_like(fake_prob), mask)) / 2.0
                 else:
-                    prob = opponent(trained(real, valid_len=valid_len), valid_len=valid_len)
+                    prob = opponent(generate(trained, real, valid_len, mask), valid_len=valid_len)
                     loss = bce(prob, torch.ones_like(prob), mask)
+                    balance = getattr(trained, "balance_loss", None)
+                    if balance is not None:  # the Moonlight generator's MoE balance
+                        loss = loss + balance
                 update(net, loss)
                 losses[f"duel_{i}"] = losses[log_key] = loss.detach()
         if dp is not None:  # the ranks' numerators over the global denominators, summed

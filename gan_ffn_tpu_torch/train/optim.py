@@ -8,7 +8,10 @@ that is ``torch.optim.Adam`` itself.
 A CUDA graph can record ``step()`` only of a capturable Adam, whose step
 counts and lr live in device tensors: :func:`make_capturable` turns an Adam
 on the card so, and the epoch-fused steps (``train/graphs.py``) call it.
-The per-batch steps keep the plain Adam: a capturable one launches a kernel
+``torch_adam(..., fused=True)`` is torch's fused Adam, which the
+Moonlight text generator's takes on a card (``train/gan.py``): one kernel
+over the parameters and no temporaries the size of them.  The per-batch
+steps keep the plain Adam: a capturable one launches a kernel
 per parameter for each of its bias-correction terms, 2,565 more kernels per
 stage-A step on the H100 (PERF.md §5), which an eager step would enqueue.
 :func:`set_lr_scale` changes the lr in place where it is a tensor, between
@@ -17,7 +20,7 @@ replays.  Each group keeps its starting lr as a float under ``initial_lr``.
 
 from __future__ import annotations
 
-from typing import Iterable, Tuple
+from typing import Iterable, Optional, Tuple
 
 import torch
 
@@ -28,8 +31,10 @@ def torch_adam(
     betas: Tuple[float, float] = (0.9, 0.999),
     eps: float = 1e-8,
     weight_decay: float = 0.0,
+    fused: Optional[bool] = None,
 ) -> torch.optim.Adam:
-    opt = torch.optim.Adam(params, lr=lr, betas=betas, eps=eps, weight_decay=weight_decay)
+    opt = torch.optim.Adam(params, lr=lr, betas=betas, eps=eps, weight_decay=weight_decay,
+                           fused=fused)
     for group in opt.param_groups:
         group["initial_lr"] = float(lr)
     return opt

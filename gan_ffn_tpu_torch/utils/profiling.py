@@ -37,7 +37,13 @@ flag test, and the stamp library is neither built nor loaded.  The regions:
 ``gan_ffn.step`` (every step that ``train/graphs.ShapeGraphs`` runs, eager or
 captured, and the classifier's per-batch steps), and ``gan_ffn.forward``,
 ``gan_ffn.backward`` and ``gan_ffn.optimizer`` (the classifier's train step,
-``train/classifier.py``): what the flagship trainer's ``--profile`` reports.
+``train/classifier.py``): what the flagship trainer's ``--profile`` reports;
+and the Moonlight text generator's ``gan_ffn.mla``, ``gan_ffn.moe.route``,
+``gan_ffn.moe.experts`` (``nn/mla.py``, ``nn/moe.py``).  A region of a
+backward pass is marked by two identity autograd functions
+(:func:`backward_begins` where a gradient arrives, :func:`backward_ends`
+where one leaves): ``gan_ffn.moe.route_backward`` and
+``gan_ffn.moe.experts_backward``.
 """
 
 from __future__ import annotations
@@ -282,3 +288,47 @@ def report(collected: Collected) -> dict:
             row["ms"] += r.ms
     return {"regions": out, "entries": sum(map(len, collected.entries.values())),
             "dropped": collected.dropped}
+
+
+# ---- regions of a backward pass ----------------------------------------------
+
+_open_spans: Dict[str, object] = {}  # the host spans of open backward regions, by name
+
+
+class _BackwardMark(torch.autograd.Function):
+    """The identity; its backward stamps the begin or the end of a region."""
+
+    @staticmethod
+    def forward(ctx, x, name, end):
+        ctx.name, ctx.end = name, end
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        tag = 2 * _id(ctx.name)
+        if ctx.end:
+            _stamp(tag + 1, grad.device)
+            host = _open_spans.pop(ctx.name, None)
+            if host is not None:
+                host.__exit__(None, None, None)
+        else:
+            host = _open_spans[ctx.name] = torch.profiler.record_function(ctx.name)
+            host.__enter__()
+            _stamp(tag, grad.device)
+        return grad, None, None
+
+
+def backward_begins(y: torch.Tensor, name: str) -> torch.Tensor:
+    """``y``, marked where tracing is on and it takes a gradient: region
+    ``name`` begins when the gradient of ``y`` arrives."""
+    if not (_on and torch.is_grad_enabled() and y.requires_grad):
+        return y
+    return _BackwardMark.apply(y, name, False)
+
+
+def backward_ends(x: torch.Tensor, name: str) -> torch.Tensor:
+    """``x``, marked where tracing is on and it takes a gradient: region
+    ``name`` ends when the gradient of ``x`` leaves."""
+    if not (_on and torch.is_grad_enabled() and x.requires_grad):
+        return x
+    return _BackwardMark.apply(x, name, True)

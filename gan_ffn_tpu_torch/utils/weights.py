@@ -13,11 +13,16 @@ for name, with these rewrites:
   ``weight_hh``, ``b_ih`` / ``b_hh`` -> ``bias_ih`` / ``bias_hh``, and so
   the LSTM's per-layer ``w_ih_l{k}[_reverse] (in, 4H)`` -> ``weight_ih_l{k}
   [_reverse] (4H, in)``, ``b_ih_l{k}[_reverse]`` -> ``bias_ih_l{k}[_reverse]``;
-- LayerNorm ``scale`` -> ``weight``;
+- LayerNorm ``scale`` -> ``weight`` (and RMSNorm's);
 - flax ``Conv`` ``kernel``: 2-D ``(fs, E, 1, F)`` -> ``Conv2d`` ``weight (F,
   1, fs, E)``, 1-D ``(K, E, F)`` -> ``Conv1d`` ``weight (F, E, K)``;
 - flax ``Embed`` ``embedding (V, D)`` -> ``weight (V, D)``;
 - ``layers_i`` -> ``layers.i``.
+
+The Moonlight text generator's own leaves (``models/moonlight.py``: a
+router's ``kernel`` and ``e_score_correction_bias``, the experts' stacked
+``w_gate``, ``w_up``, ``w_down``) keep torch's layout: the JAX package has
+no such module.
 
 ``load_state_dict`` (strict, the default) then refuses missing, extra and
 misshapen keys.
@@ -47,7 +52,8 @@ import torch
 from torch import nn
 
 from ..nn.attention import Attention
-from ..nn.core import Embedding, LayerNorm, Linear
+from ..nn.core import Embedding, LayerNorm, Linear, RMSNorm
+from ..nn.moe import Experts, Router
 from ..nn.recurrent import GRU, LSTM, GRUCell, LSTMCell
 from ..nn.transformer import MultiheadSelfAttention
 from ..train.gan import DISC_NAMES, GEN_NAMES
@@ -183,6 +189,10 @@ _OWNED = {
     nn.Conv2d: {"weight": ("kernel", True), "bias": ("bias", False)},
     Embedding: {"weight": ("embedding", False)},
     Attention: {"weight": ("weight", False)},  # the mlp and bi_linear scores' own
+    RMSNorm: {"weight": ("scale", False)},
+    Router: {"weight": ("kernel", True),
+             "e_score_correction_bias": ("e_score_correction_bias", False)},
+    Experts: {"w_gate": ("w_gate", False), "w_up": ("w_up", False), "w_down": ("w_down", False)},
 }
 _RECURRENT = (GRUCell, GRU, LSTMCell, LSTM)
 _RECURRENT_NAME = re.compile(r"(weight|bias)_(ih|hh)(_l\d+(?:_reverse)?)?")

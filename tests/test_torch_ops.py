@@ -311,7 +311,7 @@ def test_library_path_follows_the_included_headers(tmp_path):
     assert set(_build.sources()) == {"attention_fwd", "attention_bwd", "mlp_fwd", "mlp_bwd",
                                      "attention_fwd_bf16", "mlp_fwd_bf16",
                                      "attention_bwd_bf16", "mlp_bwd_bf16", "trace_stamp",
-                                     "gru_gates"}
+                                     "gru_gates", "moe_ffn"}
     # the bf16 kernels follow their tensor-core header too, and each bf16
     # backward the header of the code it shares with its forward
     for name, shared in (("attention_fwd_bf16", "attention_bf16.cuh"),
